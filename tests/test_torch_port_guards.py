@@ -1,0 +1,168 @@
+"""Guards of the PyTorch port: it never imports JAX, sets true-float32
+matmuls, refuses to build without nvcc, validates kernel inputs before any
+launch, and sends a non-CPU tensor only to a kernel (no plain fallback)."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import aruco_slam_tpu_torch
+from aruco_slam_tpu_torch.models import ekf
+from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+from aruco_slam_tpu_torch.ops.kernels import _build, ekf_update_batched, pnp_frontend
+from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG = SlamConfig(ekf=EkfConfig(max_landmarks=4, max_observations_per_frame=3))
+CAM = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+
+
+def test_port_imports_no_jax_and_no_yaml():
+    code = (
+        "import sys\n"
+        "import aruco_slam_tpu_torch, aruco_slam_tpu_torch.runner, "
+        "aruco_slam_tpu_torch.sim.synthetic, aruco_slam_tpu_torch.convert\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yaml', 'aruco_slam_tpu')"
+        " or m.startswith(('jax.', 'jaxlib.', 'aruco_slam_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_precision_flags_set_on_import():
+    assert aruco_slam_tpu_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_build_without_nvcc_names_the_compiler(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("pnp_frontend")
+    assert not (tmp_path / "build").exists()
+
+
+def _k2_args(B=2, M=3, device="cpu"):
+    state = ekf.init_state(CFG, B, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return dict(
+        state=state,
+        pose=torch.zeros(B, 3, **f32),
+        A=torch.eye(3, **f32).reshape(1, 9).repeat(B, 1),
+        Q=torch.zeros(B, 9, **f32),
+        ids=torch.full((B, M), -1, **i32),
+        z=torch.zeros(B, M, 3, **f32),
+        R9=torch.eye(3, **f32).reshape(1, 1, 9).repeat(B, M, 1),
+        valid=torch.zeros(B, M, dtype=torch.bool, device=device),
+        slots=torch.full((B, M), -1, **i32),
+        config=CFG,
+    )
+
+
+def test_frame_step_rejects_bad_inputs():
+    ok = _k2_args()
+    out = ekf_update_batched.frame_step_batched(**ok)
+    assert out.n_landmarks.tolist() == [0, 0]
+    with pytest.raises(TypeError, match="slots"):
+        ekf_update_batched.frame_step_batched(**{**ok, "slots": ok["slots"].long()})
+    sig = ok["state"].sigma
+    strided = sig.transpose(1, 2)  # same shape (square), not contiguous
+    assert strided.shape == sig.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="sigma"):
+        ekf_update_batched.frame_step_batched(
+            **{**ok, "state": ok["state"]._replace(sigma=strided)}
+        )
+    with pytest.raises(ValueError, match="z must be"):
+        ekf_update_batched.frame_step_batched(**{**ok, "z": ok["z"][:, :2]})
+
+
+def test_pnp_frontend_rejects_bad_inputs():
+    corners = torch.zeros(2, 3, 4, 2)
+    valid = torch.zeros(2, 3, dtype=torch.bool)
+    with pytest.raises(TypeError, match="float32"):
+        pnp_frontend.pnp_frontend_batch(corners.double(), valid, CAM, CFG)
+    with pytest.raises(TypeError, match="bool"):
+        pnp_frontend.pnp_frontend_batch(corners, valid.int(), CAM, CFG)
+    with pytest.raises(ValueError, match="contiguous"):
+        pnp_frontend.pnp_frontend_batch(corners.transpose(0, 1).contiguous().transpose(0, 1),
+                                        valid, CAM, CFG)
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    """A tensor off the CPU goes to a kernel or raises: 'meta' has none."""
+    before = (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES)
+    with pytest.raises(ValueError, match="no kernel"):
+        pnp_frontend.pnp_frontend_batch(
+            torch.zeros(2, 3, 4, 2, device="meta"),
+            torch.zeros(2, 3, dtype=torch.bool, device="meta"), CAM, CFG,
+        )
+    with pytest.raises(ValueError, match="no kernel"):
+        ekf_update_batched.frame_step_batched(**_k2_args(device="meta"))
+    assert (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES) == before
+
+
+def test_shared_memory_budget():
+    assert ekf_update_batched.shared_bytes(99, 32) == 43_668  # main path: N = 99
+    fits = [
+        lm for lm in range(1, 128)
+        if ekf_update_batched.shared_bytes(3 + 3 * lm, lm) <= ekf_update_batched.MAX_SHARED_BYTES
+    ]
+    assert max(fits) == 77 and 64 in fits
+
+
+def test_lookup_slots_never_argmaxes_bool(monkeypatch):
+    real = torch.argmax
+
+    def strict(x, *a, **k):
+        if x.dtype == torch.bool:
+            raise RuntimeError("argmax(): does not support bool input")
+        return real(x, *a, **k)
+
+    monkeypatch.setattr(torch, "argmax", strict)
+    slot_ids = torch.tensor([[4, 9, -1, -1], [7, -1, -1, -1]], dtype=torch.int32)
+    ids = torch.tensor([[9, 5, 4], [-1, 7, 3]], dtype=torch.int32)
+    out = ekf.lookup_slots(slot_ids, ids)
+    assert out.dtype == torch.int32
+    assert out.tolist() == [[1, -1, 0], [1, 0, -1]]
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # hide any card: the script must refuse
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True,
+        timeout=120, env=env,
+    )
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    proc = _run_smoke(ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_refuses_outside_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
