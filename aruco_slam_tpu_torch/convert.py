@@ -13,6 +13,7 @@ import torch
 
 from aruco_slam_tpu_torch.models.ekf import EkfState
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+from aruco_slam_tpu_torch.ops.detector import DetectorConfig
 from aruco_slam_tpu_torch.utils.config import SlamConfig, build
 
 _DTYPES = dict(
@@ -25,6 +26,16 @@ _DTYPES = dict(
 def config_from_dict(d: dict) -> SlamConfig:
     """A SlamConfig from ``dataclasses.asdict`` of either package's config."""
     return build(SlamConfig, d)
+
+
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def detector_config_from_dict(d: dict) -> DetectorConfig:
+    """A DetectorConfig from ``dataclasses.asdict`` of either package's
+    config; lists (as from JSON) become the tuples the config holds."""
+    return DetectorConfig(**{k: _tuples(v) for k, v in d.items()})
 
 
 def camera_from_numpy(fx, fy, cx, cy, dist) -> CameraIntrinsics:

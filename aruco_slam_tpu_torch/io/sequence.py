@@ -1,11 +1,12 @@
 """Sequence container (L3) — the numpy-only copy of
 ``aruco_slam_tpu.io.sequence``.
 
-Timestamped encoder + camera-frame streams at two levels of fidelity on one
-timeline: ``obs_*`` (direct (x, y, theta) marker observations) and
-``corners_px`` (per-marker pixel corners). The npz format is the JAX
-package's, so a sequence saved by either package loads in the other.
-Rendered images and the ``.asq`` container wait for the detector port.
+Timestamped encoder + camera-frame streams at three levels of fidelity on
+one timeline: ``obs_*`` (direct (x, y, theta) marker observations),
+``corners_px`` (per-marker pixel corners) and ``images`` (rendered uint8
+frames for the detector). The npz format is the JAX package's, so a
+sequence saved by either package loads in the other. The ``.asq`` image
+container is not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -22,10 +23,7 @@ _ARRAY_FIELDS = (
     "true_landmarks", "true_landmark_ids",
 )
 
-_NOT_PORTED = (
-    "image-level sequences wait for the detector and renderer port "
-    "(ROADMAP Queue 1, items 6-7)"
-)
+_NOT_PORTED = "the .asq image container is not ported yet (ROADMAP Queue 1)"
 
 
 @dataclass
@@ -43,7 +41,7 @@ class Sequence:
     obs_valid: np.ndarray  # [F, M] bool
 
     corners_px: Optional[np.ndarray] = None  # [F, M, 4, 2]
-    images: Optional[np.ndarray] = None  # [F, H, W]; not produced here
+    images: Optional[np.ndarray] = None  # [F, H, W] uint8
 
     true_pose_frames: Optional[np.ndarray] = None  # [F, 3]
     true_pose_enc: Optional[np.ndarray] = None  # [E, 3]

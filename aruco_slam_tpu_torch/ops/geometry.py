@@ -102,3 +102,26 @@ def inv_rodrigues(R: Tensor) -> Tensor:
     flip = torch.sum(axis_pi * w, dim=-1, keepdim=True) < 0.0
     axis_pi = torch.where(flip, -axis_pi, axis_pi)
     return torch.where(near_pi[..., None], axis_pi * theta[..., None], generic)
+
+
+def homography_from_4pts(src: Tensor, dst: Tensor) -> Tensor:
+    """Exact homography mapping 4 source points to 4 destination points:
+    ``src, dst [..., 4, 2]`` -> ``[..., 3, 3]`` with H[2, 2] = 1, by the
+    8x8 DLT solve."""
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    zeros = torch.zeros_like(x)
+    ones = torch.ones_like(x)
+    ru = torch.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y], dim=-1)
+    rv = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], dim=-1)
+    A = torch.cat([ru, rv], dim=-2)  # [..., 8, 8]
+    b = torch.cat([u, v], dim=-1)[..., None]  # [..., 8, 1]
+    h = torch.linalg.solve(A, b)[..., 0]
+    return torch.cat([h, torch.ones_like(h[..., :1])], dim=-1).reshape(*h.shape[:-1], 3, 3)
+
+
+def apply_homography(H: Tensor, pts: Tensor) -> Tensor:
+    """Projective transform: ``H [..., 3, 3]`` applied to ``pts [..., N, 2]``."""
+    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)  # [..., N, 3]
+    out = ph @ H.transpose(-1, -2)
+    return out[..., :2] / out[..., 2:3]

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 )
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 _loaded: dict[str, ctypes.CDLL] = {}
 # ptxas's register / shared-memory / spill report of each build, by source
 build_reports: dict[str, str] = {}
@@ -81,8 +82,11 @@ def _compile(src: Path, out: Path) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
+    """Build (if needed) and load ``csrc/<name>.cu``. Different sources may
+    be built from several threads at once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"

@@ -1,7 +1,10 @@
 """Offline replay runner (L4): deterministic, timestamp-driven, batched.
 
 Counterpart of ``aruco_slam_tpu.runner``'s batched kernel path
-(``replay_batch`` -> ``_replay_batch_kernel``). The frame loop is a Python
+(``replay_batch`` -> ``_replay_batch_kernel``). At image level the frames
+first pass through the batched detector (:func:`detect_frames`: K3, the
+fused threshold/close/CCL kernel, and the detector's torch stages, chunk by
+chunk), which turns them into corner data. The frame loop is then a Python
 loop over F frames with the state kept on the device; per frame:
 
 1. compose the frame's encoder ticks into (pose, A, Q) (``ekf.predict_compose``);
@@ -10,8 +13,8 @@ loop over F frames with the state kept on the device; per frame:
 3. look up each observation's frame-start slot and sort by (slot, arrival);
 4. one EKF frame step — K2, ``ops.kernels.ekf_update_batched``.
 
-Nothing in the loop reads a tensor back to the host. On CPU tensors both
-kernels take their plain versions, which is how the tests run it.
+Nothing in the loop reads a tensor back to the host. On CPU tensors every
+kernel takes its plain version, which is how the tests run it.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from aruco_slam_tpu_torch.io.sequence import Sequence
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+from aruco_slam_tpu_torch.ops.detector import DetectorConfig, detect_markers_batch, to_grayscale
 from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched, pnp_frontend
 from aruco_slam_tpu_torch.utils import metrics
 from aruco_slam_tpu_torch.utils.config import SlamConfig
@@ -42,6 +46,7 @@ class ReplayData(NamedTuple):
     obs_R: Tensor  # [F, M, 3, 3] float32
     obs_valid: Tensor  # [F, M] bool
     corners_px: Optional[Tensor] = None  # [F, M, 4, 2] float32 (corner level)
+    images: Optional[Tensor] = None  # [F, H, W] uint8 (image level)
 
 
 class ReplayResult(NamedTuple):
@@ -58,12 +63,12 @@ _FIELDS = (
 )
 
 
+_LEVELS = ("obs", "corners", "images")
+
+
 def _check_level(level: str) -> None:
-    if level not in ("obs", "corners"):
-        raise NotImplementedError(
-            f"level={level!r}: image-level replay waits for the detector port "
-            "(ROADMAP Queue 1, item 6)"
-        )
+    if level not in _LEVELS:
+        raise ValueError(f"level must be one of {_LEVELS}, got {level!r}")
 
 
 def _to_data(get, level: str, device) -> ReplayData:
@@ -71,12 +76,14 @@ def _to_data(get, level: str, device) -> ReplayData:
         name: torch.as_tensor(np.ascontiguousarray(get(name)), device=device).to(dtype)
         for name, dtype in _FIELDS
     }
-    corners = None
+    extra = {}
     if level == "corners":
-        corners = torch.as_tensor(
+        extra["corners_px"] = torch.as_tensor(
             np.ascontiguousarray(get("corners_px"), np.float32), device=device
         )
-    return ReplayData(**fields, corners_px=corners)
+    if level == "images":
+        extra["images"] = torch.as_tensor(np.ascontiguousarray(get("images")), device=device)
+    return ReplayData(**fields, **extra)
 
 
 def replay_data_from_sequence(seq: Sequence, level: str = "obs", device=None) -> ReplayData:
@@ -111,16 +118,92 @@ def build_batch_data(seqs, batch: int | None = None, level: str = "obs",
     return _to_data(stack, level, device)
 
 
+def _bucket_shape(h: int, w: int, buckets: tuple) -> tuple:
+    """Smallest enclosing shape bucket (``DetectorConfig.shape_buckets``),
+    or the JAX package's (8, 128)-aligned ceiling past them all; an exact
+    bucket hit pads nothing. The port keeps the JAX rule so that both pad a
+    frame alike: the padding is part of what the threshold sees."""
+    for bh, bw in buckets:
+        if h <= bh and w <= bw:
+            return bh, bw
+    return -(-h // 8) * 8, -(-w // 128) * 128
+
+
+def _pad_to_bucket(flat: Tensor, bh: int, bw: int) -> Tensor:
+    """Edge-replicate a ``[N, h, w]`` stack up to ``[N, bh, bw]`` by a
+    clamped-index gather, keeping its dtype. Edge, not zero: a zero pad
+    beside bright content reads as foreground to the adaptive threshold."""
+    h, w = flat.shape[-2:]
+    if (bh, bw) == (h, w):
+        return flat
+    rows = torch.clamp(torch.arange(bh, device=flat.device), max=h - 1)
+    cols = torch.clamp(torch.arange(bw, device=flat.device), max=w - 1)
+    return flat.index_select(1, rows).index_select(2, cols)
+
+
+def _merge_detection_chunks(outs, n: int, h: int, w: int, bh: int, bw: int):
+    """Concatenate per-chunk detections and drop those that lie, even
+    partly, in a bucket's padded margin."""
+    ids = torch.cat([o.ids for o in outs])[:n]
+    corners = torch.cat([o.corners for o in outs])[:n]
+    valid = torch.cat([o.valid for o in outs])[:n]
+    if (bh, bw) != (h, w):
+        inside = ((corners[..., 0] <= w - 0.5) & (corners[..., 1] <= h - 0.5)).all(dim=-1)
+        valid = valid & inside
+    return ids, corners, valid
+
+
+def detect_frames(images: Tensor, det_cfg: DetectorConfig = DetectorConfig(),
+                  chunk: int = 16, reference: bool = False):
+    """Batched detection over a stack of frames ``[..., H, W]`` (colour
+    ``[..., H, W, 3]`` is converted to luma, BGR order), ``chunk`` frames
+    per detector call. A frame's detections do not depend on the chunk, so
+    the last chunk is not padded. Frames that are not a shape bucket are
+    edge-padded to the smallest enclosing one, and detections that touch
+    the padding are dropped. ``reference`` runs the plain detector.
+
+    Returns (ids [..., K], corners [..., K, 4, 2], valid [..., K])."""
+    if images.dim() >= 3 and images.shape[-1] == 3:
+        images = to_grayscale(images)
+    lead = images.shape[:-2]
+    h, w = images.shape[-2:]
+    bh, bw = _bucket_shape(h, w, det_cfg.shape_buckets)
+    flat = _pad_to_bucket(images.reshape(-1, h, w), bh, bw)
+    n = flat.shape[0]
+    outs = [detect_markers_batch(flat[i: i + chunk], det_cfg, reference)
+            for i in range(0, n, chunk)]
+    ids, corners, valid = _merge_detection_chunks(outs, n, h, w, bh, bw)
+    K = ids.shape[-1]
+    return ids.reshape(*lead, K), corners.reshape(*lead, K, 4, 2), valid.reshape(*lead, K)
+
+
+def _corner_data_from_detections(data: ReplayData, ids, corners, valid) -> ReplayData:
+    return data._replace(
+        obs_ids=ids, corners_px=corners, obs_valid=valid, images=None,
+        obs_z=torch.zeros(*ids.shape, 3, dtype=corners.dtype, device=corners.device),
+        obs_R=torch.zeros(*ids.shape, 3, 3, dtype=corners.dtype, device=corners.device),
+    )
+
+
 def replay_batch(
     data: ReplayData,
     config: SlamConfig,
     camera: Optional[CameraIntrinsics] = None,
     level: str = "obs",
+    det_cfg: DetectorConfig = DetectorConfig(),
+    det_chunk: int = 16,
 ) -> ReplayResult:
     """Multi-sequence replay: every field of ``data`` carries a leading
     batch axis B. ``level`` "obs" replays the measurement stream, "corners"
-    runs the PnP front-end on ``corners_px`` with ``camera``. The kernels
-    run for CUDA tensors, their plain versions for CPU tensors."""
+    runs the PnP front-end on ``corners_px`` with ``camera``, "images"
+    detects markers in ``images`` first (``det_chunk`` frames per detector
+    call). The kernels run for CUDA tensors, their plain versions for CPU
+    tensors."""
+    if level == "images":
+        data = _corner_data_from_detections(
+            data, *detect_frames(data.images, det_cfg, det_chunk)
+        )
+        level = "corners"
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_batch, ekf_update_batched.frame_step_batched,
@@ -132,9 +215,17 @@ def replay_batch_reference(
     config: SlamConfig,
     camera: Optional[CameraIntrinsics] = None,
     level: str = "obs",
+    det_cfg: DetectorConfig = DetectorConfig(),
+    det_chunk: int = 16,
 ) -> ReplayResult:
-    """:func:`replay_batch` through the plain versions of both kernels on
-    any device: what a GPU run of the kernels is held against."""
+    """:func:`replay_batch` through the plain versions of every kernel
+    (detector CCL, K1, K2) on any device: what a GPU run of the kernels is
+    held against."""
+    if level == "images":
+        data = _corner_data_from_detections(
+            data, *detect_frames(data.images, det_cfg, det_chunk, reference=True)
+        )
+        level = "corners"
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_reference, ekf_update_batched.frame_step_reference,
@@ -146,7 +237,6 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn) -> ReplayResult:
     if level == "corners" and camera is None:
         raise ValueError("corner-level replay needs the camera")
     B, F, _ = data.obs_ids.shape
-    device = data.obs_ids.device
     dtype = torch.float32
 
     # time-major once per replay, so each frame's slice is contiguous
@@ -160,7 +250,7 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn) -> ReplayResult:
     else:
         z_f, R_f = tm(data.obs_z), tm(data.obs_R)
 
-    state = ekf.init_state(config, B, device, dtype)
+    state = ekf.init_state(config, B, data.obs_ids.device, dtype)
     traj, covs, n_lm = [], [], []
     for f in range(F):
         if level == "corners":
@@ -207,13 +297,15 @@ def replay(
     config: SlamConfig,
     camera: Optional[CameraIntrinsics] = None,
     level: str = "obs",
+    det_cfg: DetectorConfig = DetectorConfig(),
+    det_chunk: int = 16,
 ) -> ReplayResult:
     """One sequence (``data`` without a batch axis) as a batch of one.
     Trajectory [F, 3], pose_cov [F, 3, 3], n_landmarks [F]; the final state
     keeps its batch axis of one."""
     res = replay_batch(
         ReplayData(*(None if x is None else x[None] for x in data)),
-        config, camera, level,
+        config, camera, level, det_cfg, det_chunk,
     )
     return ReplayResult(res.trajectory[0], res.pose_cov[0], res.n_landmarks[0],
                         res.final_state)
@@ -224,6 +316,7 @@ def evaluate_sequence(
     config: SlamConfig,
     camera: Optional[CameraIntrinsics] = None,
     level: str = "obs",
+    det_cfg: DetectorConfig = DetectorConfig(),
     result: Optional[ReplayResult] = None,
     device=None,
 ) -> dict:
@@ -233,7 +326,7 @@ def evaluate_sequence(
         camera = seq.camera()
     if result is None:
         result = replay(replay_data_from_sequence(seq, level, device), config,
-                        camera, level)
+                        camera, level, det_cfg)
     traj = result.trajectory.detach().cpu()
     st = result.final_state
     out = {"n_landmarks": int(st.n_landmarks[0])}

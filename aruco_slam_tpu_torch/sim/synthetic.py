@@ -1,9 +1,11 @@
-"""Synthetic marker-SLAM worlds and sequences (L3) — the numpy-only copy
-of ``aruco_slam_tpu.sim.synthetic`` (obs and corner levels).
+"""Synthetic marker-SLAM worlds and sequences (L3) — counterpart of
+``aruco_slam_tpu.sim.synthetic``; numpy on the host, except the image
+level, which renders through ``sim.renderer`` on a given device.
 
-For the same :class:`SimParams` and camera it returns arrays identical to
-the JAX package's generator (``tests/test_torch_sim_io.py``). The image
-level waits for the renderer port.
+For the same :class:`SimParams` and camera it returns obs and corner
+arrays identical to the JAX package's generator, and images that differ
+from its renderer's in at most a few marker-edge pixels
+(``tests/test_torch_sim_io.py``, ``tests/test_torch_image_replay.py``).
 
 Replaces the reference's external Gazebo environment (slam.launch pulls the
 world/robot/controller from other packages, launch/slam.launch:12-41) with a
@@ -14,8 +16,9 @@ deterministic generator:
 - differential-drive trajectories driven by (v, omega) profiles converted
   to wheel angular velocities through the same kinematics the EKF assumes
   (reference src/aruco_slam.cpp:35-42),
-- observation streams at either the measurement level (x, y, theta + noise)
-  or the pixel-corner level (full 3-D projection through the camera model).
+- observation streams at the measurement level (x, y, theta + noise), the
+  pixel-corner level (full 3-D projection through the camera model) or the
+  image level (rendered 640x480 grayscale frames).
 
 Planar marker yaw convention: the azimuth of the marker's outward face
 normal. This is exactly what the reference's observed theta
@@ -228,14 +231,13 @@ def generate_sequence(
     marker_map: MarkerMap | None = None,
     level: str = "obs",
     camera=None,
+    device=None,
 ) -> Sequence:
-    """Generate a full sequence. ``level``: "obs" (measurement-space) or
-    "corners" (adds pixel-corner stream projected through ``camera``)."""
-    if level not in ("obs", "corners"):
-        raise NotImplementedError(
-            f"level={level!r}: rendered images wait for the renderer port "
-            "(ROADMAP Queue 1, item 7)"
-        )
+    """Generate a full sequence. ``level``: "obs" (measurement-space),
+    "corners" (adds the pixel-corner stream projected through ``camera``)
+    or "images" (corners, plus frames rendered on ``device``)."""
+    if level not in ("obs", "corners", "images"):
+        raise ValueError(f"level must be 'obs', 'corners' or 'images', got {level!r}")
     p = params
     rng = np.random.default_rng(p.seed)
     if marker_map is None:
@@ -366,13 +368,29 @@ def generate_sequence(
         },
     )
 
-    if level == "corners":
+    if level in ("corners", "images"):
         seq = add_corner_stream(seq, marker_map, params, camera)
+    if level == "images":
+        seq = add_image_stream(seq, marker_map, params, camera, device=device)
     if camera is not None:
         # intrinsics travel WITH the sequence (the reference reads them from
         # the CameraInfo stream, src/aruco_slam_node.cpp:121-130)
         seq.set_camera(camera)
     return seq
+
+
+def add_image_stream(
+    seq: Sequence, marker_map: MarkerMap, p: SimParams, camera,
+    height: int = 480, width: int = 640, device=None,
+) -> Sequence:
+    """Render every frame through the full camera model (``sim.renderer``,
+    on ``device``) — the image-level data source for the detector."""
+    from aruco_slam_tpu_torch.sim import renderer
+
+    images = renderer.render_sequence_frames(
+        seq, marker_map, camera, t_r2c=p.t_r2c, height=height, width=width, device=device
+    )
+    return replace(seq, images=images, meta={**seq.meta, "level": "images"})
 
 
 def camera_to_host(camera) -> tuple:

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the hand-written
 CUDA kernels from this checkout, holds each against its plain PyTorch version
-at the main path's shapes, then drives the main path — batched corner-level
-replay, 256 lanes x 600 frames — through both kernels and checks it against
-the plain path and the ground truth.
+at the main paths' shapes, then drives the two main paths — batched
+corner-level replay (256 lanes x 600 frames, K1 + K2) and batched image-level
+replay (32 lanes x 60 rendered 640x480 frames, K3 + K1 + K2) — and checks each
+against its plain path and the ground truth.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero):
   0. the card: refuse without CUDA; print its name and power limit; build
-     both kernels (nvcc, sm_90a) and print ptxas's register report.
+     the three kernel sources (nvcc, sm_90a, all at once) and print ptxas's
+     register report.
   1. K1 (PnP front-end) vs its plain version: B=256 x M=16 lanes of real
      corners, padded and garbage slots included, on an undistorted and a
      distorted camera. keep equal on every lane; z, R to atol 2e-5 (R rtol
@@ -22,6 +24,22 @@ Phases (each raises on failure; the script then exits non-zero):
      max_observations_per_frame=16), the sequences' own camera. Each kernel
      launches exactly once per frame; landmarks and slots equal the plain
      path's on every lane; the trajectory within TRAJ_TOL of it; frames/s.
+  4. the CCL family K3, K4, K5, K5s vs their plain versions, bit for bit:
+     32 rendered 640x480 frames at varied poses, 8 uniform-noise frames and
+     2 rendered 1920x1080 frames; ms per 16-frame 640x480 launch beside the
+     plain version's.
+  5. the image-level path at bench.py's shape (BASELINE.md config 3b):
+     runner.replay_batch(..., "images") over 2 rendered sequences (seeds 0
+     and 1, 6 s at 10 Hz) tiled to 32 lanes, EkfConfig(max_landmarks=32,
+     max_observations_per_frame=24), DetectorConfig(). K3 launches once per
+     128-frame chunk, K1 and K2 once per frame; detections equal the plain
+     detector's (ids, valid exact, corners to 1e-3 px); landmarks and slots
+     equal the plain path's; trajectory within TRAJ_TOL; lane 0 ATE below
+     0.05 m; frames/s of both paths (and of the kernel path at the JAX
+     default chunk of 16), the detection/replay split and a per-stage
+     split of one chunk's detection. The two other detector
+     branches run the same replay once each: closing_union=False (K4) and
+     a stride the fused threshold does not take (K5, K5s).
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +56,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DIST = (-0.28, 0.07, 1.2e-3, -8e-4, 0.018)  # tests/test_pallas_kernels.py:354
 B, M, F = 256, 16, 600
+# the image-level path: bench.py's bench_image_level (BASELINE.md config 3b)
+IMG_B, IMG_SECONDS = 32, 6.0
+# Frames per detector call on the card. Detections do not depend on it. The
+# JAX default of 16 puts K3 on 16 of the 132 SMs and leaves the torch stages
+# launch-bound; on an H100 (700 W) detection took 1.06 ms/frame at 16 and
+# 0.15 ms/frame at 128, with a peak of 1.8 GiB (PERF.md, section 5).
+IMG_CHUNK = 128
+# Detections of the kernel path against the plain detector on the same card:
+# the CCL stage is bit-identical, so everything downstream runs the same ops
+# on the same bits; 1e-3 px is the CPU parity tests' bound.
+CORNER_TOL = 1e-3
 # Trajectory agreement of the kernel path with the plain path over 600
 # frames: both are float32 with sums taken in another order, and the EKF
 # carries the differences forward; 1 mm / 1 mrad is far below the
@@ -78,10 +107,14 @@ def phase0_card():
         capture_output=True, text=True, check=True, timeout=60,
     )
     print(smi.stdout.strip().splitlines()[0])
+    from concurrent.futures import ThreadPoolExecutor
+
     from aruco_slam_tpu_torch.ops.kernels import _build
 
-    for name in ("pnp_frontend", "ekf_frame_batched"):
-        _build.load(name)
+    names = ("pnp_frontend", "ekf_frame_batched", "ccl")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.load, names))
+    for name in names:
         report = _build.build_reports.get(name, "(reused an existing build)")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -267,6 +300,236 @@ def phase3_main_path(cfg, dev):
     return launches
 
 
+def _frames_for_ccl(dev):
+    """Phase 4's inputs: 32 rendered 640x480 frames (the 20-marker arena at
+    varied poses), 8 uniform-noise frames, 2 rendered 1920x1080 frames."""
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.sim import renderer, synthetic
+
+    rng = np.random.default_rng(4)
+    poses = np.stack([rng.uniform(0.8, 4.3, 32), rng.uniform(-3.9, -0.8, 32),
+                      rng.uniform(-np.pi, np.pi, 32)], axis=1)
+    poses[0] = (2.55, -2.0, 1.2)  # tests/test_detector.py's scene
+    arena = synthetic.make_arena(n_markers=20)
+    vga = renderer.render_poses(poses, arena, CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0),
+                                device=dev)
+    noise = torch.as_tensor(rng.integers(0, 256, (8, 480, 640), dtype=np.uint8), device=dev)
+    hd = renderer.render_poses(poses[:2], arena,
+                               CameraIntrinsics.create(1800.0, 1800.0, 960.0, 540.0),
+                               height=1080, width=1920, device=dev)
+    return {"rendered 640x480": vga, "noise 640x480": noise, "rendered 1920x1080": hd}
+
+
+def phase4_ccl(dev):
+    """K3, K4, K5, K5s against their plain versions; returns per kernel
+    (max err, ms, plain ms), the times for one 16-frame 640x480 chunk."""
+    from aruco_slam_tpu_torch.ops.detector import DetectorConfig
+    from aruco_slam_tpu_torch.ops.kernels import ccl
+
+    cfg = DetectorConfig()
+    r, C, s, r1, r2 = cfg.adaptive_radius, cfg.adaptive_C, cfg.mean_stride, cfg.ccl_rounds, \
+        cfg.closed_ccl_rounds
+    err = dict.fromkeys(ccl.LAUNCHES, 0.0)
+
+    def check(name, got, want, what):
+        for a, b in zip(got, want):
+            _require(a.shape == b.shape and torch.equal(a, b),
+                     f"{name} differs from its plain version on {what}")
+            err[name] = max(err[name], _max_err(a.to(torch.int64), b.to(torch.int64)))
+
+    inputs = _frames_for_ccl(dev)
+    for what, frames in inputs.items():
+        for i in range(0, frames.shape[0], 16):
+            img = frames[i: i + 16].contiguous()
+            ref = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+            check("threshold_label_union", ccl.threshold_label_union(img, r, C, s, r1, r2),
+                  ref, what)
+            check("threshold_label", ccl.threshold_label(img, r, C, s, r1),
+                  ccl.threshold_label_reference(img, r, C, s, r1), what)
+            fg, lab, fg_c, _ = ref
+            for mask in (fg, fg_c):
+                check("label_components", (ccl.label_components(mask, r1),),
+                      (ccl.label_components_reference(mask, r1),), what)
+            seed = lab.reshape(fg.shape)
+            check("label_components_seeded", (ccl.label_components(fg_c, r2, init=seed),),
+                  (ccl.label_components_reference(fg_c, r2, init=seed),), what)
+            torch.cuda.synchronize()
+        print(f"phase 4: K3 K4 K5 K5s bit-identical to plain on {frames.shape[0]} {what} "
+              f"frames (foreground {float(fg.float().mean()):.3f})")
+
+    img = inputs["rendered 640x480"][:16].contiguous()
+    fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+    seed = lab.reshape(fg.shape)
+    runs = {
+        "threshold_label_union": (lambda: ccl.threshold_label_union(img, r, C, s, r1, r2),
+                                  lambda: ccl.threshold_label_union_reference(img, r, C, s, r1, r2)),
+        "threshold_label": (lambda: ccl.threshold_label(img, r, C, s, r1),
+                            lambda: ccl.threshold_label_reference(img, r, C, s, r1)),
+        "label_components": (lambda: ccl.label_components(fg, r1),
+                             lambda: ccl.label_components_reference(fg, r1)),
+        "label_components_seeded": (lambda: ccl.label_components(fg_c, r2, init=seed),
+                                    lambda: ccl.label_components_reference(fg_c, r2, init=seed)),
+    }
+    out = {}
+    for name, (kern, plain) in runs.items():
+        ms = _cuda_time(kern, 20)
+        plain_ms = _cuda_time(plain, 3)
+        out[name] = (err[name], ms, plain_ms)
+        print(f"phase 4: {name} {ms:.4f} ms/launch (16 frames 640x480), plain {plain_ms:.4f} ms/call")
+    return out
+
+
+def _image_sequences(dev):
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.sim import synthetic
+
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    return [
+        synthetic.generate_sequence(
+            synthetic.SimParams(duration=IMG_SECONDS, seed=s), level="images", camera=cam,
+            device=dev,
+        )
+        for s in (0, 1)
+    ]
+
+
+def _timed(fn):
+    """Seconds of one call, CUDA events around it after a synchronize."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _check_detections(got, want, what):
+    ids, corners, valid = got
+    ids_r, corners_r, valid_r = want
+    _require(torch.equal(ids, ids_r), f"{what}: ids differ from the plain detector")
+    _require(torch.equal(valid, valid_r), f"{what}: valid differs from the plain detector")
+    err = _max_err(corners, corners_r, valid)
+    _require(err <= CORNER_TOL, f"{what}: corners differ by {err} px")
+    return err
+
+
+def phase5_image_path(dev):
+    """The image-level path at bench.py's shape through K3, K1 and K2."""
+    import dataclasses
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops import detector
+    from aruco_slam_tpu_torch.ops.kernels import ccl
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
+    from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
+    from aruco_slam_tpu_torch.utils import metrics
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=32, max_observations_per_frame=24))
+    det_cfg = detector.DetectorConfig()
+    seqs = _image_sequences(dev)
+    cam = seqs[0].camera()  # the calibration the sequences carry
+    data = runner.build_batch_data(seqs, IMG_B, "images", dev)
+    n_frames = seqs[0].num_frames
+    total = IMG_B * n_frames
+    _require(tuple(data.images.shape) == (IMG_B, n_frames, 480, 640),
+             f"image data shape {tuple(data.images.shape)}")
+
+    torch.cuda.synchronize()
+    for k in ccl.LAUNCHES:
+        ccl.LAUNCHES[k] = 0
+    pk.LAUNCHES = 0
+    kb.LAUNCHES = 0
+    out = runner.replay_batch(data, cfg, cam, "images", det_cfg, IMG_CHUNK)
+    torch.cuda.synchronize()
+    launches = {**ccl.LAUNCHES, "pnp_frontend": pk.LAUNCHES, "ekf_frame_batched": kb.LAUNCHES}
+    print(f"phase 5: launches in one {IMG_B}x{n_frames} image-level replay: {launches}")
+    chunks = -(-total // IMG_CHUNK)
+    _require(launches == {"threshold_label_union": chunks, "threshold_label": 0,
+                          "label_components": 0, "label_components_seeded": 0,
+                          "pnp_frontend": n_frames, "ekf_frame_batched": n_frames},
+             f"expected K3 x {chunks}, K1 and K2 x {n_frames}; got {launches}")
+
+    det = runner.detect_frames(data.images, det_cfg, IMG_CHUNK)
+    det_ref = runner.detect_frames(data.images, det_cfg, IMG_CHUNK, reference=True)
+    c_err = _check_detections(det, det_ref, "image path")
+    n_det = int(det[2].sum())
+    _require(n_det > total, f"only {n_det} detections in {total} frames")
+    ref = runner.replay_batch_reference(data, cfg, cam, "images", det_cfg, IMG_CHUNK)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(out.trajectory).all()), "non-finite trajectory")
+    _require(torch.equal(out.n_landmarks, ref.n_landmarks), "n_landmarks differ from the plain path")
+    _require(torch.equal(out.final_state.slot_ids, ref.final_state.slot_ids),
+             "final slot_ids differ from the plain path")
+    dev_max = _max_err(out.trajectory, ref.trajectory)
+    true = torch.as_tensor(seqs[0].true_pose_frames)
+    ate = float(metrics.ate(out.trajectory[0].cpu(), true))
+    print(f"phase 5: {n_det} detections in {total} frames, ids/valid equal to the plain "
+          f"detector, max |corner diff| {c_err:.3e} px; trajectory max |kernel - plain| "
+          f"{dev_max:.3e} (tolerance {TRAJ_TOL}); lane 0 ATE {ate:.6f} m, landmarks "
+          f"{int(out.n_landmarks[0, -1])}")
+    _require(dev_max <= TRAJ_TOL, "trajectory deviates from the plain path")
+    _require(ate < 0.05, f"lane 0 ATE {ate} m: the filter lost track")
+
+    kern = [_timed(lambda: runner.replay_batch(data, cfg, cam, "images", det_cfg, IMG_CHUNK))
+            for _ in range(3)]
+    kern16 = [_timed(lambda: runner.replay_batch(data, cfg, cam, "images", det_cfg, 16))
+              for _ in range(3)]
+    plain = [_timed(lambda: runner.replay_batch_reference(data, cfg, cam, "images", det_cfg,
+                                                          IMG_CHUNK)) for _ in range(3)]
+    t_det = _timed(lambda: runner.detect_frames(data.images, det_cfg, IMG_CHUNK))
+    corner = runner._corner_data_from_detections(data, *det)
+    t_rep = _timed(lambda: runner.replay_batch(corner, cfg, cam, "corners"))
+    print(f"phase 5: image path {total / statistics.median(kern):.1f} frames/s (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in kern)} s per {IMG_B}x{n_frames} replay); plain path "
+          f"{total / statistics.median(plain):.1f} frames/s ({', '.join(f'{t:.3f}' for t in plain)} s); "
+          f"kernel path at chunk 16 {total / statistics.median(kern16):.1f} frames/s "
+          f"({', '.join(f'{t:.3f}' for t in kern16)} s)")
+    print(f"phase 5: split of the kernel path: detection {t_det:.3f} s "
+          f"({1e3 * t_det / total:.4f} ms/frame), corner-level replay {t_rep:.3f} s")
+
+    chunk = data.images.reshape(-1, 480, 640)[:IMG_CHUNK].contiguous()
+    detector.detect_markers_batch(chunk, det_cfg)  # warm
+    detector.STAGE_MARKS = []
+    torch.cuda.synchronize()
+    detector.detect_markers_batch(chunk, det_cfg)
+    torch.cuda.synchronize()
+    marks, detector.STAGE_MARKS = detector.STAGE_MARKS, None
+    split = {}
+    for (_, a), (stage, b) in zip(marks, marks[1:]):
+        split[stage] = split.get(stage, 0.0) + a.elapsed_time(b)
+    print(f"phase 5: one {IMG_CHUNK}-frame chunk's detection by stage (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; total {sum(split.values()):.3f}")
+
+    # the two other detector branches, each through the same entry point
+    branches = {
+        "closing_union=False": (dataclasses.replace(det_cfg, closing_union=False),
+                                {"threshold_label": chunks}),
+        "mean_stride=3": (dataclasses.replace(det_cfg, mean_stride=3),
+                          {"label_components": chunks, "label_components_seeded": chunks}),
+    }
+    branch_launches = {}
+    for what, (bcfg, expect) in branches.items():
+        torch.cuda.synchronize()
+        for k in ccl.LAUNCHES:
+            ccl.LAUNCHES[k] = 0
+        res = runner.replay_batch(data, cfg, cam, "images", bcfg, IMG_CHUNK)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in ccl.LAUNCHES.items() if v}
+        _require(got == expect, f"{what}: expected launches {expect}, got {got}")
+        _require(bool(torch.isfinite(res.trajectory).all()), f"{what}: non-finite trajectory")
+        branch_launches.update(got)
+        first = data.images[0]
+        _check_detections(runner.detect_frames(first, bcfg, IMG_CHUNK),
+                          runner.detect_frames(first, bcfg, IMG_CHUNK, reference=True), what)
+        print(f"phase 5: branch {what}: launches {got}; lane 0 detections equal to the plain "
+              f"detector; landmarks {int(res.n_landmarks[0, -1])}")
+    return {**launches, **branch_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -285,6 +548,8 @@ def main() -> int:
     k1_err, (k1_ms, k1_plain) = phase1_k1(cfg, dev)
     k2_err, (k2_ms, k2_plain) = phase2_k2(cfg, dev)
     launches = phase3_main_path(cfg, dev)
+    ccl_stats = phase4_ccl(dev)
+    img_launches = phase5_image_path(dev)
     kernels = [
         {"name": "pnp_frontend", "route": "cuda",
          "source": "aruco_slam_tpu_torch/ops/kernels/csrc/pnp_frontend.cu",
@@ -297,6 +562,15 @@ def main() -> int:
          "launches": launches["ekf_frame_batched"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain},
     ]
+    for name, line in (("threshold_label_union", 229), ("threshold_label", 217),
+                       ("label_components", 200), ("label_components_seeded", 207)):
+        err, ms, plain_ms = ccl_stats[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "aruco_slam_tpu_torch/ops/kernels/csrc/ccl.cu",
+            "replaces": f"aruco_slam_tpu/ops/kernels/ccl.py:{line}",
+            "launches": img_launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,11 @@ import torch
 from aruco_slam_tpu_torch import runner
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+from aruco_slam_tpu_torch.ops import detector
+from aruco_slam_tpu_torch.ops.kernels import ccl
 from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
 from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
-from aruco_slam_tpu_torch.sim import synthetic
+from aruco_slam_tpu_torch.sim import renderer, synthetic
 from aruco_slam_tpu_torch.utils.config import CompatConfig, EkfConfig, SlamConfig
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +102,71 @@ def test_frame_kernel_refuses_oversized_state(dev):
             torch.zeros(B, M, dtype=torch.bool, device=dev),
             torch.full((B, M), -1, **i32), cfg,
         )
+
+
+def _frames(dev, shape):
+    """Rendered marker frames (at 480x640) or uniform noise, uint8 [4, H, W]."""
+    g = torch.Generator().manual_seed(shape[0] * 7 + shape[1])
+    if shape == (480, 640):
+        poses = [(2.55, -2.0, 1.2), (2.0, -2.5, 2.5), (1.0, -1.0, 0.3)]
+        cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+        imgs = renderer.render_poses(poses, synthetic.make_arena(n_markers=20), cam, device=dev)
+        noise = torch.randint(0, 256, (1, *shape), generator=g, dtype=torch.uint8)
+        return torch.cat([imgs, noise.to(dev)])
+    return torch.randint(0, 256, (4, *shape), generator=g, dtype=torch.uint8).to(dev)
+
+
+@pytest.mark.parametrize("shape,stride,radius", [
+    ((64, 256), 4, 7), ((64, 128), 1, 5), ((128, 128), 2, 7), ((480, 640), 4, 7),
+])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_ccl_family_matches_plain(dev, shape, stride, radius, dtype):
+    """K3, K4, K5 and K5s against their plain versions, bit for bit."""
+    img = _frames(dev, shape).to(dtype).contiguous()
+    before = dict(ccl.LAUNCHES)
+    out = ccl.threshold_label_union(img, radius, 7.0, stride, 3, 2)
+    ref = ccl.threshold_label_union_reference(img, radius, 7.0, stride, 3, 2)
+    fg4, lab4 = ccl.threshold_label(img, radius, 7.0, stride, 4)
+    fg4r, lab4r = ccl.threshold_label_reference(img, radius, 7.0, stride, 4)
+    fg, lab, fg_c = ref[0], ref[1], ref[2]
+    k5 = ccl.label_components(fg, 4)
+    k5s = ccl.label_components(fg_c, 2, init=lab.reshape(fg.shape))
+    torch.cuda.synchronize()
+    for a, b in zip(out + (fg4, lab4), ref + (fg4r, lab4r)):
+        assert torch.equal(a, b)
+    assert torch.equal(k5, detector.label_components(fg, 4))
+    assert torch.equal(k5s, detector.label_components(fg_c, 2, init=lab.reshape(fg.shape)))
+    assert bool(fg.any()) and not bool(fg.all())
+    assert {k: ccl.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+
+
+def test_ccl_kernel_at_1080p(dev):
+    img = torch.randint(0, 256, (2, 1080, 1920), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    out = ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
+    ref = ccl.threshold_label_union_reference(img, 7, 7.0, 4, 3, 2)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_image_replay_kernels_match_plain(dev):
+    """The image-level replay through K3, K1 and K2 against the plain path."""
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    seqs = [
+        synthetic.generate_sequence(
+            synthetic.SimParams(duration=2.0, seed=s, frames_per_sec=5.0), level="images",
+            camera=cam, device=dev,
+        )
+        for s in range(2)
+    ]
+    data = runner.build_batch_data(seqs, 3, "images", dev)
+    before = ccl.LAUNCHES["threshold_label_union"]
+    out = runner.replay_batch(data, CFG, cam, "images", det_chunk=8)
+    assert ccl.LAUNCHES["threshold_label_union"] == before + 4  # ceil(3 * 10 / 8)
+    ref = runner.replay_batch_reference(data, CFG, cam, "images", det_chunk=8)
+    torch.cuda.synchronize()
+    assert torch.equal(out.n_landmarks, ref.n_landmarks)
+    assert torch.equal(out.final_state.slot_ids, ref.final_state.slot_ids)
+    assert int(out.n_landmarks[:, -1].min()) > 0
+    torch.testing.assert_close(out.trajectory, ref.trajectory, atol=1e-4, rtol=0)

@@ -14,7 +14,7 @@ import torch
 import aruco_slam_tpu_torch
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
-from aruco_slam_tpu_torch.ops.kernels import _build, ekf_update_batched, pnp_frontend
+from aruco_slam_tpu_torch.ops.kernels import _build, ccl, ekf_update_batched, pnp_frontend
 from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
 torch.set_num_threads(1)
@@ -28,7 +28,9 @@ def test_port_imports_no_jax_and_no_yaml():
     code = (
         "import sys\n"
         "import aruco_slam_tpu_torch, aruco_slam_tpu_torch.runner, "
-        "aruco_slam_tpu_torch.sim.synthetic, aruco_slam_tpu_torch.convert\n"
+        "aruco_slam_tpu_torch.sim.synthetic, aruco_slam_tpu_torch.convert, "
+        "aruco_slam_tpu_torch.ops.detector, aruco_slam_tpu_torch.ops.dictionary, "
+        "aruco_slam_tpu_torch.ops.kernels.ccl, aruco_slam_tpu_torch.sim.renderer\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yaml', 'aruco_slam_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'aruco_slam_tpu.'))]\n"
         "print(bad)\n"
@@ -56,8 +58,9 @@ def test_build_without_nvcc_names_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
-    with pytest.raises(RuntimeError, match="nvcc"):
-        _build.load("pnp_frontend")
+    for name in ("pnp_frontend", "ccl"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.load(name)
     assert not (tmp_path / "build").exists()
 
 
@@ -119,6 +122,41 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="no kernel"):
         ekf_update_batched.frame_step_batched(**_k2_args(device="meta"))
     assert (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES) == before
+
+
+def test_ccl_wrappers_reject_bad_inputs():
+    img = torch.zeros(2, 64, 128, dtype=torch.uint8)
+    fg = torch.zeros(2, 64, 128, dtype=torch.bool)
+    with pytest.raises(TypeError, match="uint8 or float32"):
+        ccl.threshold_label_union(img.int(), 7, 7.0, 4, 3, 2)
+    with pytest.raises(ValueError, match=r"\[N, H, W\]"):
+        ccl.threshold_label(img[0], 7, 7.0, 4, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ccl.threshold_label(img.transpose(1, 2), 7, 7.0, 4, 3)
+    with pytest.raises(ValueError, match="power-of-two"):
+        ccl.threshold_label_union(img, 7, 7.0, 3, 3, 2)
+    with pytest.raises(TypeError, match="bool"):
+        ccl.label_components(fg.to(torch.uint8), 3)
+    with pytest.raises(TypeError, match="int32"):
+        ccl.label_components(fg, 2, init=torch.zeros(2, 64, 128, dtype=torch.int64))
+    with pytest.raises(ValueError, match="init must be"):
+        ccl.label_components(fg, 2, init=torch.zeros(2, 64 * 128, dtype=torch.int32))
+
+
+def test_ccl_wrappers_never_fall_back():
+    """Off the CPU the CCL family launches its kernel or raises."""
+    before = dict(ccl.LAUNCHES)
+    img = torch.zeros(2, 64, 128, dtype=torch.uint8, device="meta")
+    fg = torch.zeros(2, 64, 128, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        ccl.threshold_label(img, 7, 7.0, 4, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        ccl.label_components(fg, 3)
+    with pytest.raises(ValueError, match="init on"):
+        ccl.label_components(fg, 2, init=torch.zeros(2, 64, 128, dtype=torch.int32))
+    assert ccl.LAUNCHES == before
 
 
 def test_shared_memory_budget():

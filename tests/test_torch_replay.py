@@ -96,8 +96,3 @@ def test_lanes_independent_of_batch_size():
         np.testing.assert_array_equal(
             big.final_state.sigma[lanes].numpy(), small.final_state.sigma.numpy()
         )
-
-
-def test_image_level_waits_for_detector():
-    with pytest.raises(NotImplementedError):
-        runner.replay_batch(None, CFG, None, "images")

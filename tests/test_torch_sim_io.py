@@ -99,11 +99,6 @@ def test_generate_sequence_identical(level, dist):
     assert ours.meta["camera_D"] == ref.meta["camera_D"]
 
 
-def test_image_level_waits_for_renderer():
-    with pytest.raises(NotImplementedError):
-        synthetic.generate_sequence(synthetic.SimParams(duration=0.2), level="images")
-
-
 def test_sequence_npz_crosses_packages(tmp_path):
     cam = CameraIntrinsics.create(600.0, 610.0, 320.0, 240.0, dist=DIST)
     seq = synthetic.generate_sequence(
