@@ -8,11 +8,14 @@ keeps its module names so each counterpart is easy to find:
 - ``ops.kernels`` — the CUDA kernels (``csrc/*.cu``) and their wrappers
 - ``models``    — the EKF-SLAM core (batch-first)
 - ``sim``, ``io``, ``utils`` — numpy-only copies of the generator, the
-  sequence container, map I/O and the config system
-- ``runner``    — batched corner-level and measurement-level replay
+  sequence container, map I/O and the config system; ``utils.device``
+- ``runner``    — batched and single-stream replay at every level
+- ``system``, ``viz`` — the streaming ``SlamSystem`` and its output records
 - ``convert``   — state and config carried across from the JAX package
 
 It imports torch and numpy, never ``jax`` and never ``aruco_slam_tpu``.
+Entry points that make tensors put them on the card unless given
+``device``.
 """
 
 __version__ = "0.1.0"

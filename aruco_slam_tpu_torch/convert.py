@@ -15,6 +15,7 @@ from aruco_slam_tpu_torch.models.ekf import EkfState
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.detector import DetectorConfig
 from aruco_slam_tpu_torch.utils.config import SlamConfig, build
+from aruco_slam_tpu_torch.utils.device import resolve
 
 _DTYPES = dict(
     mu=torch.float32, sigma=torch.float32, slot_ids=torch.int32,
@@ -49,7 +50,9 @@ def camera_from_numpy(fx, fy, cx, cy, dist) -> CameraIntrinsics:
 
 def ekf_state_from_numpy(state, device=None) -> EkfState:
     """The port's batched EkfState from a JAX ``EkfState`` whose leaves are
-    numpy, plain (``mu [N]``) or batched (``mu [B, N]``)."""
+    numpy, plain (``mu [N]``) or batched (``mu [B, N]``), on ``device``
+    (None: the card)."""
+    device = resolve(device)
     batched = np.asarray(state.mu).ndim == 2
     fields = {}
     for name in EkfState._fields:
@@ -69,7 +72,9 @@ def batched_state_from_trailing(st: dict, initialized=True, device=None) -> EkfS
     """The port's batch-major EkfState from the JAX batched kernel's
     trailing-batch dict (``mu [N, B]``, ``sigma [N, N, B]``,
     ``slot_ids [L, B]``, ``n_lm [1, B]``, ``last_obs [L, 3, B]``,
-    ``seen [L, B]``, ``div [1, B]``, ``drop [1, B]``)."""
+    ``seen [L, B]``, ``div [1, B]``, ``drop [1, B]``), on ``device``
+    (None: the card)."""
+    device = resolve(device)
     mu = np.asarray(st["mu"]).T
     B = mu.shape[0]
 

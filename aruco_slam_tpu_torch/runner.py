@@ -1,7 +1,8 @@
-"""Offline replay runner (L4): deterministic, timestamp-driven, batched.
+"""Offline replay runner (L4): deterministic, timestamp-driven, batched or
+single-stream.
 
-Counterpart of ``aruco_slam_tpu.runner``'s batched kernel path
-(``replay_batch`` -> ``_replay_batch_kernel``). At image level the frames
+Counterpart of ``aruco_slam_tpu.runner``. The batched path
+(``replay_batch``, the JAX ``_replay_batch_kernel``): at image level the frames
 first pass through the batched detector (:func:`detect_frames`: K3, the
 fused threshold/close/CCL kernel, and the detector's torch stages, chunk by
 chunk), which turns them into corner data. The frame loop is then a Python
@@ -13,7 +14,12 @@ loop over F frames with the state kept on the device; per frame:
 3. look up each observation's frame-start slot and sort by (slot, arrival);
 4. one EKF frame step — K2, ``ops.kernels.ekf_update_batched``.
 
-Nothing in the loop reads a tensor back to the host. On CPU tensors every
+The single-stream path (``replay`` / ``replay_sequence``, the JAX
+``_replay_jit``) runs per frame the fused predict over the frame's encoder
+ticks and then the update that :func:`frame_update_for` picks: K6,
+``ops.kernels.ekf_update``, by default.
+
+Nothing in either loop reads a tensor back to the host. On CPU tensors every
 kernel takes its plain version, which is how the tests run it.
 """
 
@@ -28,9 +34,11 @@ from aruco_slam_tpu_torch.io.sequence import Sequence
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.detector import DetectorConfig, detect_markers_batch, to_grayscale
-from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched, pnp_frontend
+from aruco_slam_tpu_torch.ops.frontend import observations_from_corners
+from aruco_slam_tpu_torch.ops.kernels import ekf_update, ekf_update_batched, pnp_frontend
 from aruco_slam_tpu_torch.utils import metrics
 from aruco_slam_tpu_torch.utils.config import SlamConfig
+from aruco_slam_tpu_torch.utils.device import resolve
 
 Tensor = torch.Tensor
 
@@ -87,20 +95,22 @@ def _to_data(get, level: str, device) -> ReplayData:
 
 
 def replay_data_from_sequence(seq: Sequence, level: str = "obs", device=None) -> ReplayData:
-    """One sequence's replay input (no batch axis)."""
+    """One sequence's replay input (no batch axis), on ``device`` (None:
+    the card)."""
     _check_level(level)
     f, epf = seq.num_frames, seq.enc_per_frame
     shaped = {
         "enc_w": seq.enc_w.reshape(f, epf, 2),
         "enc_dt": seq.enc_dt.reshape(f, epf),
     }
-    return _to_data(lambda n: shaped.get(n, getattr(seq, n)), level, device)
+    return _to_data(lambda n: shaped.get(n, getattr(seq, n)), level, resolve(device))
 
 
 def build_batch_data(seqs, batch: int | None = None, level: str = "obs",
                      device=None) -> ReplayData:
-    """Stack sequences into a batched ReplayData on ``device``, tiling to
-    ``batch`` lanes (ceil-repeat + slice), as the JAX package does."""
+    """Stack sequences into a batched ReplayData on ``device`` (None: the
+    card), tiling to ``batch`` lanes (ceil-repeat + slice), as the JAX
+    package does."""
     _check_level(level)
     if batch is None:
         batch = len(seqs)
@@ -115,7 +125,7 @@ def build_batch_data(seqs, batch: int | None = None, level: str = "obs",
             return arr.reshape(batch, f, epf)
         return arr
 
-    return _to_data(stack, level, device)
+    return _to_data(stack, level, resolve(device))
 
 
 def _bucket_shape(h: int, w: int, buckets: tuple) -> tuple:
@@ -289,7 +299,45 @@ def frame_step_inputs(state: ekf.EkfState, frame: ekf.FrameObservations,
     eye9 = torch.eye(3, dtype=state.mu.dtype, device=state.mu.device).reshape(9)
     z = torch.where(ok, obs.z, 0.0).to(state.mu.dtype)
     R9 = torch.where(ok, obs.R.reshape(B, M, 9), eye9).to(state.mu.dtype)
-    return pose, A.reshape(B, 9), Q.reshape(B, 9), obs.ids, z, R9, obs.valid, slots
+    return (pose.contiguous(), A.reshape(B, 9).contiguous(), Q.reshape(B, 9), obs.ids, z, R9,
+            obs.valid, slots)
+
+
+def frame_update_for(config: SlamConfig, batched: bool):
+    """The frame update ``(state, frame, config) -> state`` that a
+    configuration selects (``EkfConfig.fused_update``, ``update_backend``):
+    the JAX package's policy, read for this card.
+
+    - ``fused_update``: ``ekf.update_fused``, the block-LDL form
+      (single-stream);
+    - ``update_backend == "xla"``: ``ekf.update``, the plain sequential
+      update;
+    - ``"auto"`` or ``"pallas"`` (the hand-written kernel), batched: K2 with
+      no encoder ticks (:func:`update_batched`);
+    - ``"auto"`` or ``"pallas"``, single-stream: K6
+      (``ops.kernels.ekf_update.frame_update``), at every ``max_landmarks``.
+
+    The kernels take their plain versions for CPU tensors."""
+    if config.ekf.fused_update:
+        return ekf.update_fused
+    backend = config.ekf.update_backend
+    if backend == "xla":
+        return ekf.update
+    if backend not in ("auto", "pallas"):
+        raise ValueError(f"update_backend must be 'auto', 'pallas' or 'xla', got {backend!r}")
+    return update_batched if batched else ekf_update.frame_update
+
+
+def update_batched(state: ekf.EkfState, frame: ekf.FrameObservations,
+                   config: SlamConfig) -> ekf.EkfState:
+    """``ekf.update`` for B lanes through K2: its frame step with no
+    encoder ticks (A = I and Q = 0 leave sigma exactly as it was). A lane
+    with no encoder tick yet keeps its state."""
+    none = torch.zeros(frame.ids.shape[0], 0, dtype=state.mu.dtype, device=state.mu.device)
+    args = frame_step_inputs(state, frame, ekf.Control(none, none, none), config)
+    return ekf.keep_uninitialized(
+        ekf_update_batched.frame_step_batched(state, *args, config=config), state
+    )
 
 
 def replay(
@@ -300,15 +348,89 @@ def replay(
     det_cfg: DetectorConfig = DetectorConfig(),
     det_chunk: int = 16,
 ) -> ReplayResult:
-    """One sequence (``data`` without a batch axis) as a batch of one.
-    Trajectory [F, 3], pose_cov [F, 3, 3], n_landmarks [F]; the final state
-    keeps its batch axis of one."""
-    res = replay_batch(
-        ReplayData(*(None if x is None else x[None] for x in data)),
-        config, camera, level, det_cfg, det_chunk,
+    """One sequence (``data`` without a batch axis): per frame the fused
+    predict over the frame's encoder ticks, then the update of
+    ``frame_update_for(config, batched=False)``, K6 by default. At corner
+    level the front-end is ``ops.frontend.observations_from_corners``, as
+    in the JAX single-stream replay; at image level the frames are detected
+    first (:func:`detect_frames`). Trajectory [F, 3], pose_cov [F, 3, 3],
+    n_landmarks [F]; the final state keeps its batch axis of one."""
+    if level == "images":
+        data = _corner_data_from_detections(
+            data, *detect_frames(data.images, det_cfg, det_chunk)
+        )
+        level = "corners"
+    return _replay_single(data, config, camera, level, frame_update_for(config, batched=False))
+
+
+def replay_reference(
+    data: ReplayData,
+    config: SlamConfig,
+    camera: Optional[CameraIntrinsics] = None,
+    level: str = "obs",
+    det_cfg: DetectorConfig = DetectorConfig(),
+    det_chunk: int = 16,
+) -> ReplayResult:
+    """:func:`replay` through the plain versions on any device: the plain
+    detector and the plain sequential update ``ekf.update``, whatever the
+    config's backend. What a GPU run of the single-stream path is held
+    against."""
+    if level == "images":
+        data = _corner_data_from_detections(
+            data, *detect_frames(data.images, det_cfg, det_chunk, reference=True)
+        )
+        level = "corners"
+    return _replay_single(data, config, camera, level, ekf.update)
+
+
+def _replay_single(data, config, camera, level, update_fn) -> ReplayResult:
+    _check_level(level)
+    if level == "corners" and camera is None:
+        raise ValueError("corner-level replay needs the camera")
+    state = ekf.init_state(config, 1, data.obs_ids.device)
+    traj, covs, n_lm = [], [], []
+    for f in range(data.obs_ids.shape[0]):
+        ew = data.enc_w[f][None]
+        state = ekf.predict_block(
+            state, ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[f][None]), config
+        )
+        ids, valid = data.obs_ids[f][None], data.obs_valid[f][None]
+        if level == "corners":
+            frame = observations_from_corners(ids, data.corners_px[f][None], valid, camera, config)
+        else:
+            frame = ekf.FrameObservations(ids, data.obs_z[f][None], data.obs_R[f][None], valid)
+        state = update_fn(state, frame, config)
+        traj.append(state.mu[0, :3])
+        covs.append(state.sigma[0, :3, :3])
+        n_lm.append(state.n_landmarks[0])
+    return ReplayResult(
+        trajectory=torch.stack(traj),
+        pose_cov=torch.stack(covs),
+        n_landmarks=torch.stack(n_lm),
+        final_state=state,
     )
-    return ReplayResult(res.trajectory[0], res.pose_cov[0], res.n_landmarks[0],
-                        res.final_state)
+
+
+def replay_sequence(
+    seq: Sequence,
+    config: SlamConfig,
+    camera: Optional[CameraIntrinsics] = None,
+    level: str = "obs",
+    det_cfg: DetectorConfig = DetectorConfig(),
+    det_chunk: int = 16,
+    device=None,
+) -> ReplayResult:
+    """:func:`replay` straight from a :class:`Sequence`, on ``device``
+    (None: the card), with the sequence's own camera unless one is given."""
+    if camera is None:
+        camera = seq.camera()
+    if level == "images" and seq.images is None and seq.meta.get("images_asq_path"):
+        raise NotImplementedError(
+            f"{seq.meta['images_asq_path']}: the .asq image container is not ported yet "
+            "(ROADMAP Queue 1)"
+        )
+    data = replay_data_from_sequence(seq, level, device)
+    return replay(data, config, camera, level, det_cfg, det_chunk)
 
 
 def evaluate_sequence(
@@ -320,13 +442,11 @@ def evaluate_sequence(
     result: Optional[ReplayResult] = None,
     device=None,
 ) -> dict:
-    """Replay + score against the sequence's ground truth (host-side).
-    Pass ``result`` (from :func:`replay`) to score an existing replay."""
-    if camera is None:
-        camera = seq.camera()
+    """Replay (:func:`replay_sequence`, on ``device``; None: the card) +
+    score against the sequence's ground truth (host-side). Pass ``result``
+    (from :func:`replay`) to score an existing replay."""
     if result is None:
-        result = replay(replay_data_from_sequence(seq, level, device), config,
-                        camera, level, det_cfg)
+        result = replay_sequence(seq, config, camera, level, det_cfg, device=device)
     traj = result.trajectory.detach().cpu()
     st = result.final_state
     out = {"n_landmarks": int(st.n_landmarks[0])}

@@ -17,6 +17,7 @@ import torch
 
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics, pixels_to_normalized
 from aruco_slam_tpu_torch.ops.dictionary import marker_pattern
+from aruco_slam_tpu_torch.utils.device import resolve
 
 Tensor = torch.Tensor
 
@@ -32,7 +33,8 @@ RENDER_BATCH = 8
 
 def build_marker_stack(marker_map, device=None) -> dict:
     """Per-marker pattern bits, world rotation, position and side length,
-    as tensors on ``device``."""
+    as tensors on ``device`` (None: the card)."""
+    device = resolve(device)
     from aruco_slam_tpu_torch.sim.synthetic import rpy_matrix_np
 
     n = len(marker_map)
@@ -125,7 +127,8 @@ def camera_pose_from_robot(pose: Tensor, t_r2c=(0.0, 0.0), cam_height: float = 0
 def render_poses(poses, marker_map, camera, t_r2c=(0.0, 0.0), height: int = 480,
                  width: int = 640, device=None) -> Tensor:
     """Render robot poses ``[F, 3]`` (arena frame) to ``[F, H, W]`` uint8
-    frames on ``device``, RENDER_BATCH poses per call."""
+    frames on ``device`` (None: the card), RENDER_BATCH poses per call."""
+    device = resolve(device)
     stack = build_marker_stack(marker_map, device)
     p = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device=device)
     out = []
@@ -138,7 +141,7 @@ def render_poses(poses, marker_map, camera, t_r2c=(0.0, 0.0), height: int = 480,
 
 def render_sequence_frames(seq, marker_map, camera, t_r2c=(0.0, 0.0),
                            height: int = 480, width: int = 640, device=None) -> np.ndarray:
-    """Render every frame of a sequence at its true arena-frame poses;
-    returns host uint8 ``[F, H, W]``."""
+    """Render every frame of a sequence at its true arena-frame poses on
+    ``device`` (None: the card); returns host uint8 ``[F, H, W]``."""
     poses = seq.meta.get("true_pose_frames_world", seq.true_pose_frames)
     return render_poses(poses, marker_map, camera, t_r2c, height, width, device).cpu().numpy()

@@ -235,7 +235,8 @@ def generate_sequence(
 ) -> Sequence:
     """Generate a full sequence. ``level``: "obs" (measurement-space),
     "corners" (adds the pixel-corner stream projected through ``camera``)
-    or "images" (corners, plus frames rendered on ``device``)."""
+    or "images" (corners, plus frames rendered on ``device``; None: the
+    card)."""
     if level not in ("obs", "corners", "images"):
         raise ValueError(f"level must be 'obs', 'corners' or 'images', got {level!r}")
     p = params
@@ -384,7 +385,8 @@ def add_image_stream(
     height: int = 480, width: int = 640, device=None,
 ) -> Sequence:
     """Render every frame through the full camera model (``sim.renderer``,
-    on ``device``) — the image-level data source for the detector."""
+    on ``device``; None: the card) — the image-level data source for the
+    detector."""
     from aruco_slam_tpu_torch.sim import renderer
 
     images = renderer.render_sequence_frames(

@@ -80,8 +80,9 @@ class EkfConfig:
     max_observations_per_frame: int = 16
     # Re-symmetrize sigma after each frame's updates (f32 hygiene).
     symmetrize_sigma: bool = True
-    # Fields of the JAX package's backend selection, kept so configs
-    # round-trip; this package's replay path reads neither.
+    # The frame update runner.frame_update_for selects: the block-LDL form,
+    # or "auto" / "pallas" (the hand-written kernels) or "xla" (the plain
+    # sequential update). The batched replay always runs K2.
     fused_update: bool = False
     update_backend: str = "auto"
 

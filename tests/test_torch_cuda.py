@@ -8,6 +8,7 @@ conftest imports JAX, which a machine that runs only the port lacks.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,9 +17,11 @@ from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops import detector
 from aruco_slam_tpu_torch.ops.kernels import ccl
+from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
 from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
 from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
 from aruco_slam_tpu_torch.sim import renderer, synthetic
+from aruco_slam_tpu_torch.system import SlamSystem
 from aruco_slam_tpu_torch.utils.config import CompatConfig, EkfConfig, SlamConfig
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +173,90 @@ def test_image_replay_kernels_match_plain(dev):
     assert torch.equal(out.final_state.slot_ids, ref.final_state.slot_ids)
     assert int(out.n_landmarks[:, -1].min()) > 0
     torch.testing.assert_close(out.trajectory, ref.trajectory, atol=1e-4, rtol=0)
+
+
+def _k6_case(dev, max_lm, n_lm, seed, M=16):
+    """A state with ``n_lm`` landmarks (SPD covariance) and a frame that
+    mixes known, new and invalid observations, one known one at its
+    slot's last record (a stationary-gate hit)."""
+    rng = np.random.default_rng(seed)
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=M))
+    N, na = 3 + 3 * max_lm, 3 + 3 * n_lm
+    A = rng.normal(size=(na, na)) * 0.1
+    sigma = np.zeros((N, N), np.float32)
+    sigma[:na, :na] = A @ A.T + 0.05 * np.eye(na)
+    mu = np.zeros(N, np.float32)
+    mu[:na] = rng.normal(size=na)
+    slot_ids = np.full(max_lm, -1, np.int32)
+    slot_ids[:n_lm] = rng.choice(10_000, n_lm, replace=False)
+    last = rng.normal(size=(max_lm, 3)).astype(np.float32)
+    state = ekf.init_state(cfg, 1, dev)._replace(
+        mu=torch.as_tensor(mu, device=dev)[None],
+        sigma=torch.as_tensor(sigma, device=dev)[None],
+        slot_ids=torch.as_tensor(slot_ids, device=dev)[None],
+        n_landmarks=torch.tensor([n_lm], dtype=torch.int32, device=dev),
+        last_obs=torch.as_tensor(last, device=dev)[None],
+        seen_prev=torch.ones(1, max_lm, dtype=torch.bool, device=dev),
+        initialized=torch.ones(1, dtype=torch.bool, device=dev),
+    )
+    ids = np.full(M, -1, np.int32)
+    ids[:12] = np.concatenate([slot_ids[:8], 20_000 + np.arange(4)])
+    z = (rng.normal(size=(M, 3)) * 0.5).astype(np.float32)
+    z[0] = last[0]
+    Bn = (rng.normal(size=(M, 3, 3)) * 0.05).astype(np.float32)
+    R = Bn @ np.transpose(Bn, (0, 2, 1)) + 0.01 * np.eye(3, dtype=np.float32)
+    perm = rng.permutation(M)
+    frame = ekf.FrameObservations(*(torch.as_tensor(x[perm], device=dev)[None]
+                                    for x in (ids, z, R, ids >= 0)))
+    return cfg, state, frame
+
+
+@pytest.mark.parametrize("max_lm", [64, 128])
+@pytest.mark.parametrize("reject", [False, True])
+def test_frame_update_kernel_matches_plain(dev, max_lm, reject):
+    """K6 against ``ekf.update`` on the card, past K2's 77-landmark limit."""
+    cfg, state, frame = _k6_case(dev, max_lm, max_lm - 2, max_lm)
+    cfg = dataclasses.replace(cfg, compat=CompatConfig(reject_divergent=reject,
+                                                       divergence_ze_norm=0.6))
+    before = k6.LAUNCHES
+    out = k6.frame_update(state, frame, cfg)
+    ref = k6.frame_update_reference(state, frame, cfg)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == before + 1
+    for name in ("slot_ids", "n_landmarks", "seen_prev", "diverged", "dropped"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert int(out.dropped[0]) == 2 and int(out.n_landmarks[0]) == max_lm
+    for name in ("mu", "sigma", "last_obs"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5, rtol=5e-3)
+    # the uninitialized lane keeps everything
+    still = k6.frame_update(state._replace(initialized=~state.initialized), frame, cfg)
+    torch.cuda.synchronize()
+    for name in ekf.EkfState._fields[:6]:
+        assert torch.equal(getattr(still, name), getattr(state, name)), name
+
+
+def test_slam_system_on_the_card_matches_the_cpu(dev):
+    """The same calls on a card system (K6, K3) and a CPU one (plain)."""
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    seq = synthetic.generate_sequence(synthetic.SimParams(duration=2.0, seed=4, max_obs=8))
+    img = renderer.render_poses([(2.55, -2.0, 1.2)], synthetic.make_arena(n_markers=20), cam,
+                                device="cpu")[0].numpy()
+    systems = [SlamSystem(CFG, camera=cam, device=d) for d in (dev, "cpu")]
+    epf = seq.enc_per_frame
+    before = k6.LAUNCHES
+    for f in range(seq.num_frames):
+        for e in range(epf):
+            for s in systems:
+                s.add_encoder(*seq.enc_w[f * epf + e], seq.enc_dt[f * epf + e])
+        for s in systems:
+            s.add_observations(seq.obs_ids[f], seq.obs_z[f], seq.obs_R[f], seq.obs_valid[f])
+    for s in systems:
+        s.add_image(img)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == before + seq.num_frames + 1
+    gpu, cpu = systems
+    np.testing.assert_allclose(gpu.pose(), cpu.pose(), atol=1e-4)
+    np.testing.assert_array_equal(gpu.landmark_map()[1], cpu.landmark_map()[1])
+    np.testing.assert_allclose(gpu.landmark_map()[0], cpu.landmark_map()[0], atol=1e-4)
+    assert [d["id"] for d in gpu.detected_markers()] == [d["id"] for d in cpu.detected_markers()]
+    assert len(gpu.detected_markers()) >= 1

@@ -75,7 +75,7 @@ def frame_of(ids, zs, Rs, m, dtype):
 def test_float64_matches_oracle(seed, gate_hits, stationary_gate):
     rng = np.random.default_rng(seed)
     cfg = dataclasses.replace(CFG, compat=CompatConfig(stationary_gate=stationary_gate))
-    state = ekf.init_state(cfg, 1, dtype=F64)
+    state = ekf.init_state(cfg, 1, "cpu", dtype=F64)
     oracle = ReferenceEKF(stationary_gate=stationary_gate)
     for kind, payload in random_sequence(rng, gate_hits=gate_hits):
         if kind == "enc":
@@ -95,7 +95,7 @@ def test_float64_matches_oracle(seed, gate_hits, stationary_gate):
 
 def test_new_markers_before_known_and_capacity_drop():
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=2, max_observations_per_frame=4))
-    state = ekf.init_state(cfg, 1, dtype=F64)
+    state = ekf.init_state(cfg, 1, "cpu", dtype=F64)
     one = torch.ones(1, dtype=F64)
     state = ekf.predict(state, ekf.Control(0 * one, 0 * one, 0.1 * one), cfg)
     state = ekf.predict(state, ekf.Control(one, 1.2 * one, 0.05 * one), cfg)
@@ -164,7 +164,7 @@ def test_frame_step_plain_matches_jax_kernel(reject_divergent):
         jsyn.generate_sequence(jsyn.SimParams(duration=2.0, seed=s, max_obs=6))
         for s in range(3)
     ]
-    data = runner.build_batch_data(seqs, 3, "obs")
+    data = runner.build_batch_data(seqs, 3, "obs", "cpu")
     warm = runner.replay_batch(data._replace(**{
         k: v[:, :6] for k, v in data._asdict().items() if v is not None
     }), cfg)
@@ -178,7 +178,7 @@ def test_frame_step_plain_matches_jax_kernel(reject_divergent):
             np.transpose(z, (1, 2, 0)), np.transpose(R9, (1, 2, 0)),
             valid.T.astype(np.int32), slots.T, jcfg, interpret=True,
         )
-        ref = convert.batched_state_from_trailing(jax.tree.map(np.asarray, out))
+        ref = convert.batched_state_from_trailing(jax.tree.map(np.asarray, out), device="cpu")
         for name in ("slot_ids", "n_landmarks", "seen_prev", "diverged", "dropped"):
             np.testing.assert_array_equal(getattr(ours, name), getattr(ref, name), name)
         for name in ("mu", "sigma", "last_obs"):
@@ -206,14 +206,15 @@ def test_state_conversion_round_trip():
         diverged=np.array([0, 2], np.int32),
         dropped=np.array([1, 0], np.int32),
     )
-    ours = convert.ekf_state_from_numpy(st)
+    ours = convert.ekf_state_from_numpy(st, "cpu")
     back = convert.ekf_state_to_numpy(ours)
     for name in jekf.EkfState._fields:
         np.testing.assert_array_equal(back[name], getattr(st, name), name)
-    single = convert.ekf_state_from_numpy(jax.tree.map(lambda x: x[1], st))
+    single = convert.ekf_state_from_numpy(jax.tree.map(lambda x: x[1], st), "cpu")
     np.testing.assert_array_equal(single.sigma[0].numpy(), st.sigma[1])
     trail = convert.batched_state_to_trailing(ours)
-    again = convert.batched_state_from_trailing(trail, initialized=st.initialized)
+    again = convert.batched_state_from_trailing(trail, initialized=st.initialized,
+                                             device="cpu")
     for name in ekf.EkfState._fields:
         np.testing.assert_array_equal(getattr(again, name), getattr(ours, name), name)
     assert trail["sigma"].shape == (N, N, B) and trail["n_lm"].shape == (1, B)

@@ -88,7 +88,7 @@ def test_generated_image_sequence_matches_jax(jseqs):
     identical, the frames within the renderer bound."""
     cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
     ours = synthetic.generate_sequence(synthetic.SimParams(seed=0, **PARAMS), level="images",
-                                       camera=cam)
+                                       camera=cam, device="cpu")
     ref = jseqs[0]
     for f in dataclasses.fields(Sequence):
         if f.name in ("images", "meta"):
@@ -113,7 +113,8 @@ def test_renderer_matches_jax_on_a_distorted_camera():
                                                       stack, jcam))
     ref = np.stack([np.asarray(render(jnp.asarray(p))) for p in poses])
     cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0, dist=DIST)
-    ours = renderer.render_poses(poses, synthetic.make_arena(n_markers=20), cam).numpy()
+    ours = renderer.render_poses(poses, synthetic.make_arena(n_markers=20), cam,
+                                 device="cpu").numpy()
     _assert_mismatch_at_edges(ours, ref)
 
 
@@ -148,7 +149,7 @@ def test_replay_batch_images_matches_jax(jseqs):
     """B = 3 lanes over the 2 sequences, through the detector, K1 and K2."""
     jcam = jseqs[0].camera()
     ref = jrunner.replay_batch(jrunner.build_batch_data(jseqs, 3, "images"), JCFG, jcam, "images")
-    data = runner.build_batch_data(jseqs, 3, "images")
+    data = runner.build_batch_data(jseqs, 3, "images", "cpu")
     assert data.images.dtype == torch.uint8 and tuple(data.images.shape) == (3, 10, 480, 640)
     ours = runner.replay_batch(data, CFG, _port_camera(jseqs[0]), "images")
     np.testing.assert_allclose(ours.trajectory.numpy(), np.asarray(ref.trajectory),
@@ -165,11 +166,11 @@ def test_replay_batch_images_matches_jax(jseqs):
 def test_evaluate_sequence_images_matches_jax(jseqs):
     ref = jrunner.evaluate_sequence(jseqs[1], JCFG, level="images")
     seq = _port_sequence(jseqs[1])
-    ours = runner.evaluate_sequence(seq, CFG, level="images")
+    ours = runner.evaluate_sequence(seq, CFG, level="images", device="cpu")
     assert ours.keys() == ref.keys()
     for k in ref:
         np.testing.assert_allclose(ours[k], ref[k], atol=TRAJ_TOL, err_msg=k)
-    single = runner.replay(runner.replay_data_from_sequence(seq, "images"), CFG,
+    single = runner.replay(runner.replay_data_from_sequence(seq, "images", "cpu"), CFG,
                            seq.camera(), "images")
     # (10 frames are too few for an RPE: it is NaN on both sides)
     np.testing.assert_equal(runner.evaluate_sequence(seq, CFG, level="images", result=single),

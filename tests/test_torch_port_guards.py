@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX, sets true-float32
 matmuls, refuses to build without nvcc, validates kernel inputs before any
-launch, and sends a non-CPU tensor only to a kernel (no plain fallback)."""
+launch, sends a non-CPU tensor only to a kernel (no plain fallback), and
+puts what its entry points make on the card unless told otherwise."""
 
 import os
 import shutil
@@ -11,10 +12,17 @@ from pathlib import Path
 import pytest
 import torch
 
+import numpy as np
+
 import aruco_slam_tpu_torch
+from aruco_slam_tpu_torch import convert, runner
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
-from aruco_slam_tpu_torch.ops.kernels import _build, ccl, ekf_update_batched, pnp_frontend
+from aruco_slam_tpu_torch.ops.kernels import (
+    _build, ccl, ekf_update, ekf_update_batched, pnp_frontend,
+)
+from aruco_slam_tpu_torch.sim import renderer, synthetic
+from aruco_slam_tpu_torch.system import SlamSystem
 from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
 torch.set_num_threads(1)
@@ -30,7 +38,9 @@ def test_port_imports_no_jax_and_no_yaml():
         "import aruco_slam_tpu_torch, aruco_slam_tpu_torch.runner, "
         "aruco_slam_tpu_torch.sim.synthetic, aruco_slam_tpu_torch.convert, "
         "aruco_slam_tpu_torch.ops.detector, aruco_slam_tpu_torch.ops.dictionary, "
-        "aruco_slam_tpu_torch.ops.kernels.ccl, aruco_slam_tpu_torch.sim.renderer\n"
+        "aruco_slam_tpu_torch.ops.kernels.ccl, aruco_slam_tpu_torch.sim.renderer, "
+        "aruco_slam_tpu_torch.system, aruco_slam_tpu_torch.viz, "
+        "aruco_slam_tpu_torch.ops.kernels.ekf_update, aruco_slam_tpu_torch.utils.device\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yaml', 'aruco_slam_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'aruco_slam_tpu.'))]\n"
         "print(bad)\n"
@@ -58,7 +68,7 @@ def test_build_without_nvcc_names_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
-    for name in ("pnp_frontend", "ccl"):
+    for name in ("pnp_frontend", "ccl", "ekf_frame_update"):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
     assert not (tmp_path / "build").exists()
@@ -99,6 +109,30 @@ def test_frame_step_rejects_bad_inputs():
         ekf_update_batched.frame_step_batched(**{**ok, "z": ok["z"][:, :2]})
 
 
+def _k6_args(B=1, M=3, device="cpu"):
+    state = ekf.init_state(CFG, B, device)
+    frame = ekf.FrameObservations(
+        torch.full((B, M), -1, dtype=torch.int32, device=device),
+        torch.zeros(B, M, 3, device=device), torch.zeros(B, M, 3, 3, device=device),
+        torch.zeros(B, M, dtype=torch.bool, device=device),
+    )
+    return state, frame
+
+
+def test_frame_update_rejects_bad_inputs():
+    state, frame = _k6_args()
+    out = ekf_update.frame_update(state, frame, CFG)
+    assert out.n_landmarks.tolist() == [0]
+    with pytest.raises(ValueError, match="single-stream"):
+        ekf_update.frame_update(*_k6_args(B=2), CFG)
+    with pytest.raises(TypeError, match="ids"):
+        ekf_update.frame_update(state, frame._replace(ids=frame.ids.long()), CFG)
+    with pytest.raises(ValueError, match="max_landmarks"):
+        ekf_update.frame_update(state, frame, SlamConfig(ekf=EkfConfig(max_landmarks=5)))
+    with pytest.raises(ValueError, match="sigma"):
+        ekf_update.frame_update(state._replace(sigma=state.sigma.transpose(1, 2)), frame, CFG)
+
+
 def test_pnp_frontend_rejects_bad_inputs():
     corners = torch.zeros(2, 3, 4, 2)
     valid = torch.zeros(2, 3, dtype=torch.bool)
@@ -113,7 +147,7 @@ def test_pnp_frontend_rejects_bad_inputs():
 
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor off the CPU goes to a kernel or raises: 'meta' has none."""
-    before = (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES)
+    before = (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES, ekf_update.LAUNCHES)
     with pytest.raises(ValueError, match="no kernel"):
         pnp_frontend.pnp_frontend_batch(
             torch.zeros(2, 3, 4, 2, device="meta"),
@@ -121,7 +155,9 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         )
     with pytest.raises(ValueError, match="no kernel"):
         ekf_update_batched.frame_step_batched(**_k2_args(device="meta"))
-    assert (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES) == before
+    with pytest.raises(ValueError, match="no kernel"):
+        ekf_update.frame_update(*_k6_args(device="meta"), CFG)
+    assert (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES, ekf_update.LAUNCHES) == before
 
 
 def test_ccl_wrappers_reject_bad_inputs():
@@ -204,3 +240,32 @@ def test_chip_smoke_refuses_outside_the_repo(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _seq():
+    return synthetic.generate_sequence(synthetic.SimParams(duration=0.5, max_obs=3))
+
+
+ENTRY_POINTS = {
+    "init_state": lambda: ekf.init_state(CFG, 1),
+    "replay_data_from_sequence": lambda: runner.replay_data_from_sequence(_seq()),
+    "build_batch_data": lambda: runner.build_batch_data([_seq()], 2),
+    "replay_sequence": lambda: runner.replay_sequence(_seq(), CFG),
+    "render_poses": lambda: renderer.render_poses(
+        np.zeros((1, 3)), synthetic.make_arena(4), CAM, height=8, width=8),
+    "ekf_state_from_numpy": lambda: convert.ekf_state_from_numpy(ekf.init_state(CFG, 1, "cpu")),
+    "SlamSystem": lambda: SlamSystem(CFG).state,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Called without ``device``, an entry point makes its tensors on the
+    card, and where there is none it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        out = ENTRY_POINTS[name]()
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ENTRY_POINTS[name]()

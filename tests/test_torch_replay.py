@@ -54,7 +54,7 @@ def test_replay_batch_matches_both_jax_paths(level, dist):
     cam = seqs[0].camera()  # the sequence's own calibration, on both sides
     jdata = jrunner.build_batch_data(seqs, 3, level)  # 3 lanes over 2 sequences
     ours = runner.replay_batch(
-        runner.build_batch_data(seqs, 3, level), CFG,
+        runner.build_batch_data(seqs, 3, level, "cpu"), CFG,
         convert.camera_from_numpy(cam.fx, cam.fy, cam.cx, cam.cy, cam.dist), level,
     )
     camera = cam if level == "corners" else None
@@ -71,10 +71,12 @@ def test_replay_single_and_evaluate_match_jax():
     jcam, seqs = _sequences(DIST, n=1)
     seq = seqs[0]
     cam = convert.camera_from_numpy(jcam.fx, jcam.fy, jcam.cx, jcam.cy, jcam.dist)
-    res = runner.replay(runner.replay_data_from_sequence(seq, "corners"), CFG, cam, "corners")
-    batched = runner.replay_batch(runner.build_batch_data(seqs, 1, "corners"), CFG, cam, "corners")
+    res = runner.replay(runner.replay_data_from_sequence(seq, "corners", "cpu"), CFG, cam,
+                        "corners")
+    batched = runner.replay_batch(runner.build_batch_data(seqs, 1, "corners", "cpu"), CFG, cam,
+                                  "corners")
     np.testing.assert_array_equal(res.trajectory.numpy(), batched.trajectory[0].numpy())
-    ours = runner.evaluate_sequence(seq, CFG, level="obs")
+    ours = runner.evaluate_sequence(seq, CFG, level="obs", device="cpu")
     ref = jrunner.evaluate_sequence(seq, JCFG, level="obs")
     assert ours.keys() == ref.keys()
     for k in ref:
@@ -89,8 +91,10 @@ def test_lanes_independent_of_batch_size():
         )
         for s in range(2)
     ]
-    small = runner.replay_batch(runner.build_batch_data(seqs, 2, "corners"), CFG, cam, "corners")
-    big = runner.replay_batch(runner.build_batch_data(seqs, 5, "corners"), CFG, cam, "corners")
+    small = runner.replay_batch(runner.build_batch_data(seqs, 2, "corners", "cpu"), CFG, cam,
+                                "corners")
+    big = runner.replay_batch(runner.build_batch_data(seqs, 5, "corners", "cpu"), CFG, cam,
+                              "corners")
     for lanes in (slice(0, 2), slice(2, 4)):
         np.testing.assert_array_equal(big.trajectory[lanes].numpy(), small.trajectory.numpy())
         np.testing.assert_array_equal(
