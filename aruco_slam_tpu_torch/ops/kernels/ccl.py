@@ -1,6 +1,12 @@
 """K3-K5s: the fused adaptive-threshold / 3x3-close / connected-component
-kernel family as one CUDA source (``csrc/ccl.cu``), one thread block per
-frame and one launch per chunk of frames.
+kernel family as one CUDA source (``csrc/ccl.cu``), one launch per chunk of
+frames, in two bodies chosen by the frame's shape alone (:func:`body`):
+
+- ``"cluster"``: one frame per cluster of 8 CTAs, each owning a band of
+  rows whose labels and masks stay in its shared memory (every frame whose
+  band fits 227 KB: the detector's 480x640 bucket);
+- ``"block"``: one thread block per frame, the working images in device
+  memory (every other frame, 1920x1080 included).
 
 Counterpart of ``aruco_slam_tpu.ops.kernels.ccl``:
 
@@ -18,9 +24,10 @@ The plain versions are built from ``ops.detector``'s ``adaptive_threshold``,
 ``binary_close3`` and ``label_components``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The fused threshold needs a power-of-two ``stride`` that divides H
-and W (:func:`fused_threshold_ok`); the detector routes other frames to the
-plain threshold and close around K5 / K5s, as the JAX detector does.
+raises: a refused launch raises ``RuntimeError`` and nothing retries on the
+other body. The fused threshold needs a power-of-two ``stride`` that divides
+H and W (:func:`fused_threshold_ok`); the detector routes other frames to
+the plain threshold and close around K5 / K5s, as the JAX detector does.
 """
 
 from __future__ import annotations
@@ -34,14 +41,26 @@ from aruco_slam_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
 
-# Kernel launches by entry point since import (or since a caller reset
-# them): a run shows it went through a kernel by its count growing.
-LAUNCHES = {
-    "threshold_label_union": 0,  # K3
-    "threshold_label": 0,  # K4
-    "label_components": 0,  # K5
-    "label_components_seeded": 0,  # K5s
-}
+NAMES = (
+    "threshold_label_union",  # K3
+    "threshold_label",  # K4
+    "label_components",  # K5
+    "label_components_seeded",  # K5s
+)
+BODIES = ("cluster", "block")
+# Kernel launches by "entry point.body" since import (or since a caller
+# reset them): a run shows it went through a kernel by its count growing.
+LAUNCHES = {f"{name}.{b}": 0 for name in NAMES for b in BODIES}
+
+# The cluster body's geometry (csrc/ccl.cu: kClusterCtas, cluster_layout):
+# CTAs per frame, the tallest band and widest row it takes, and the shared
+# memory a CTA may use on Hopper (227 KB).
+CLUSTER_CTAS = 8
+MAX_BAND_ROWS, MAX_ROW_PIXELS = 64, 1024
+MAX_SHARED_BYTES = 232_448
+
+_VARIANTS = {name: i for i, name in enumerate(NAMES)}  # csrc ccl_cluster_plan
+_plans: set = set()  # (device index, entry point, h, w, stride) planned
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -51,17 +70,57 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("ccl")
     if lib.ccl_threshold_union_launch.argtypes is None:
-        thr = [_P, _I] + [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P]
+        thr = [_P, _I] + [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P]
         lib.ccl_threshold_union_launch.argtypes = thr
         lib.ccl_threshold_launch.argtypes = thr
-        lib.ccl_label_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.ccl_label_seeded_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lab = [_P, _P, _P, _P] + [_I] * 5 + [_P]
+        lib.ccl_label_launch.argtypes = lab
+        lib.ccl_label_seeded_launch.argtypes = lab
+        lib.ccl_cluster_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
         for fn in (lib.ccl_threshold_union_launch, lib.ccl_threshold_launch,
-                   lib.ccl_label_launch, lib.ccl_label_seeded_launch):
+                   lib.ccl_label_launch, lib.ccl_label_seeded_launch, lib.ccl_cluster_plan):
             fn.restype = _I
         lib.ccl_error_string.argtypes = [_I]
         lib.ccl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def cluster_shared_bytes(h: int, w: int, stride: int | None = None) -> int | None:
+    """Shared bytes per CTA of the cluster body for an ``h x w`` frame
+    (``stride``: the fused threshold's block stride, None for K5 / K5s), or
+    None where the frame does not take it: h a multiple of 8 (a band of
+    ``h / 8`` rows per CTA, at most 64: a band column's mask bits in one
+    register), w a multiple of 32 (a mask row in whole 32-bit words) and at
+    most 1024, the band a whole number of block rows, and all within 227
+    KB. The band's labels, its edge / halo / summary rows, three bit masks,
+    and a Jacobi chunk buffer of as many rows as fit (at least one; it
+    first holds the threshold's three block grids). Mirrors csrc
+    ``cluster_layout``."""
+    if h <= 0 or w <= 0 or h % CLUSTER_CTAS or w % 32:
+        return None
+    rows, wq = h // CLUSTER_CTAS, w // 32
+    if rows > MAX_BAND_ROWS or w > MAX_ROW_PIXELS:
+        return None
+    cells = 0
+    if stride is not None:
+        if stride < 1 or rows % stride or w % stride:
+            return None
+        cells = (rows // stride) * (w // stride)
+    cap = MAX_SHARED_BYTES // 4
+    words = rows * w + 7 * w + 3 * rows * wq + 2 * wq
+    if words >= cap:
+        return None
+    chunk = min(rows, (cap - words) // w)
+    if chunk < 1:
+        return None
+    words += max(chunk * w, 3 * cells)
+    return 4 * words if words <= cap else None
+
+
+def body(h: int, w: int, stride: int | None = None) -> str:
+    """The kernel body for ``h x w`` frames, by shape alone: ``"cluster"``
+    where :func:`cluster_shared_bytes` takes the frame, else ``"block"``."""
+    return "cluster" if cluster_shared_bytes(h, w, stride) is not None else "block"
 
 
 def fused_threshold_ok(h: int, w: int, stride: int) -> bool:
@@ -167,7 +226,8 @@ def threshold_label_union(img: Tensor, radius: int, C: float, stride: int, round
     _check_image(img, stride)
     if not _route(img):
         return threshold_label_union_reference(img, radius, C, stride, rounds, closed_rounds)
-    return _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union=True)
+    return _launch_threshold(img, radius, C, stride, rounds, closed_rounds, True,
+                             body(*img.shape[1:], stride))
 
 
 def threshold_label(img: Tensor, radius: int, C: float, stride: int, rounds: int):
@@ -175,7 +235,8 @@ def threshold_label(img: Tensor, radius: int, C: float, stride: int, rounds: int
     _check_image(img, stride)
     if not _route(img):
         return threshold_label_reference(img, radius, C, stride, rounds)
-    return _launch_threshold(img, radius, C, stride, rounds, 0, union=False)
+    return _launch_threshold(img, radius, C, stride, rounds, 0, False,
+                             body(*img.shape[1:], stride))
 
 
 def label_components(fg: Tensor, rounds: int, init: Tensor | None = None) -> Tensor:
@@ -185,50 +246,76 @@ def label_components(fg: Tensor, rounds: int, init: Tensor | None = None) -> Ten
     _check_mask(fg, init)
     if not _route(fg):
         return label_components_reference(fg, rounds, init)
+    return _launch_label(fg, rounds, init, body(*fg.shape[1:]))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _plan_cluster(lib, name: str, h: int, w: int, stride: int | None) -> None:
+    """The cluster body's plan, once per device and shape: the kernel's
+    shared-memory attribute set, and a raise where the card cannot hold one
+    of its clusters at once."""
+    key = (torch.cuda.current_device(), name, h, w, stride)
+    if key in _plans:
+        return
+    smem, count = ctypes.c_int(), ctypes.c_int()
+    err = lib.ccl_cluster_plan(_VARIANTS[name], h, w, stride or 1, ctypes.byref(smem),
+                               ctypes.byref(count))
+    _raise_on(err, lib, f"{name} cluster plan ({h}x{w})")
+    if count.value < 1:
+        raise RuntimeError(f"{name}: a cluster of {CLUSTER_CTAS} CTAs with {smem.value} "
+                           f"shared bytes each cannot be resident")
+    _plans.add(key)
+
+
+def _launch_label(fg, rounds, init, kind):
     N, h, w = fg.shape
+    name = "label_components" if init is None else "label_components_seeded"
     lab = torch.empty(N, h * w, dtype=torch.int32, device=fg.device)
-    tmp = torch.empty_like(lab)
+    tmp = torch.empty_like(lab) if kind == "block" else None
     lib = _lib()
     with torch.cuda.device(fg.device):
-        stream = torch.cuda.current_stream(fg.device).cuda_stream
-        if init is None:
-            err = lib.ccl_label_launch(fg.data_ptr(), None, lab.data_ptr(), tmp.data_ptr(),
-                                       N, h, w, rounds, stream)
-            name = "label_components"
-        else:
-            err = lib.ccl_label_seeded_launch(fg.data_ptr(), init.data_ptr(), lab.data_ptr(),
-                                              tmp.data_ptr(), N, h, w, rounds, stream)
-            name = "label_components_seeded"
-    _raise_on(err, lib, name)
-    LAUNCHES[name] += 1
+        if kind == "cluster":
+            _plan_cluster(lib, name, h, w, None)
+        fn = lib.ccl_label_launch if init is None else lib.ccl_label_seeded_launch
+        err = fn(fg.data_ptr(), _ptr(init), lab.data_ptr(), _ptr(tmp), N, h, w, rounds,
+                 int(kind == "cluster"), _stream(fg.device))
+    _raise_on(err, lib, f"{name} ({kind} body)")
+    LAUNCHES[f"{name}.{kind}"] += 1
     return lab
 
 
-def _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union):
+def _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union, kind):
     N, h, w = img.shape
     dev = img.device
+    name = "threshold_label_union" if union else "threshold_label"
     r_ds = _window_radius(radius, stride) if stride > 1 else radius
-    cells = (h // stride) * (w // stride)
     fg = torch.empty(N, h, w, dtype=torch.bool, device=dev)
     lab = torch.empty(N, h * w, dtype=torch.int32, device=dev)
-    tmp = torch.empty_like(lab)
-    grid = torch.empty(N, 2, cells, dtype=torch.float32, device=dev)
-    if union:
-        fg_c = torch.empty_like(fg)
-        lab_c = torch.empty_like(lab)
-        dil = torch.empty_like(fg)
+    fg_c = torch.empty_like(fg) if union else None
+    lab_c = torch.empty_like(lab) if union else None
+    tmp = grid = dil = None
+    if kind == "block":  # the block body's working images
+        tmp = torch.empty_like(lab)
+        grid = torch.empty(N, 2, (h // stride) * (w // stride), dtype=torch.float32, device=dev)
+        dil = torch.empty_like(fg) if union else None
     lib = _lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "cluster":
+            _plan_cluster(lib, name, h, w, stride)
         fn = lib.ccl_threshold_union_launch if union else lib.ccl_threshold_launch
         err = fn(
-            img.data_ptr(), int(img.dtype == torch.uint8),
-            fg.data_ptr(), lab.data_ptr(),
-            fg_c.data_ptr() if union else None, lab_c.data_ptr() if union else None,
-            dil.data_ptr() if union else None, tmp.data_ptr(), grid.data_ptr(),
-            N, h, w, stride, r_ds, float(C), rounds, closed_rounds, stream,
+            img.data_ptr(), int(img.dtype == torch.uint8), fg.data_ptr(), lab.data_ptr(),
+            _ptr(fg_c), _ptr(lab_c), _ptr(dil), _ptr(tmp), _ptr(grid),
+            N, h, w, stride, r_ds, float(C), rounds, closed_rounds,
+            int(kind == "cluster"), _stream(dev),
         )
-    name = "threshold_label_union" if union else "threshold_label"
-    _raise_on(err, lib, name)
-    LAUNCHES[name] += 1
+    _raise_on(err, lib, f"{name} ({kind} body)")
+    LAUNCHES[f"{name}.{kind}"] += 1
     return (fg, lab, fg_c, lab_c) if union else (fg, lab)

@@ -1,13 +1,27 @@
-"""K6: the single-stream EKF frame update as one cooperative CUDA launch
-(``csrc/ekf_frame_update.cu``): sigma stays in device memory and a grid of
-resident blocks, each owning a stripe of its columns, runs the sequential
-chain with one grid barrier per observation. There is no landmark ceiling.
+"""K6: the single-stream EKF frame update as one CUDA launch per frame
+(``csrc/ekf_frame_update.cu``), in two variants chosen by the state's size
+alone (:func:`variant`):
 
-Counterpart of ``aruco_slam_tpu.ops.kernels.ekf_update.frame_update``: a
-drop-in for ``ekf.update`` on a state with a batch of one. The slot lookup
-and the (slot, arrival) sort run in torch; the kernel takes the sorted
-observations. The plain version is ``ekf.update``; the wrapper takes it for
-a CPU tensor and launches the kernel, or raises, for a CUDA tensor.
+- ``"cluster"``: a thread-block cluster of 16 CTAs, each holding a
+  stripe of sigma's columns in its shared memory for the whole frame, with
+  one hardware cluster barrier per observation (max_landmarks up to
+  :data:`MAX_CLUSTER_LANDMARKS`);
+- ``"grid"``: a cooperative grid, sigma in device memory, one hand-written
+  grid barrier per observation (every larger state).
+
+Counterpart of ``aruco_slam_tpu.ops.kernels.ekf_update.frame_update``,
+together with the slot lookup and the (slot, arrival) sort that the JAX
+function runs around its ``pallas_call``: the kernel takes the frame's
+observations in arrival order and computes both itself. A drop-in for
+``ekf.update`` on a state with a batch of one. The plain version is
+``ekf.update``; the wrapper takes it for a CPU tensor and launches the
+kernel, or raises, for a CUDA tensor. A refused launch raises
+``RuntimeError``; nothing retries on the other variant.
+
+Per call the wrapper makes one device launch and no other device work: the
+outputs are views of one allocation, the launch plans are cached per device
+and size, and the grid variant's barrier words are cleared once per device
+and stream.
 """
 
 from __future__ import annotations
@@ -23,31 +37,71 @@ from aruco_slam_tpu_torch.utils.config import SlamConfig
 
 Tensor = torch.Tensor
 
-# Kernel launches since import (or since a caller reset it to 0).
-LAUNCHES = 0
+# Kernel launches by variant since import (or since a caller reset them).
+LAUNCHES = {"cluster": 0, "grid": 0}
+
+# Shared memory a CTA may use on Hopper (227 KB), and the observations per
+# frame the kernel's shared memory is planned for.
+MAX_SHARED_BYTES = 232_448
+MAX_OBS = 256
+# CTAs in a cluster: 16 is above the portable 8 and needs the kernel's
+# non-portable attribute (csrc: ekf_frame_update_cluster_plan).
+MAX_CLUSTER = 16
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+
+_plans: dict = {}  # (device index, variant, N, CTAs) -> launch plan
+_barriers: dict = {}  # (device index, stream) -> the grid variant's barrier words
+_CFG_ARGS = [_I, _F, _I, _F, _F, _I, _P]  # the compat flags, symmetrize, stream
 
 
 def _lib():
     lib = _build.load("ekf_frame_update")
-    if lib.ekf_frame_update_launch.argtypes is None:
-        lib.ekf_frame_update_launch.argtypes = (
-            [_P] * 24 + [_I] * 3 + [_I, _F, _I, _F, _F, _I, _P]
-        )
-        lib.ekf_frame_update_launch.restype = _I
-        lib.ekf_frame_update_grid.argtypes = [_I]
-        lib.ekf_frame_update_grid.restype = _I
+    if lib.ekf_frame_update_cluster_launch.argtypes is None:
+        lib.ekf_frame_update_cluster_plan.argtypes = [_I, _I, _I, _IP, _IP, _IP]
+        lib.ekf_frame_update_grid_plan.argtypes = [_I, _I, _IP, _IP, _IP]
+        lib.ekf_frame_update_cluster_launch.argtypes = [_P] + [_I] * 6 + _CFG_ARGS
+        lib.ekf_frame_update_grid_launch.argtypes = [_P, _P, _P] + [_I] * 6 + _CFG_ARGS
+        for fn in (lib.ekf_frame_update_cluster_plan, lib.ekf_frame_update_grid_plan,
+                   lib.ekf_frame_update_cluster_launch, lib.ekf_frame_update_grid_launch):
+            fn.restype = _I
         lib.ekf_frame_update_error_string.argtypes = [_I]
         lib.ekf_frame_update_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def grid_blocks(n_dim: int) -> int:
-    """Blocks the kernel runs for an ``n_dim`` state on the current card."""
-    return _lib().ekf_frame_update_grid(n_dim)
+def cluster_shared_bytes(n_dim: int, ctas: int) -> int:
+    """Shared bytes per CTA of the cluster variant: the CTA's columns of
+    sigma (N x W, W = ceil(N / CTAs)), its mu entries, the double-buffered
+    B columns, the whole K^T, and the prologue's slots and order (planned
+    for :data:`MAX_OBS` observations); csrc: ``cluster_words``."""
+    w = -(-n_dim // ctas)
+    return 4 * (n_dim * w + 7 * w + 3 * n_dim + 9 + 64 + 2 * MAX_OBS)
+
+
+def cluster_ctas(n_dim: int) -> int:
+    """CTAs of the cluster variant for an ``n_dim`` state, or 0 when sigma
+    fits no cluster: 16 (timed fastest at every N it takes, on an H100:
+    PERF.md), never so many that a CTA holds fewer than the pose block's 3
+    columns."""
+    if cluster_shared_bytes(n_dim, MAX_CLUSTER) > MAX_SHARED_BYTES:
+        return 0
+    return max(1, min(MAX_CLUSTER, n_dim // 3))
+
+
+# The largest map the cluster variant holds (N = 3 + 3 * max_landmarks).
+MAX_CLUSTER_LANDMARKS = max(lm for lm in range(1, 1024) if cluster_ctas(3 + 3 * lm))
+
+
+def variant(n_dim: int) -> tuple[str, int]:
+    """The kernel variant for an ``n_dim`` state, by its size alone:
+    ``("cluster", CTAs)`` where sigma fits a cluster's shared memory, else
+    ``("grid", 0)``."""
+    ctas = cluster_ctas(n_dim)
+    return ("cluster", ctas) if ctas else ("grid", 0)
 
 
 def _check_inputs(state: ekf.EkfState, frame: ekf.FrameObservations, config: SlamConfig) -> None:
@@ -60,6 +114,8 @@ def _check_inputs(state: ekf.EkfState, frame: ekf.FrameObservations, config: Sla
     if N != 3 + 3 * L:
         raise ValueError(f"mu is [1, {N}], config max_landmarks {L} needs N = {3 + 3 * L}")
     M = frame.ids.shape[-1]
+    if M > MAX_OBS:
+        raise ValueError(f"frame_update takes at most {MAX_OBS} observations per frame, got {M}")
     dev = state.mu.device
     for name, t, shape, dtype in (
         ("mu", state.mu, (1, N), f32),
@@ -95,55 +151,106 @@ def frame_update(state: ekf.EkfState, frame: ekf.FrameObservations,
         return frame_update_reference(state, frame, config)
     if state.mu.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.mu.device}")
-    return _launch(state, frame, config)
+    return _launch(state, frame, config, variant(state.mu.shape[1]))
 
 
-def _launch(state, frame, config):
-    global LAUNCHES
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"ekf_frame_update {what} failed: "
+                           f"{lib.ekf_frame_update_error_string(err).decode()}")
+
+
+def _plan(lib, dev_index: int, kind: str, N: int, ctas: int):
+    key = (dev_index, kind, N, ctas)
+    plan = _plans.get(key)
+    if plan is None:
+        a, b, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        if kind == "cluster":
+            # (columns per CTA, shared bytes, clusters the card holds at once)
+            err = lib.ekf_frame_update_cluster_plan(N, MAX_OBS, ctas, ctypes.byref(a),
+                                                    ctypes.byref(b), ctypes.byref(c))
+            _raise_on(err, lib, f"cluster plan (N={N}, {ctas} CTAs)")
+            if c.value < 1:
+                raise RuntimeError(f"ekf_frame_update: a cluster of {ctas} CTAs with "
+                                   f"{b.value} shared bytes each cannot be resident")
+            plan = (ctas, a.value, b.value)
+        else:
+            # (blocks, columns per block, shared bytes)
+            err = lib.ekf_frame_update_grid_plan(N, MAX_OBS, ctypes.byref(a), ctypes.byref(b),
+                                                 ctypes.byref(c))
+            _raise_on(err, lib, f"grid plan (N={N})")
+            plan = (a.value, b.value, c.value)
+        _plans[key] = plan
+    return plan
+
+
+def _outputs(state: ekf.EkfState, scratch_words: int):
+    """The output state (and the grid variant's scratch) as views of one
+    float32 allocation; ``initialized`` passes through."""
+    N, L = state.mu.shape[1], state.slot_ids.shape[1]
+    words = N + N * N + L + 1 + 3 * L + 2 + scratch_words + (L + 3) // 4
+    buf = torch.empty(words, dtype=torch.float32, device=state.mu.device)
+    at = 0
+
+    def take(n):
+        nonlocal at
+        at += n
+        return buf[at - n: at]
+
+    i32 = torch.int32
+    out = ekf.EkfState(
+        mu=take(N).view(1, N),  # never aliases mu: the input is mu0
+        sigma=take(N * N).view(1, N, N),
+        slot_ids=take(L).view(i32).view(1, L),
+        n_landmarks=take(1).view(i32),
+        last_obs=take(3 * L).view(1, L, 3),
+        diverged=take(1).view(i32),
+        dropped=take(1).view(i32),
+        initialized=state.initialized,
+        seen_prev=None,
+    )
+    scratch = take(scratch_words) if scratch_words else None
+    seen = take((L + 3) // 4).view(torch.uint8)[:L].view(torch.bool).view(1, L)
+    return out._replace(seen_prev=seen), scratch
+
+
+def _launch(state, frame, config, choice):
+    """One launch of the variant ``choice`` (``variant``'s answer)."""
     N = state.mu.shape[1]
     L = config.ekf.max_landmarks
     M = frame.ids.shape[1]
-    obs, slots = ekf.sort_observations(frame, ekf.lookup_slots(state.slot_ids, frame.ids))
-    ids, z, valid = obs.ids.contiguous(), obs.z.contiguous(), obs.valid.contiguous()
-    R9 = obs.R.reshape(1, M, 9).contiguous()
-    slots = slots.contiguous()
-    lib = _lib()
-    out = ekf.EkfState(
-        mu=torch.empty_like(state.mu),  # never aliases mu: the input is mu0
-        sigma=torch.empty_like(state.sigma),
-        slot_ids=torch.empty_like(state.slot_ids),
-        n_landmarks=torch.empty_like(state.n_landmarks),
-        last_obs=torch.empty_like(state.last_obs),
-        seen_prev=torch.empty_like(state.seen_prev),
-        initialized=state.initialized,
-        diverged=torch.empty_like(state.diverged),
-        dropped=torch.empty_like(state.dropped),
-    )
+    kind, g = choice
     dev = state.mu.device
-    scratch = torch.empty(2, 3, N, dtype=torch.float32, device=dev)
-    barrier = torch.empty(2, dtype=torch.int32, device=dev)
-    cc = config.compat
+    lib = _lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ekf_frame_update_launch(
-            state.mu.data_ptr(), state.sigma.data_ptr(), state.slot_ids.data_ptr(),
-            state.n_landmarks.data_ptr(), state.last_obs.data_ptr(),
-            state.seen_prev.data_ptr(), state.initialized.data_ptr(),
-            state.diverged.data_ptr(), state.dropped.data_ptr(),
-            ids.data_ptr(), z.data_ptr(), R9.data_ptr(), valid.data_ptr(), slots.data_ptr(),
-            out.mu.data_ptr(), out.sigma.data_ptr(), out.slot_ids.data_ptr(),
-            out.n_landmarks.data_ptr(), out.last_obs.data_ptr(), out.seen_prev.data_ptr(),
-            out.diverged.data_ptr(), out.dropped.data_ptr(),
-            scratch.data_ptr(), barrier.data_ptr(),
-            N, L, M,
-            int(cc.stationary_gate), cc.stationary_gate_eps**2,
-            int(cc.reject_divergent), cc.divergence_ze_norm**2,
-            cc.divergence_k_norm**2, int(config.ekf.symmetrize_sigma), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"ekf_frame_update kernel launch failed: "
-            f"{lib.ekf_frame_update_error_string(err).decode()}"
-        )
-    LAUNCHES += 1
+        dev_index = torch.cuda.current_device()
+        stream = _stream(dev)
+        plan = _plan(lib, dev_index, kind, N, g)
+        out, scratch = _outputs(state, 6 * N if kind == "grid" else 0)
+        ptrs = (ctypes.c_void_p * 21)(*(t.data_ptr() for t in (
+            state.mu, state.sigma, state.slot_ids, state.n_landmarks, state.last_obs,
+            state.seen_prev, state.initialized, state.diverged, state.dropped,
+            frame.ids, frame.z, frame.R, frame.valid,
+            out.mu, out.sigma, out.slot_ids, out.n_landmarks, out.last_obs, out.seen_prev,
+            out.diverged, out.dropped,
+        )))
+        cc = config.compat
+        flags = (int(cc.stationary_gate), cc.stationary_gate_eps**2, int(cc.reject_divergent),
+                 cc.divergence_ze_norm**2, cc.divergence_k_norm**2,
+                 int(config.ekf.symmetrize_sigma), stream)
+        if kind == "cluster":
+            err = lib.ekf_frame_update_cluster_launch(ptrs, N, L, M, *plan, *flags)
+        else:
+            bar = _barriers.get((dev_index, stream))
+            if bar is None:  # cleared once; the kernel leaves it at zero arrivals
+                bar = _barriers[(dev_index, stream)] = torch.zeros(
+                    2, dtype=torch.int32, device=dev)
+            err = lib.ekf_frame_update_grid_launch(ptrs, scratch.data_ptr(), bar.data_ptr(),
+                                                   N, L, M, *plan, *flags)
+    _raise_on(err, lib, f"{kind} launch (N={N})")
+    LAUNCHES[kind] += 1
     return out

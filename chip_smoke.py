@@ -3,10 +3,12 @@
 CUDA kernels from this checkout, holds each against its plain PyTorch version
 at the main paths' shapes, then drives the main paths — batched corner-level
 replay (256 lanes x 600 frames, K1 + K2), batched image-level replay (32 lanes
-x 60 rendered 640x480 frames, K3 + K1 + K2), single-stream replay of BASELINE
-config 2 (2,100 frames, 128 landmarks, K6) and the streaming SlamSystem (60
-rendered frames, K3 + K6) — and checks each against its plain path and the
-ground truth.
+x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
+detection of rendered 1920x1080 frames (K3-K5s in their block body),
+single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
+cluster variant; 512 landmarks, its grid variant) and the streaming
+SlamSystem (60 rendered frames, K3 + K6) — and checks each against its plain
+path and the ground truth.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -27,36 +29,53 @@ Phases (each raises on failure; the script then exits non-zero):
      launches exactly once per frame; landmarks and slots equal the plain
      path's on every lane and the trajectory is within TRAJ_TOL of it over
      the plain run's cut depth (the first PLAIN_FRAMES frames); frames/s.
-  4. the CCL family K3, K4, K5, K5s vs their plain versions, bit for bit:
-     32 rendered 640x480 frames at varied poses, 8 uniform-noise frames and
-     2 rendered 1920x1080 frames; ms per 16-frame 640x480 launch beside the
-     plain version's.
+  4. the CCL family K3, K4, K5, K5s vs their plain versions, bit for bit,
+     in both bodies: the cluster body (a frame per cluster of 8 CTAs) on 32
+     rendered 640x480 frames at varied poses, 8 uniform-noise frames and 2
+     frames drawn across its band edges (a serpentine through all 8 bands
+     that the bounded rounds leave unconverged; components on every band
+     edge), and K5 / K5s on that mask itself; the block body (a block per
+     frame) on 2 rendered 1920x1080 frames. Each launch's body is the one
+     its shape selects. K3 timed in both bodies at 1, 16 and 128 640x480
+     frames; each variant and body at its path's chunk (128 640x480 frames,
+     HD_CHUNK 1920x1080 frames) beside the plain version's, and the cluster
+     body at 16 640x480 frames too.
   5. the image-level path at bench.py's shape (BASELINE.md config 3b):
      runner.replay_batch(..., "images") over 2 rendered sequences (seeds 0
      and 1, 6 s at 10 Hz) tiled to 32 lanes, EkfConfig(max_landmarks=32,
-     max_observations_per_frame=24), DetectorConfig(). K3 launches once per
-     128-frame chunk, K1 and K2 once per frame; detections equal the plain
-     detector's (ids, valid exact, corners to 1e-3 px); landmarks and slots
-     equal the plain path's; trajectory within TRAJ_TOL; lane 0 ATE below
-     0.05 m; frames/s of both paths (the plain path and the JAX default
-     chunk of 16 timed once), the detection/replay split and a per-stage
-     split of one chunk's detection. The two other detector
-     branches run the same replay once each: closing_union=False (K4) and
-     a stride the fused threshold does not take (K5, K5s).
-  6. K6 (single-stream frame update) vs its plain version at max_landmarks
-     64, 128 and 512 (and 5, where observations drop), M=16, both
-     reject_divergent settings, over frames of new, known, gated and
-     dropped observations, plus an uninitialized no-op. Integer state
-     exact; mu, sigma to atol 5e-5 / rtol 5e-3. ms per launch (100
-     launches) beside the plain version's and K2's at B=1, N=195.
+     max_observations_per_frame=24), DetectorConfig(). K3 (cluster body)
+     launches once per 128-frame chunk, K1 and K2 once per frame;
+     detections equal the plain detector's (ids, valid exact, corners to
+     1e-3 px); landmarks and slots equal the plain path's; trajectory
+     within TRAJ_TOL; lane 0 ATE below 0.05 m; frames/s of both paths (the
+     plain path and the JAX default chunk of 16 timed once), the
+     detection/replay split and a per-stage split of one chunk's detection.
+     The two other detector branches run the same replay once each:
+     closing_union=False (K4) and a stride the fused threshold does not
+     take (K5, K5s). Then the 1920x1080 detection path: runner.detect_frames
+     over HD_CHUNK rendered 1920x1080 frames in each of the three branches
+     (K3, K4, K5 + K5s in the block body), detections equal the plain
+     detector's.
+  6. K6 (single-stream frame update) vs its plain version in both variants:
+     the cluster variant at max_landmarks 64, 128 and the largest it takes,
+     the grid variant one above that and at 512 (and 5, where observations
+     drop), M=16 in shuffled arrival order, both reject_divergent settings,
+     over frames of new, known, gated and dropped observations, plus an
+     uninitialized no-op. Integer state exact; mu, sigma to atol 5e-5 /
+     rtol 5e-3. Per size: ms per call through the wrapper (100 calls), the
+     kernel alone and the device events per call (torch.profiler: exactly
+     one), beside the plain version's and K2's at B=1, N=195; the cluster
+     variant timed at 2, 4, 8 and 16 CTAs at N = 195 and 387 (where they fit).
   7. the single-stream main path: runner.replay_sequence of BASELINE config
      2 (benchmarks/run_all.py config2_loop_100: the 100-marker 20 x 16 m
      arena, 210 s tour, EkfConfig(max_landmarks=128,
      max_observations_per_frame=16), 2,100 frames at obs level) against
-     runner.replay_reference. K6 launches once per frame; landmarks and
-     slots equal; trajectory within TRAJ_TOL; ATE of both; frames/s (median
-     of 3). Then fused_update=True (plain update_fused) against the same
-     reference.
+     runner.replay_reference. K6 (cluster variant) launches once per frame;
+     landmarks and slots equal; trajectory within TRAJ_TOL; ATE of both;
+     frames/s (median of 3). Then fused_update=True (plain update_fused)
+     against the same reference. Then the first GRID_FRAMES frames with
+     max_landmarks=512 (K6's grid variant once per frame) against the plain
+     replay of the same frames.
   8. the streaming SlamSystem with the default SlamConfig(): 60 frames of
      10 add_encoder calls and one add_image of a 640x480 frame rendered on
      the card, against the same calls through the plain versions (pose, map
@@ -91,6 +110,12 @@ IMG_B, IMG_SECONDS = 32, 6.0
 # launch-bound; on an H100 (700 W) detection took 1.06 ms/frame at 16 and
 # 0.15 ms/frame at 128, with a peak of 1.8 GiB (PERF.md, section 5).
 IMG_CHUNK = 128
+# 1920x1080 frames per detector call on the block body's path (the frames a
+# 1080p camera's user detects in one call; 16 blocks of the 132 SMs).
+HD_CHUNK = 16
+# Frames of config 2 replayed with 512 landmark slots (K6's grid variant):
+# its plain replay costs about 60 ms a frame on the card.
+GRID_FRAMES = 200
 # Detections of the kernel path against the plain detector on the same card:
 # the CCL stage is bit-identical, so everything downstream runs the same ops
 # on the same bits; 1e-3 px is the CPU parity tests' bound.
@@ -369,29 +394,84 @@ def phase3_main_path(cfg, dev):
     return launches
 
 
+def _poses(n, seed=4):
+    rng = np.random.default_rng(seed)
+    poses = np.stack([rng.uniform(0.8, 4.3, n), rng.uniform(-3.9, -0.8, n),
+                      rng.uniform(-np.pi, np.pi, n)], axis=1)
+    poses[0] = (2.55, -2.0, 1.2)  # tests/test_detector.py's scene
+    return poses
+
+
+def _render_hd(n, dev):
+    """n 1920x1080 frames of the 20-marker arena at varied poses."""
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.sim import renderer, synthetic
+
+    return renderer.render_poses(_poses(n, 5), synthetic.make_arena(n_markers=20),
+                                 CameraIntrinsics.create(1800.0, 1800.0, 960.0, 540.0),
+                                 height=1080, width=1920, device=dev)
+
+
+def _band_crossing_mask(h=480, w=640, bands=8):
+    """A serpentine that winds down through every band of the cluster body
+    (the bounded rounds do not converge on it), plus components that end
+    on, start on and straddle each band edge (tests/test_torch_ccl.py)."""
+    fg = np.zeros((h, w), bool)
+    for y in range(2, h - 2, 4):
+        fg[y, 4:w - 4] = True
+        fg[y + 1: y + 4, w - 5 if (y // 4) % 2 == 0 else 4] = True
+    fg[:, w // 2 - 20: w // 2 - 18] = False  # cut it into two windings
+    band = h // bands
+    for b in range(1, bands):
+        y = b * band
+        fg[y - 3: y, 40 + 60 * b: 60 + 60 * b] = True  # ends on the edge
+        fg[y: y + 3, 50 + 60 * b: 70 + 60 * b] = True  # starts on it
+        fg[y - 1: y + 1, 10: 20] = True  # straddles it
+    return fg
+
+
 def _frames_for_ccl(dev):
     """Phase 4's inputs: 32 rendered 640x480 frames (the 20-marker arena at
-    varied poses), 8 uniform-noise frames, 2 rendered 1920x1080 frames."""
+    varied poses), 8 uniform-noise frames, 2 frames drawn across the
+    cluster body's band edges, 2 rendered 1920x1080 frames."""
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
     from aruco_slam_tpu_torch.sim import renderer, synthetic
 
     rng = np.random.default_rng(4)
-    poses = np.stack([rng.uniform(0.8, 4.3, 32), rng.uniform(-3.9, -0.8, 32),
-                      rng.uniform(-np.pi, np.pi, 32)], axis=1)
-    poses[0] = (2.55, -2.0, 1.2)  # tests/test_detector.py's scene
     arena = synthetic.make_arena(n_markers=20)
-    vga = renderer.render_poses(poses, arena, CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0),
-                                device=dev)
+    vga = renderer.render_poses(_poses(32), arena,
+                                CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0), device=dev)
     noise = torch.as_tensor(rng.integers(0, 256, (8, 480, 640), dtype=np.uint8), device=dev)
-    hd = renderer.render_poses(poses[:2], arena,
-                               CameraIntrinsics.create(1800.0, 1800.0, 960.0, 540.0),
-                               height=1080, width=1920, device=dev)
-    return {"rendered 640x480": vga, "noise 640x480": noise, "rendered 1920x1080": hd}
+    # dark strokes on a bright page: a serpentine of 2-pixel rows joined at
+    # alternate ends through all 8 bands, and the band-edge mask's shapes
+    snake = np.full((480, 640), 200, np.uint8)
+    for y in range(2, 478, 4):
+        snake[y:y + 2, 4:636] = 20
+    for y in range(4, 478, 8):
+        snake[y:y + 2, 632:636] = 20
+    for y in range(8, 478, 8):
+        snake[y:y + 2, 4:8] = 20
+    edges = np.where(_band_crossing_mask(), 20, 200).astype(np.uint8)
+    bands = torch.as_tensor(np.stack([snake, edges]), device=dev)
+    return {"rendered 640x480": vga, "noise 640x480": noise, "band-crossing 640x480": bands,
+            "rendered 1920x1080": _render_hd(2, dev)}
+
+
+# bytes per pixel in + out, and operations per pixel, of each CCL variant
+def _ccl_work(name, r1, r2):
+    return {
+        "threshold_label_union": (1 + 1 + 4 + 1 + 4, CCL_THRESHOLD_OPS + CCL_CLOSE_OPS
+                                  + (r1 + r2) * CCL_ROUND_OPS),
+        "threshold_label": (1 + 1 + 4, CCL_THRESHOLD_OPS + r1 * CCL_ROUND_OPS),
+        "label_components": (1 + 4, r1 * CCL_ROUND_OPS),
+        "label_components_seeded": (1 + 4 + 4, r2 * CCL_ROUND_OPS),
+    }[name]
 
 
 def phase4_ccl(dev):
-    """K3, K4, K5, K5s against their plain versions; returns per kernel
-    (max err, ms, plain ms), the times for one 16-frame 640x480 chunk."""
+    """K3, K4, K5, K5s against their plain versions in both bodies; returns
+    per "variant.body" (max err, ms, plain ms, bound) at the body's path
+    chunk: 128 frames of 640x480 (cluster), HD_CHUNK of 1920x1080 (block)."""
     from aruco_slam_tpu_torch.ops.detector import DetectorConfig
     from aruco_slam_tpu_torch.ops.kernels import ccl
 
@@ -400,62 +480,103 @@ def phase4_ccl(dev):
         cfg.closed_ccl_rounds
     err = dict.fromkeys(ccl.LAUNCHES, 0.0)
 
-    def check(name, got, want, what):
+    def check(name, got, want, what, kind):
         for a, b in zip(got, want):
             _require(a.shape == b.shape and torch.equal(a, b),
-                     f"{name} differs from its plain version on {what}")
-            err[name] = max(err[name], _max_err(a.to(torch.int64), b.to(torch.int64)))
+                     f"{name} ({kind} body) differs from its plain version on {what}")
+            key = f"{name}.{kind}"
+            err[key] = max(err[key], _max_err(a.to(torch.int64), b.to(torch.int64)))
 
     inputs = _frames_for_ccl(dev)
     for what, frames in inputs.items():
+        h, w = frames.shape[1:]
+        kind = ccl.body(h, w, s)
+        _require(kind == ccl.body(h, w) == ("block" if w > 1024 else "cluster"),
+                 f"{what}: body {kind}")
         for i in range(0, frames.shape[0], 16):
             img = frames[i: i + 16].contiguous()
+            before = dict(ccl.LAUNCHES)
             ref = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
             check("threshold_label_union", ccl.threshold_label_union(img, r, C, s, r1, r2),
-                  ref, what)
+                  ref, what, kind)
             check("threshold_label", ccl.threshold_label(img, r, C, s, r1),
-                  ccl.threshold_label_reference(img, r, C, s, r1), what)
+                  ccl.threshold_label_reference(img, r, C, s, r1), what, kind)
             fg, lab, fg_c, _ = ref
             for mask in (fg, fg_c):
                 check("label_components", (ccl.label_components(mask, r1),),
-                      (ccl.label_components_reference(mask, r1),), what)
+                      (ccl.label_components_reference(mask, r1),), what, kind)
             seed = lab.reshape(fg.shape)
             check("label_components_seeded", (ccl.label_components(fg_c, r2, init=seed),),
-                  (ccl.label_components_reference(fg_c, r2, init=seed),), what)
+                  (ccl.label_components_reference(fg_c, r2, init=seed),), what, kind)
             torch.cuda.synchronize()
-        print(f"phase 4: K3 K4 K5 K5s bit-identical to plain on {frames.shape[0]} {what} "
-              f"frames (foreground {float(fg.float().mean()):.3f})")
+            used = {k: v - before[k] for k, v in ccl.LAUNCHES.items() if v != before[k]}
+            _require(used == {f"threshold_label_union.{kind}": 1, f"threshold_label.{kind}": 1,
+                              f"label_components.{kind}": 2,
+                              f"label_components_seeded.{kind}": 1},
+                     f"{what}: launches {used}, expected the {kind} body")
+        print(f"phase 4: K3 K4 K5 K5s ({kind} body) bit-identical to plain on "
+              f"{frames.shape[0]} {what} frames (foreground {float(fg.float().mean()):.3f})")
 
-    img = inputs["rendered 640x480"][:16].contiguous()
-    fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
-    seed = lab.reshape(fg.shape)
-    runs = {
-        "threshold_label_union": (lambda: ccl.threshold_label_union(img, r, C, s, r1, r2),
-                                  lambda: ccl.threshold_label_union_reference(img, r, C, s, r1, r2)),
-        "threshold_label": (lambda: ccl.threshold_label(img, r, C, s, r1),
-                            lambda: ccl.threshold_label_reference(img, r, C, s, r1)),
-        "label_components": (lambda: ccl.label_components(fg, r1),
-                             lambda: ccl.label_components_reference(fg, r1)),
-        "label_components_seeded": (lambda: ccl.label_components(fg_c, r2, init=seed),
-                                    lambda: ccl.label_components_reference(fg_c, r2, init=seed)),
-    }
-    px = img.numel()
-    # bytes per pixel in + out, and operations per pixel, of each variant
-    work = {
-        "threshold_label_union": (1 + 1 + 4 + 1 + 4, CCL_THRESHOLD_OPS + CCL_CLOSE_OPS
-                                  + (r1 + r2) * CCL_ROUND_OPS),
-        "threshold_label": (1 + 1 + 4, CCL_THRESHOLD_OPS + r1 * CCL_ROUND_OPS),
-        "label_components": (1 + 4, r1 * CCL_ROUND_OPS),
-        "label_components_seeded": (1 + 4 + 4, r2 * CCL_ROUND_OPS),
-    }
+    # K5 and K5s on the band-crossing mask itself
+    mask = torch.as_tensor(_band_crossing_mask(), device=dev)[None].contiguous()
+    lab = ccl.label_components(mask, r1)
+    ref = ccl.label_components_reference(mask, r1)
+    check("label_components", (lab,), (ref,), "the band-crossing mask", "cluster")
+    seed = lab.reshape(mask.shape)
+    check("label_components_seeded", (ccl.label_components(mask, r2, init=seed),),
+          (ccl.label_components_reference(mask, r2, init=seed),), "the band-crossing mask",
+          "cluster")
+    parts = int(torch.unique(ref[0][mask.reshape(-1)]).numel())
+    _require(parts > 16, f"the band-crossing mask converged ({parts} labels)")
+    print(f"phase 4: K5, K5s bit-identical to plain on the band-crossing mask ({parts} labels "
+          f"left on its foreground by {r1} rounds: unconverged)")
+
+    # K3 in both bodies at 1, 16 and 128 640x480 frames (the block body
+    # launched through the wrapper's own launcher: the shape alone would
+    # give the cluster body)
+    vga = inputs["rendered 640x480"]
+    vga128 = vga.repeat(4, 1, 1).contiguous()
+    for n in (1, 16, 128):
+        img = vga128[:n].contiguous()
+        t = {kind: _cuda_time(lambda k=kind: ccl._launch_threshold(
+            img, r, C, s, r1, r2, True, k), 10 if n == 128 else 30)
+            for kind in ("cluster", "block")}
+        print(f"phase 4: K3 at {n} frames 640x480: cluster body {t['cluster']:.4f} ms, block "
+              f"body {t['block']:.4f} ms")
+
     out = {}
-    for name, (kern, plain) in runs.items():
-        ms = _cuda_time(kern, 20)
-        plain_ms = _cuda_time(plain, 3)
-        bound = _bound(px * work[name][0], px * work[name][1])
-        out[name] = (err[name], ms, plain_ms, bound)
-        print(f"phase 4: {name} {ms:.4f} ms/launch (16 frames 640x480), plain {plain_ms:.4f} "
-              f"ms/call, bound {bound[0]:.5f} ms ({bound[1]})")
+    hd = _render_hd(HD_CHUNK, dev)
+    for kind, img, what in (("cluster", vga128, "128 frames 640x480"),
+                            ("cluster", vga128[:16].contiguous(), "16 frames 640x480"),
+                            ("block", hd, f"{HD_CHUNK} frames 1920x1080")):
+        fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+        seed = lab.reshape(fg.shape)
+        runs = {
+            "threshold_label_union": (
+                lambda: ccl.threshold_label_union(img, r, C, s, r1, r2),
+                lambda: ccl.threshold_label_union_reference(img, r, C, s, r1, r2)),
+            "threshold_label": (lambda: ccl.threshold_label(img, r, C, s, r1),
+                                lambda: ccl.threshold_label_reference(img, r, C, s, r1)),
+            "label_components": (lambda: ccl.label_components(fg, r1),
+                                 lambda: ccl.label_components_reference(fg, r1)),
+            "label_components_seeded": (
+                lambda: ccl.label_components(fg_c, r2, init=seed),
+                lambda: ccl.label_components_reference(fg_c, r2, init=seed)),
+        }
+        px = img.numel()
+        for name, (kern, plain) in runs.items():
+            key = f"{name}.{kind}"
+            ms = _cuda_time(kern, 10)
+            if key in out:  # the body at a second chunk size: its time beside
+                print(f"phase 4: {key} {ms:.4f} ms/launch ({what})")
+                continue
+            plain_ms = _cuda_time(plain, 2)
+            n_bytes, n_ops = _ccl_work(name, r1, r2)
+            bound = _bound(px * n_bytes, px * n_ops)
+            out[key] = (err[key], ms, plain_ms, bound)
+            print(f"phase 4: {key} {ms:.4f} ms/launch ({what}), plain {plain_ms:.4f} ms/call, "
+                  f"bound {bound[0]:.5f} ms ({bound[1]})")
+        del fg, lab, fg_c, seed, runs
     return out
 
 
@@ -527,10 +648,9 @@ def phase5_image_path(dev):
     launches = {**ccl.LAUNCHES, "pnp_frontend": pk.LAUNCHES, "ekf_frame_batched": kb.LAUNCHES}
     print(f"phase 5: launches in one {IMG_B}x{n_frames} image-level replay: {launches}")
     chunks = -(-total // IMG_CHUNK)
-    _require(launches == {"threshold_label_union": chunks, "threshold_label": 0,
-                          "label_components": 0, "label_components_seeded": 0,
+    _require(launches == {**dict.fromkeys(ccl.LAUNCHES, 0), "threshold_label_union.cluster": chunks,
                           "pnp_frontend": n_frames, "ekf_frame_batched": n_frames},
-             f"expected K3 x {chunks}, K1 and K2 x {n_frames}; got {launches}")
+             f"expected K3 (cluster body) x {chunks}, K1 and K2 x {n_frames}; got {launches}")
 
     det = runner.detect_frames(data.images, det_cfg, IMG_CHUNK)
     det_ref = runner.detect_frames(data.images, det_cfg, IMG_CHUNK, reference=True)
@@ -586,9 +706,10 @@ def phase5_image_path(dev):
     # the two other detector branches, each through the same entry point
     branches = {
         "closing_union=False": (dataclasses.replace(det_cfg, closing_union=False),
-                                {"threshold_label": chunks}),
+                                {"threshold_label.cluster": chunks}),
         "mean_stride=3": (dataclasses.replace(det_cfg, mean_stride=3),
-                          {"label_components": chunks, "label_components_seeded": chunks}),
+                          {"label_components.cluster": chunks,
+                           "label_components_seeded.cluster": chunks}),
     }
     branch_launches = {}
     for what, (bcfg, expect) in branches.items():
@@ -606,6 +727,34 @@ def phase5_image_path(dev):
                           runner.detect_frames(first, bcfg, IMG_CHUNK, reference=True), what)
         print(f"phase 5: branch {what}: launches {got}; lane 0 detections equal to the plain "
               f"detector; landmarks {int(res.n_landmarks[0, -1])}")
+
+    # the 1920x1080 detection path: the block body, in each branch
+    hd = _render_hd(HD_CHUNK, dev)
+    hd_branches = {
+        "1920x1080": (det_cfg, {"threshold_label_union.block": 1}),
+        "1920x1080 closing_union=False": (dataclasses.replace(det_cfg, closing_union=False),
+                                          {"threshold_label.block": 1}),
+        "1920x1080 mean_stride=3": (dataclasses.replace(det_cfg, mean_stride=3),
+                                    {"label_components.block": 1,
+                                     "label_components_seeded.block": 1}),
+    }
+    for what, (bcfg, expect) in hd_branches.items():
+        runner.detect_frames(hd, bcfg, HD_CHUNK)  # warm
+        torch.cuda.synchronize()
+        for k in ccl.LAUNCHES:
+            ccl.LAUNCHES[k] = 0
+        t_hd = {}
+        t = _timed(lambda: t_hd.update(det=runner.detect_frames(hd, bcfg, HD_CHUNK)))
+        got = {k: v for k, v in ccl.LAUNCHES.items() if v}
+        _require(got == expect, f"{what}: expected launches {expect}, got {got}")
+        branch_launches.update(got)
+        c_err = _check_detections(t_hd["det"], runner.detect_frames(hd, bcfg, HD_CHUNK,
+                                                                    reference=True), what)
+        n_hd = int(t_hd["det"][2].sum())
+        _require(n_hd > 0, f"{what}: no detection in {HD_CHUNK} frames")
+        print(f"phase 5: {what} detection of {HD_CHUNK} frames: launches {got}; {n_hd} "
+              f"detections equal to the plain detector (max |corner diff| {c_err:.3e} px); "
+              f"{1e3 * t / HD_CHUNK:.4f} ms/frame")
     return {**launches, **branch_launches}
 
 
@@ -682,18 +831,37 @@ def _k6_frame(state, rng, n_known=9, n_new=4):
                                    for x in (ids, z, R, ids >= 0)))
 
 
-def phase6_k6(dev):
-    """K6 against its plain version at 64, 128, 512 (and 5) landmarks;
-    returns (max err, {max_landmarks: (ms, plain ms, device ms, bound)})."""
+def _k6_timing(call):
+    """(ms per call over 100 calls, the kernel alone in ms and the device
+    events per call, both from torch.profiler over 20 calls) of a K6 call."""
     from torch.profiler import ProfilerActivity, profile
 
+    ms = _cuda_time(call, 100)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    by_name = _device_busy(prof)[1]
+    spans = [v for k, v in by_name.items() if "ekf_frame_update" in k]
+    dev_ms = spans[0][1] / spans[0][0] / 1e3 if spans else None
+    return ms, dev_ms, sum(c for c, _ in by_name.values()) / 20
+
+
+def phase6_k6(dev):
+    """K6 against its plain version in both variants; returns (max err by
+    variant, {max_landmarks: (variant, wrapper ms, plain ms, kernel-alone
+    ms, bound)})."""
     from aruco_slam_tpu_torch import runner
     from aruco_slam_tpu_torch.models import ekf
     from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
     from aruco_slam_tpu_torch.utils.config import CompatConfig, EkfConfig, SlamConfig
 
-    worst, timings, repeats = 0.0, {}, 0
-    for L, n_lm in ((64, 40), (128, 100), (512, 300), (5, 3)):
+    top = k6.MAX_CLUSTER_LANDMARKS
+    worst, timings, repeats = {"cluster": 0.0, "grid": 0.0}, {}, 0
+    for L, n_lm in ((64, 40), (128, 100), (top, top - 60), (top + 1, top - 60), (512, 300),
+                    (5, 3)):
+        kind = k6.variant(3 + 3 * L)[0]
+        _require(kind == ("cluster" if L <= top else "grid"), f"K6 at {L} landmarks: {kind}")
         for reject in (False, True):
             cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M),
                              compat=CompatConfig(reject_divergent=reject, divergence_ze_norm=0.6))
@@ -719,31 +887,36 @@ def phase6_k6(dev):
                 repeats += int((frame.valid[0] & (slot >= 0) & seen
                                 & (frame.z[0] == last).all(-1)).sum())
                 state = out
-            worst = max(worst, *err.values())
-            print(f"phase 6: K6 max_landmarks={L} N={3 + 3 * L} reject={reject}: landmarks "
-                  f"{int(state.n_landmarks[0])}, dropped {int(state.dropped[0])}, diverged "
-                  f"{int(state.diverged[0])}; max |dmu| {err['mu']:.3e}, |dsigma| "
-                  f"{err['sigma']:.3e}, |dlast_obs| {err['last_obs']:.3e}")
+            worst[kind] = max(worst[kind], *err.values())
+            print(f"phase 6: K6 ({kind} variant) max_landmarks={L} N={3 + 3 * L} "
+                  f"reject={reject}: landmarks {int(state.n_landmarks[0])}, dropped "
+                  f"{int(state.dropped[0])}, diverged {int(state.diverged[0])}; max |dmu| "
+                  f"{err['mu']:.3e}, |dsigma| {err['sigma']:.3e}, |dlast_obs| "
+                  f"{err['last_obs']:.3e}")
         if L == 5:
             _require(int(state.dropped[0]) > 0, "the 5-slot run never dropped an observation")
             continue
         frame = _k6_frame(state, rng)
-        ms = _cuda_time(lambda: k6.frame_update(state, frame, cfg), 100)
+        choice = k6.variant(3 + 3 * L)
+        ms, dev_ms, events = _k6_timing(lambda: k6.frame_update(state, frame, cfg))
+        _require(events == 1, f"K6 made {events} device events per call, not one")
         plain = _cuda_time(lambda: k6.frame_update_reference(state, frame, cfg), 5)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                k6.frame_update(state, frame, cfg)
-            torch.cuda.synchronize()
-        spans = [v for k, v in _device_busy(prof)[1].items() if "ekf_frame_update" in k]
-        dev_ms = spans[0][1] / spans[0][0] / 1e3 if spans else None
         slots = ekf.lookup_slots(state.slot_ids, frame.ids)
         known = int((frame.valid & (slots >= 0)).sum())
         bound = _ekf_bound(1, 3 + 3 * L, L, M, known, False)
-        timings[L] = (ms, plain, dev_ms, bound)
-        print(f"phase 6: K6 max_landmarks={L} ({k6.grid_blocks(3 + 3 * L)} blocks): "
-              f"{ms:.4f} ms/launch through the wrapper, kernel alone "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler); plain "
-              f"{plain:.4f} ms/call; bound {bound[0]:.5f} ms ({bound[1]}, {known} known)")
+        timings[L] = (kind, ms, plain, dev_ms, bound)
+        print(f"phase 6: K6 max_landmarks={L} N={3 + 3 * L} {choice}: {ms:.4f} ms/call "
+              f"through the wrapper, kernel alone "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler), "
+              f"{events:.2f} device events per call; plain {plain:.4f} ms/call; bound "
+              f"{bound[0]:.5f} ms ({bound[1]}, {known} known)")
+        if L in (64, 128):  # the cluster size, timed on the same frame
+            for ctas in (2, 4, 8, 16):
+                if k6.cluster_shared_bytes(3 + 3 * L, ctas) > k6.MAX_SHARED_BYTES:
+                    continue
+                t, d, _ = _k6_timing(lambda c=ctas: k6._launch(state, frame, cfg, ("cluster", c)))
+                print(f"phase 6: K6 N={3 + 3 * L} at {ctas} CTAs a cluster: {t:.4f} ms/call, "
+                      f"kernel alone {'not measured' if d is None else f'{d:.4f} ms'}")
     _require(repeats > 0, "no stationary-gate hit in phase 6")
 
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=64, max_observations_per_frame=M))
@@ -757,7 +930,7 @@ def phase6_k6(dev):
                  f"K6 changed {name} of an uninitialized state")
     k2_ms = _cuda_time(lambda: runner.update_batched(state, frame, cfg), 100)
     print(f"phase 6: K6 uninitialized no-op equal; {repeats} stationary-gate hits; K2 at B=1, N=195 "
-          f"(runner.update_batched) {k2_ms:.4f} ms/launch beside K6 {timings[64][0]:.4f}")
+          f"(runner.update_batched) {k2_ms:.4f} ms/launch beside K6 {timings[64][1]:.4f}")
     return worst, timings
 
 
@@ -784,12 +957,14 @@ def phase7_single_stream(dev):
     F = seq.num_frames
     _require(F == 2100 and seq.max_obs == M, f"config 2 has {F} frames of {seq.max_obs}")
     torch.cuda.synchronize()
-    k6.LAUNCHES = 0
+    for k in k6.LAUNCHES:
+        k6.LAUNCHES[k] = 0
     out = runner.replay_sequence(seq, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = k6.LAUNCHES
+    launches = dict(k6.LAUNCHES)
     print(f"phase 7: K6 launches in one {F}-frame single-stream replay: {launches}")
-    _require(launches == F, f"expected {F} K6 launches, got {launches}")
+    _require(launches == {"cluster": F, "grid": 0},
+             f"expected {F} launches of K6's cluster variant, got {launches}")
 
     data = runner.replay_data_from_sequence(seq, "obs", dev)
     plain = {}
@@ -840,7 +1015,32 @@ def phase7_single_stream(dev):
     print(f"phase 7: profile of 200 frames: device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} "
           f"ms wall ({100 * busy / 1e6 / wall:.1f}%), {n_dev / 200:.1f} device events per "
           f"frame, K6 {k6_us / 200 / 1e3:.4f} ms per frame")
-    return launches
+
+    # a map of 512 slots (N = 1,539): K6's grid variant on every frame
+    big = dataclasses.replace(cfg, ekf=dataclasses.replace(cfg.ekf, max_landmarks=512))
+    head = data._replace(**{k: v[:GRID_FRAMES] for k, v in data._asdict().items()
+                            if v is not None})
+    torch.cuda.synchronize()
+    for k in k6.LAUNCHES:
+        k6.LAUNCHES[k] = 0
+    res = {}
+    g_s = _timed(lambda: res.update(out=runner.replay(head, big)))
+    grid_launches = dict(k6.LAUNCHES)
+    _require(grid_launches == {"cluster": 0, "grid": GRID_FRAMES},
+             f"expected {GRID_FRAMES} launches of K6's grid variant, got {grid_launches}")
+    ref_big = runner.replay_reference(head, big)
+    torch.cuda.synchronize()
+    got = res["out"]
+    _require(bool(torch.isfinite(got.trajectory).all()), "512 slots: non-finite trajectory")
+    _require(torch.equal(got.n_landmarks, ref_big.n_landmarks), "512 slots: n_landmarks differ")
+    _require(torch.equal(got.final_state.slot_ids, ref_big.final_state.slot_ids),
+             "512 slots: slot_ids differ")
+    g_err = _max_err(got.trajectory, ref_big.trajectory)
+    _require(g_err <= TRAJ_TOL, f"512 slots: trajectory deviates from the plain path by {g_err}")
+    print(f"phase 7: max_landmarks=512, first {GRID_FRAMES} frames: launches {grid_launches}; "
+          f"landmarks {int(got.n_landmarks[-1])} and slots equal to the plain replay, trajectory "
+          f"max |K6 - plain| {g_err:.3e}; {GRID_FRAMES / g_s:.1f} frames/s ({g_s:.3f} s)")
+    return {"cluster": launches["cluster"], "grid": grid_launches["grid"]}
 
 
 def phase8_system(dev):
@@ -879,14 +1079,15 @@ def phase8_system(dev):
     plain._detect = functools.partial(detect_markers, reference=True)
     drive(SlamSystem(SlamConfig(), cam, device=dev), [], [])  # warm
     torch.cuda.synchronize()
-    k6.LAUNCHES = 0
-    for k in ccl.LAUNCHES:
-        ccl.LAUNCHES[k] = 0
+    for counts in (k6.LAUNCHES, ccl.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     lat_enc, lat_img = [], []
     dets = drive(kern, lat_enc, lat_img)
-    launches = {"ekf_frame_update": k6.LAUNCHES, **{k: v for k, v in ccl.LAUNCHES.items() if v}}
+    launches = {**{f"ekf_frame_update.{k}": v for k, v in k6.LAUNCHES.items() if v},
+                **{k: v for k, v in ccl.LAUNCHES.items() if v}}
     print(f"phase 8: launches over {F} add_image calls: {launches}")
-    _require(launches == {"ekf_frame_update": F, "threshold_label_union": F},
+    _require(launches == {"ekf_frame_update.cluster": F, "threshold_label_union.cluster": F},
              f"expected K6 and K3 x {F}, got {launches}")
     dets_p = drive(plain, [], [])
     for f, (a, b) in enumerate(zip(dets, dets_p)):
@@ -941,13 +1142,13 @@ def main() -> int:
     phase(8, phase8_system, dev)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
-    def row(name, source, replaces, n, err, ms, plain_ms, bound):
+    def row(name, source, replaces, n, err, ms, plain_ms, bound, **extra):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda",
                 "source": f"aruco_slam_tpu_torch/ops/kernels/csrc/{source}",
                 "replaces": f"aruco_slam_tpu/ops/kernels/{replaces}", "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "bound_by": bound[1], "library_ms": None, **extra}
 
     kernels = [
         row("pnp_frontend", "pnp_frontend.cu", "pnp_frontend.py:219",
@@ -957,12 +1158,21 @@ def main() -> int:
     ]
     for name, line in (("threshold_label_union", 229), ("threshold_label", 217),
                        ("label_components", 200), ("label_components_seeded", 207)):
-        err, ms, plain_ms, bound = ccl_stats[name]
-        kernels.append(row(name, "ccl.cu", f"ccl.py:{line}", img_launches[name], err, ms,
-                           plain_ms, bound))
-    k6_ms, k6_plain, _, k6_bound = k6_times[128]  # config 2's shape, N = 387
-    kernels.append(row("ekf_frame_update", "ekf_frame_update.cu", "ekf_update.py:73",
-                       k6_launches, k6_err, k6_ms, k6_plain, k6_bound))
+        for kind in ("cluster", "block"):
+            key = f"{name}.{kind}"
+            err, ms, plain_ms, bound = ccl_stats[key]
+            kernels.append(row(key, "ccl.cu", f"ccl.py:{line}", img_launches[key], err, ms,
+                               plain_ms, bound))
+    # K6 at its paths' shapes: config 2 (N = 387) and 512 slots (N = 1,539);
+    # ms is the kernel alone where the profiler saw it, else the wrapper's
+    for kind, L in (("cluster", 128), ("grid", 512)):
+        _, wrap_ms, plain_ms, dev_ms, bound = k6_times[L]
+        kernels.append(row(f"ekf_frame_update.{kind}", "ekf_frame_update.cu", "ekf_update.py:73",
+                           k6_launches[kind], k6_err[kind],
+                           wrap_ms if dev_ms is None else dev_ms, plain_ms, bound,
+                           wrapper_ms=wrap_ms))
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    _require(not idle, f"kernels the paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """The CCL kernel family's plain versions (K3-K5s) held against the JAX
 package: its XLA stage functions and its Pallas kernels in interpret mode,
 on the shapes, strides and radii of ``tests/test_pallas_kernels.py`` and on
-one rendered 480x640 frame under ``DetectorConfig()``. Every comparison is
+one rendered 480x640 frame under ``DetectorConfig()``, and on a 480x640
+mask whose components cross the bands of the cluster body (a serpentine
+through all eight, components on every band edge). Every comparison is
 exact: the threshold is integer arithmetic in float32 until its divisions
 and the labelling is integer min-propagation. On CPU tensors the kernel
-wrappers take these plain versions and launch nothing."""
+wrappers take these plain versions and launch nothing. Also the wrappers'
+choice between the kernel's two bodies, by frame shape alone."""
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +40,24 @@ def rendered():
     stack = jrenderer.build_marker_stack(jsyn.make_arena(n_markers=20))
     cam_pos, R_wc = jrenderer.camera_pose_from_robot(jnp.asarray((2.55, -2.0, 1.2), jnp.float32))
     return np.array(jrenderer.render_frame(cam_pos, R_wc, stack, cam))
+
+
+def band_crossing_mask(h=480, w=640, bands=8):
+    """A serpentine that winds down through every band (the bounded rounds
+    do not converge on it), plus components that touch each band edge from
+    above, from below, and across it."""
+    fg = np.zeros((h, w), bool)
+    for y in range(2, h - 2, 4):
+        fg[y, 4:w - 4] = True
+        fg[y + 1: y + 4, w - 5 if (y // 4) % 2 == 0 else 4] = True
+    fg[:, w // 2 - 20: w // 2 - 18] = False  # cut it into two windings
+    band = h // bands
+    for b in range(1, bands):
+        y = b * band
+        fg[y - 3: y, 40 + 60 * b: 60 + 60 * b] = True  # ends on the edge
+        fg[y: y + 3, 50 + 60 * b: 70 + 60 * b] = True  # starts on it
+        fg[y - 1: y + 1, 10: 20] = True  # straddles it
+    return fg
 
 
 @pytest.mark.parametrize("shape,dens,rounds", CCL_CASES)
@@ -140,3 +161,41 @@ def test_fused_threshold_gate():
     assert not ccl.fused_threshold_ok(482, 640, 4)  # the block grid does not tile
     with pytest.raises(ValueError, match="power-of-two"):
         ccl.threshold_label(torch.zeros(1, 480, 640, dtype=torch.uint8), 7, 7.0, 3, 3)
+
+
+def test_band_crossing_mask_matches_xla_and_pallas():
+    """K5 and K5s at 480x640 (the cluster body's frame) on components that
+    cross every band edge: the plain version against the JAX XLA CCL and
+    the Pallas kernel in interpret mode, bit for bit."""
+    fg = band_crossing_mask()
+    ours = ccl.label_components(torch.as_tensor(fg)[None], 3)[0]
+    fgj = jnp.asarray(fg)
+    _eq(ours, jax.jit(lambda m: jdet.label_components(m, 3))(fgj))
+    _eq(ours, jccl.label_components_tpu(fgj, 3, interpret=True))
+    assert len(np.unique(ours.numpy()[fg.reshape(-1)])) > 16  # bounded rounds: unconverged
+    seed = ours.reshape(1, *fg.shape)
+    seeded = ccl.label_components(torch.as_tensor(fg)[None], 2, init=seed)[0]
+    _eq(seeded, jccl.label_components_tpu(fgj, 2, interpret=True,
+                                          init=jnp.asarray(seed[0].numpy())))
+
+
+def test_body_is_chosen_by_shape_alone():
+    """The cluster body where a band of h/8 rows fits 227 KB of shared
+    memory, the block body otherwise; the fused threshold also needs whole
+    block rows in a band."""
+    assert ccl.cluster_shared_bytes(480, 640, 4) == 232_160  # a Jacobi chunk of 18 rows
+    assert ccl.cluster_shared_bytes(480, 640) == 232_160
+    assert ccl.body(480, 640, 4) == ccl.body(480, 640) == "cluster"
+    assert ccl.body(720, 1280, 4) == ccl.body(720, 1280) == "block"
+    assert ccl.body(1080, 1920, 4) == ccl.body(1080, 1920) == "block"
+    assert ccl.body(64, 256, 4) == "cluster"
+    assert ccl.body(480, 640, 3) == "block"  # 640 is no whole number of 3-pixel blocks
+    assert ccl.body(484, 640) == "block"  # h not a multiple of 8
+    assert ccl.body(480, 656) == "block"  # w not a multiple of 32
+    assert ccl.body(520, 640) == "block"  # bands of 65 rows
+    assert ccl.body(256, 1056) == "block"  # rows of more than 1024 pixels
+    # at 480x768 the three block grids no longer fit beside the band; a bare
+    # CCL still does
+    assert ccl.cluster_shared_bytes(480, 768, 4) is None
+    assert ccl.cluster_shared_bytes(480, 768) == 229_440
+    assert ccl.MAX_SHARED_BYTES == 232_448

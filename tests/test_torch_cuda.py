@@ -124,8 +124,11 @@ def _frames(dev, shape):
 ])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_ccl_family_matches_plain(dev, shape, stride, radius, dtype):
-    """K3, K4, K5 and K5s against their plain versions, bit for bit."""
+    """K3, K4, K5 and K5s against their plain versions, bit for bit (every
+    shape here takes the cluster body)."""
     img = _frames(dev, shape).to(dtype).contiguous()
+    kind = ccl.body(*shape, stride)
+    assert kind == "cluster"
     before = dict(ccl.LAUNCHES)
     out = ccl.threshold_label_union(img, radius, 7.0, stride, 3, 2)
     ref = ccl.threshold_label_union_reference(img, radius, 7.0, stride, 3, 2)
@@ -140,17 +143,43 @@ def test_ccl_family_matches_plain(dev, shape, stride, radius, dtype):
     assert torch.equal(k5, detector.label_components(fg, 4))
     assert torch.equal(k5s, detector.label_components(fg_c, 2, init=lab.reshape(fg.shape)))
     assert bool(fg.any()) and not bool(fg.all())
-    assert {k: ccl.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    assert {k: ccl.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k.endswith(kind)) for k in before}
 
 
-def test_ccl_kernel_at_1080p(dev):
-    img = torch.randint(0, 256, (2, 1080, 1920), dtype=torch.uint8,
-                        generator=torch.Generator().manual_seed(3)).to(dev)
+@pytest.mark.parametrize("frames", [1, 128])
+def test_ccl_cluster_body_on_many_frames(dev, frames):
+    """The cluster body at 480x640 on one frame and on a 128-frame chunk
+    (more frames than clusters the card holds at once), K3 and K4."""
+    base = _frames(dev, (480, 640))
+    img = base.repeat((frames + 3) // 4, 1, 1)[:frames].contiguous()
+    before = dict(ccl.LAUNCHES)
     out = ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
+    fg4, lab4 = ccl.threshold_label(img, 7, 7.0, 4, 3)
     ref = ccl.threshold_label_union_reference(img, 7, 7.0, 4, 3, 2)
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    assert torch.equal(fg4, ref[0])
+    assert torch.equal(lab4, ccl.label_components_reference(ref[0], 3))
+    used = {k: v - before[k] for k, v in ccl.LAUNCHES.items() if v != before[k]}
+    assert used == {"threshold_label_union.cluster": 1, "threshold_label.cluster": 1}
+
+
+def test_ccl_kernel_at_1080p(dev):
+    """1920x1080 takes the block body."""
+    img = torch.randint(0, 256, (2, 1080, 1920), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    before = ccl.LAUNCHES["threshold_label_union.block"]
+    out = ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
+    ref = ccl.threshold_label_union_reference(img, 7, 7.0, 4, 3, 2)
+    fg = ref[0]
+    k5 = ccl.label_components(fg, 3)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(k5, ccl.label_components_reference(fg, 3))
+    assert ccl.LAUNCHES["threshold_label_union.block"] == before + 1
 
 
 def test_image_replay_kernels_match_plain(dev):
@@ -164,9 +193,9 @@ def test_image_replay_kernels_match_plain(dev):
         for s in range(2)
     ]
     data = runner.build_batch_data(seqs, 3, "images", dev)
-    before = ccl.LAUNCHES["threshold_label_union"]
+    before = ccl.LAUNCHES["threshold_label_union.cluster"]
     out = runner.replay_batch(data, CFG, cam, "images", det_chunk=8)
-    assert ccl.LAUNCHES["threshold_label_union"] == before + 4  # ceil(3 * 10 / 8)
+    assert ccl.LAUNCHES["threshold_label_union.cluster"] == before + 4  # ceil(3 * 10 / 8)
     ref = runner.replay_batch_reference(data, CFG, cam, "images", det_chunk=8)
     torch.cuda.synchronize()
     assert torch.equal(out.n_landmarks, ref.n_landmarks)
@@ -211,18 +240,22 @@ def _k6_case(dev, max_lm, n_lm, seed, M=16):
     return cfg, state, frame
 
 
-@pytest.mark.parametrize("max_lm", [64, 128])
+@pytest.mark.parametrize("max_lm", [64, 128, k6.MAX_CLUSTER_LANDMARKS,
+                                    k6.MAX_CLUSTER_LANDMARKS + 1])
 @pytest.mark.parametrize("reject", [False, True])
 def test_frame_update_kernel_matches_plain(dev, max_lm, reject):
-    """K6 against ``ekf.update`` on the card, past K2's 77-landmark limit."""
+    """K6 against ``ekf.update`` on the card, past K2's 77-landmark limit:
+    the cluster variant up to its capacity, the grid variant just above."""
     cfg, state, frame = _k6_case(dev, max_lm, max_lm - 2, max_lm)
     cfg = dataclasses.replace(cfg, compat=CompatConfig(reject_divergent=reject,
                                                        divergence_ze_norm=0.6))
-    before = k6.LAUNCHES
+    kind = k6.variant(3 + 3 * max_lm)[0]
+    assert kind == ("grid" if max_lm > k6.MAX_CLUSTER_LANDMARKS else "cluster")
+    before = dict(k6.LAUNCHES)
     out = k6.frame_update(state, frame, cfg)
     ref = k6.frame_update_reference(state, frame, cfg)
     torch.cuda.synchronize()
-    assert k6.LAUNCHES == before + 1
+    assert k6.LAUNCHES == {**before, kind: before[kind] + 1}
     for name in ("slot_ids", "n_landmarks", "seen_prev", "diverged", "dropped"):
         assert torch.equal(getattr(out, name), getattr(ref, name)), name
     assert int(out.dropped[0]) == 2 and int(out.n_landmarks[0]) == max_lm
@@ -243,7 +276,7 @@ def test_slam_system_on_the_card_matches_the_cpu(dev):
                                 device="cpu")[0].numpy()
     systems = [SlamSystem(CFG, camera=cam, device=d) for d in (dev, "cpu")]
     epf = seq.enc_per_frame
-    before = k6.LAUNCHES
+    before = k6.LAUNCHES["cluster"]
     for f in range(seq.num_frames):
         for e in range(epf):
             for s in systems:
@@ -253,7 +286,7 @@ def test_slam_system_on_the_card_matches_the_cpu(dev):
     for s in systems:
         s.add_image(img)
     torch.cuda.synchronize()
-    assert k6.LAUNCHES == before + seq.num_frames + 1
+    assert k6.LAUNCHES["cluster"] == before + seq.num_frames + 1
     gpu, cpu = systems
     np.testing.assert_allclose(gpu.pose(), cpu.pose(), atol=1e-4)
     np.testing.assert_array_equal(gpu.landmark_map()[1], cpu.landmark_map()[1])

@@ -60,13 +60,14 @@ def _assert_same(ours, ref):
 
 def _run(jcfg, frames, seed):
     """Both kernels over the frames from one predicted state, each chain
-    feeding itself; compared after every frame."""
+    feeding itself; compared after every frame. A frame is a list of ids
+    (valid, first) or a ready (ids, z, R, valid) tuple."""
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     rng = np.random.default_rng(seed)
     ref = _jstate(jcfg)
     ours = convert.ekf_state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
     for ids in frames:
-        a, z, R, v = _frame(rng, ids)
+        a, z, R, v = ids if isinstance(ids, tuple) else _frame(rng, ids)
         ref = jkern.frame_update(ref, jekf.FrameObservations(*map(jnp.asarray, (a, z, R, v))),
                                  jcfg, interpret=True)
         frame = ekf.FrameObservations(*(torch.as_tensor(x)[None] for x in (a, z, R, v)))
@@ -77,7 +78,7 @@ def _run(jcfg, frames, seed):
 
 @pytest.mark.parametrize("case", ["mixed", "capacity_overflow", "gate_off_reject"])
 def test_frame_update_plain_matches_jax_kernel(case):
-    launches = ekf_update.LAUNCHES
+    launches = dict(ekf_update.LAUNCHES)
     if case == "mixed":
         out = _run(JCFG, ([3, 5], [5, 9, 3], [9, 1], [1, 3, 5, 9]), 0)
         assert int(out.n_landmarks[0]) == 4
@@ -108,3 +109,39 @@ def test_frame_update_plain_uninitialized_noop():
     _assert_same(out, ref)
     for name in ekf.EkfState._fields:
         assert torch.equal(getattr(out, name), getattr(state, name)), name
+
+
+def test_frame_update_plain_matches_jax_kernel_in_arrival_order():
+    """Observations as they arrive, not sorted: known and new markers
+    interleaved, a marker seen twice in the frame, and invalid entries (one
+    with a known id) between valid ones."""
+    rng = np.random.default_rng(4)
+    first = _frame(rng, [3, 5, 9])
+    ids = np.array([9, 5, 7, 3, -1, 9], np.int32)
+    valid = np.array([True, False, True, True, False, True])
+    z = rng.uniform(0.3, 2, (6, 3)).astype(np.float32)
+    R = np.tile(np.eye(3, dtype=np.float32) * 0.05, (6, 1, 1))
+    out = _run(JCFG, (first, (ids, z, R, valid)), 4)
+    assert int(out.n_landmarks[0]) == 4
+    assert out.slot_ids[0, :4].tolist() == [3, 5, 9, 7]
+
+
+def test_variant_is_chosen_by_size_alone():
+    """The cluster variant, 16 CTAs, wherever sigma fits their shared memory
+    (227 KB each), the grid variant above; never fewer than 3 columns (the
+    pose block) per CTA."""
+    n = lambda lm: 3 + 3 * lm  # noqa: E731
+    assert ekf_update.variant(n(64)) == ("cluster", 16)  # SlamSystem's default
+    assert ekf_update.variant(n(128)) == ("cluster", 16)  # config 2
+    assert ekf_update.cluster_shared_bytes(n(128), 16) == 46_384  # 25 columns a CTA
+    assert ekf_update.MAX_CLUSTER_LANDMARKS == 308
+    assert ekf_update.cluster_shared_bytes(n(308), 16) <= ekf_update.MAX_SHARED_BYTES
+    assert ekf_update.cluster_shared_bytes(n(309), 16) > ekf_update.MAX_SHARED_BYTES
+    assert ekf_update.variant(n(308)) == ("cluster", 16)
+    assert ekf_update.variant(n(309)) == ("grid", 0)
+    assert ekf_update.variant(n(512)) == ("grid", 0)
+    assert ekf_update.variant(n(5)) == ("cluster", 6)
+    assert ekf_update.variant(n(1)) == ("cluster", 2)
+    for lm in range(1, 309):
+        kind, ctas = ekf_update.variant(n(lm))
+        assert kind == "cluster" and -(-n(lm) // ctas) >= 3

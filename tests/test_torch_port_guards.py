@@ -1,8 +1,10 @@
 """Guards of the PyTorch port: it never imports JAX, sets true-float32
 matmuls, refuses to build without nvcc, validates kernel inputs before any
-launch, sends a non-CPU tensor only to a kernel (no plain fallback), and
-puts what its entry points make on the card unless told otherwise."""
+launch, sends a non-CPU tensor only to a kernel (no plain fallback), raises
+on a refused launch without trying another kernel variant, and puts what
+its entry points make on the card unless told otherwise."""
 
+import contextlib
 import os
 import shutil
 import subprocess
@@ -147,7 +149,7 @@ def test_pnp_frontend_rejects_bad_inputs():
 
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor off the CPU goes to a kernel or raises: 'meta' has none."""
-    before = (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES, ekf_update.LAUNCHES)
+    before = (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES, dict(ekf_update.LAUNCHES))
     with pytest.raises(ValueError, match="no kernel"):
         pnp_frontend.pnp_frontend_batch(
             torch.zeros(2, 3, 4, 2, device="meta"),
@@ -157,7 +159,8 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         ekf_update_batched.frame_step_batched(**_k2_args(device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         ekf_update.frame_update(*_k6_args(device="meta"), CFG)
-    assert (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES, ekf_update.LAUNCHES) == before
+    assert (pnp_frontend.LAUNCHES, ekf_update_batched.LAUNCHES,
+            dict(ekf_update.LAUNCHES)) == before
 
 
 def test_ccl_wrappers_reject_bad_inputs():
@@ -192,6 +195,100 @@ def test_ccl_wrappers_never_fall_back():
         ccl.label_components(fg, 3)
     with pytest.raises(ValueError, match="init on"):
         ccl.label_components(fg, 2, init=torch.zeros(2, 64, 128, dtype=torch.int32))
+    assert ccl.LAUNCHES == before
+
+
+class _RefusingK6:
+    """K6's library with plans that succeed and launches that are refused."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ekf_frame_update_cluster_plan(self, N, M, G, W, smem, count):
+        W._obj.value, smem._obj.value, count._obj.value = -(-N // G), 1024, 4
+        return 0
+
+    def ekf_frame_update_grid_plan(self, N, M, G, W, smem):
+        G._obj.value, W._obj.value, smem._obj.value = 8, -(-N // 8), 1024
+        return 0
+
+    def ekf_frame_update_cluster_launch(self, *args):
+        self.calls.append("cluster")
+        return 2  # cudaErrorMemoryAllocation
+
+    def ekf_frame_update_grid_launch(self, *args):
+        self.calls.append("grid")
+        return 2
+
+    def ekf_frame_update_error_string(self, err):
+        return b"out of memory"
+
+
+class _RefusingCcl:
+    """The CCL family's library: plans succeed, launches are refused."""
+
+    def __init__(self):
+        self.bodies = []
+
+    def ccl_cluster_plan(self, variant, h, w, stride, smem, count):
+        smem._obj.value, count._obj.value = 1024, 4
+        return 0
+
+    def _launch(self, *args):
+        self.bodies.append(args[-2])  # ..., body, stream
+        return 2
+
+    ccl_threshold_union_launch = ccl_threshold_launch = _launch
+    ccl_label_launch = ccl_label_seeded_launch = _launch
+
+    def ccl_error_string(self, err):
+        return b"out of memory"
+
+
+def _as_if_on_the_card(monkeypatch, module, lib):
+    """Drive a wrapper's launch path with CPU tensors and a stand-in library."""
+    monkeypatch.setattr(module, "_lib", lambda: lib)
+    monkeypatch.setattr(module, "_plans", type(module._plans)())
+    monkeypatch.setattr(module, "_stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+
+@pytest.mark.parametrize("max_lm,kind", [(64, "cluster"), (400, "grid")])
+def test_refused_k6_launch_raises_and_tries_no_other_variant(monkeypatch, max_lm, kind):
+    lib = _RefusingK6()
+    _as_if_on_the_card(monkeypatch, ekf_update, lib)
+    monkeypatch.setattr(ekf_update, "_barriers", {})
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
+    state = ekf.init_state(cfg, 1, "cpu")
+    _, frame = _k6_args()
+    assert ekf_update.variant(3 + 3 * max_lm)[0] == kind
+    before = dict(ekf_update.LAUNCHES)
+    with pytest.raises(RuntimeError, match=f"{kind} launch.*out of memory"):
+        ekf_update._launch(state, frame, cfg, ekf_update.variant(3 + 3 * max_lm))
+    assert lib.calls == [kind]
+    assert ekf_update.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,kind", [((64, 256), "cluster"), ((48, 40), "block")])
+def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, kind):
+    lib = _RefusingCcl()
+    _as_if_on_the_card(monkeypatch, ccl, lib)
+    monkeypatch.setattr(ccl, "_route", lambda t: True)
+    img = torch.zeros(2, *shape, dtype=torch.uint8)
+    fg = torch.zeros(2, *shape, dtype=torch.bool)
+    assert ccl.body(*shape, 4) == ccl.body(*shape) == kind
+    before = dict(ccl.LAUNCHES)
+    calls = (
+        lambda: ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2),
+        lambda: ccl.threshold_label(img, 7, 7.0, 4, 3),
+        lambda: ccl.label_components(fg, 3),
+        lambda: ccl.label_components(fg, 2, init=torch.zeros(2, *shape, dtype=torch.int32)),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match=f"{kind} body.*out of memory"):
+            call()
+    assert lib.bodies == [int(kind == "cluster")] * 4
     assert ccl.LAUNCHES == before
 
 
