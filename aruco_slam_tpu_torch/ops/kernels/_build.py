@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, at first use, and loaded with ``ctypes``.
 Libraries live in ``build/`` beside this file, named by a hash of the
-source and the flags, so an edited kernel rebuilds and an unchanged one is
-reused. Nothing is compiled at import: the CPU tests import every module.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel rebuilds and an unchanged one is reused. Nothing is compiled at
+import: the CPU tests import every module.
 
 No ``--use_fast_math``: the kernels' gates rely on IEEE NaN comparisons
 (a garbage corner must end as ``keep = 0``), and fast-math also changes
@@ -90,8 +91,10 @@ def load(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
+        # the shared headers are part of every source's key
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         key = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         out = BUILD_DIR / f"{name}-{key}.so"
         if not out.exists():

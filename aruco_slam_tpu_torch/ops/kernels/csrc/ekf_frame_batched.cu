@@ -1,248 +1,287 @@
-// K2: one EKF frame step for a batch of replay lanes, one CTA per lane.
+// K2: the whole EKF frame step of B replay lanes, one launch per frame, in
+// three variants chosen by the state's size N alone
+// (ops/kernels/ekf_update_batched.py: variant).
 //
 // Replaces the Pallas kernel aruco_slam_tpu/ops/kernels/ekf_update_batched.py
-// (_frame_kernel, launched by frame_step_batched). Per lane: the covariance
-// predict with the frame's composed pose Jacobian A and process noise Q
-// (sigma <- blockdiag(A, I) sigma blockdiag(A, I)^T + blockdiag(Q, 0)),
-// mu[0:3] <- pose, then the frame's M observations in their sorted order:
-// a known landmark's rank-3 correction linearized at the frame-start mean
-// (stale mu0, closed-form 3x3 inverse, stationary gate, divergence count or
-// reject), a new landmark's augmentation, or a capacity drop, with the
-// slot / last_obs / seen bookkeeping; then sigma is symmetrized on the way
-// out.
+// (_frame_kernel, launched by frame_step_batched) together with the XLA
+// glue that aruco_slam_tpu/runner.py (_replay_batch_kernel) runs around it
+// every frame. Per lane, from the raw frame:
+//   - the prologue: the compose of the frame's encoder ticks into (pose, A,
+//     Q) (ekf.predict_compose: midpoint arcs, the latch's first tick), the
+//     slot lookup and the stable (slot * M + arrival) sort with invalid
+//     observations last (ekf_frame_common.cuh, shared with K6). Invalid
+//     observations are never read, which is what the glue's sanitise (z ->
+//     0, R -> I) made safe for the masked TPU kernel;
+//   - the covariance predict sigma <- blockdiag(A, I) sigma blockdiag(A, I)^T
+//     + blockdiag(Q, 0), mu[0:3] <- pose;
+//   - the observations in their sorted order, each linearized at the
+//     frame-start mean: a known landmark's rank-3 correction (stationary
+//     gate, divergence count or reject), a new landmark's augmentation, or
+//     a capacity drop, with the slot / last_obs / seen bookkeeping;
+//   - sigma symmetrized on the way out, the latch set, and the replay's row
+//     f of the lane's pose, pose covariance and landmark count written.
 //
-// What bounds it on Hopper: shared-memory traffic. The lane's covariance
-// (N^2 floats: 39,204 bytes at N = 99) is read from device memory once,
-// lives in shared memory for the predict and the whole sequential chain,
-// and is written back once — each observation's rank-3 update touches all
-// N^2 entries, so keeping sigma out of device memory is the design's point.
-// The TPU kernel put the batch on the vector lanes ([N, N, B]); here the
-// batch is the grid (sigma is batch-major [B, N, N]) and the 256 threads of
-// a CTA split the N-long rows and the N^2 update. Reductions over N (the
-// gain norm) use warp shuffles plus a shared scratch. Branches depend only
-// on the lane's own observation, so they are uniform across the CTA.
-// Shared memory above 48 KB is dynamic (cudaFuncSetAttribute); the wrapper
-// refuses sizes above the 227 KB a block can hold.
+// What bounds it on Hopper: the chain, as in K6. Each observation reads
+// rows of sigma that the previous one wrote, so a lane's observations run
+// one after the other; the bytes bound (sigma read and written once) is a
+// few microseconds at the main path's shape. The design keeps each lane's
+// sigma next to the SM that works on it and spends as few barriers per
+// observation as the data needs:
+//
+// "smem" (one CTA per lane, N <= 234): the lane's sigma lives in the CTA's
+//   shared memory for the frame; warp 0 composes the ticks while the other
+//   warps load the state. A known observation costs two barriers: phase A
+//   writes B = Gx sigma and each warp's part of the Gram matrix B B^T into
+//   a double buffer; after the barrier every thread forms S, S^-1 and
+//   ||K||^2 = tr(S^-1 B B^T S^-T) from the buffer in one fixed order (so
+//   every thread takes the same gate / reject branch), and the rank-3
+//   update runs with rows by warp and columns by lane, each lane's columns
+//   of B held in registers (no integer division); the second barrier only
+//   follows an observation that changed sigma. A new landmark is one pass
+//   and one barrier. Rows and columns past the active landmarks are exactly
+//   zero and stay so, so every pass stops at 3 + 3 n_landmarks. Two or more
+//   lanes share an SM where shared memory allows.
+// "device" (N > the cluster's reach): the same program with sigma in device
+//   memory (the output buffer, mostly in the 50 MB L2), one CTA per lane.
+// "cluster" (234 < N <= 927): K6's 16-CTA cluster body
+//   (ekf_frame_common.cuh: cluster_frame) over a grid of B clusters, with
+//   K2's compose and predict around it.
 
-#include <cuda_runtime.h>
+#include "ekf_frame_common.cuh"
 
 namespace {
 
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace ekf;
 
-struct Cfg {
-  int N, L, M;              // state dim, landmark slots, observations/frame
-  int stationary_gate;      // CompatConfig.stationary_gate
-  float gate_eps2;          // stationary_gate_eps^2
-  int reject_divergent;     // CompatConfig.reject_divergent
-  float div_ze2, div_k2;    // divergence_ze_norm^2, divergence_k_norm^2
-  int symmetrize;           // EkfConfig.symmetrize_sigma
+constexpr int kSThreads = 256;  // the smem variant
+constexpr int kDThreads = 512;  // the device variant
+constexpr int kMaxWarps = 32;
+constexpr int kColChunks = 8;   // columns of B a lane holds in registers: 8 x 32 per pass
+
+// The batch's arrays; every [B, ...] array is batch-major and contiguous,
+// the encoder ticks [B, T] at the given element strides.
+struct BatchIo {
+  const float* mu;
+  const float* sigma;
+  const int* slot_ids;
+  const int* n_lm;
+  const float* last_obs;
+  const unsigned char* seen;
+  const unsigned char* init;
+  const int* div;
+  const int* drop;
+  const int* ids;
+  const float* z;
+  const float* R9;
+  const unsigned char* valid;
+  const float* wl;
+  const float* wr;
+  const float* dt;
+  float* mu_out;
+  float* sigma_out;
+  int* slot_ids_out;
+  int* n_lm_out;
+  float* last_obs_out;
+  unsigned char* seen_out;
+  unsigned char* init_out;
+  int* div_out;
+  int* drop_out;
+  float* traj;       // [B, F, 3] or null
+  float* pose_cov;   // [B, F, 9]
+  int* nlm_rows;     // [B, F]
+  long long s_wl[2], s_wr[2], s_dt[2];  // (batch, tick) strides
+  int T, F, f;
 };
 
-// Shared-memory layout, in 4-byte words (the wrapper's shared_bytes()
-// mirrors this): sigma N*N | mu N | mu0 N | Bm 3N | KT 3N | red 33 |
-// frozen_last 3L | new_last 3L | slot_ids L | frozen_seen L | new_seen L |
-// scal 3 (n_lm, diverged, dropped).
-__host__ __device__ inline long long smem_words(int N, int L) {
-  return (long long)N * N + 8LL * N + 33 + 9LL * L + 3;
+// The smem / device variants' shared memory in 4-byte words: sigma N*N (smem
+// variant only) | mu N | mu0 N | B double buffer 2 x 3N | Gram partials 2 x
+// 6 x kMaxWarps | pose, A, Q 21 | frozen last_obs 3L | slots M | order M |
+// frozen seen L bytes.
+__host__ __device__ inline long long lane_words(int N, int L, int M, bool shared) {
+  return (shared ? (long long)N * N : 0LL) + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L +
+         2LL * M + (L + 3) / 4;
 }
 
-__device__ __forceinline__ float wrap_angle(float a) {
-  a = (a >= kPi) ? a - kTwoPi : a;
-  return (a < -kPi) ? a + kTwoPi : a;
+// The cluster variant's: the body's layout, then pose, A, Q.
+__host__ __device__ inline long long batched_cluster_words(int N, int W, int M) {
+  return cluster_words(N, W, M) + 21;
 }
 
-// C = X @ Y, row-major 3x3
-__device__ __forceinline__ void matmul3(const float* X, const float* Y, float* C) {
+// Compose lane b's ticks (every lane of the calling warp, redundantly) and
+// write pose, A, Q to pq[21] (lane 0).
+__device__ void compose_lane(const BatchIo& io, const Odom& od, int b, int N, float* pq) {
+  float pose[3] = {io.mu[(long long)b * N], io.mu[(long long)b * N + 1],
+                   io.mu[(long long)b * N + 2]};
+  float A[9], Q[9];
+  compose_ticks(od, io.init[b] != 0, io.wl + b * io.s_wl[0], io.s_wl[1],
+                io.wr + b * io.s_wr[0], io.s_wr[1], io.dt + b * io.s_dt[0], io.s_dt[1], io.T,
+                pose, A, Q);
+  if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+    for (int e = 0; e < 3; ++e) pq[e] = pose[e];
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      C[3 * i + j] = X[3 * i] * Y[j] + X[3 * i + 1] * Y[3 + j] + X[3 * i + 2] * Y[6 + j];
-}
-
-__device__ __forceinline__ void transpose3(const float* X, float* T) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) T[3 * i + j] = X[3 * j + i];
-}
-
-// Closed-form 3x3 inverse via the adjugate (linalg.inv3x3).
-__device__ __forceinline__ void inv3(const float* S, float* I) {
-  const float a = S[0], b = S[1], c = S[2];
-  const float d = S[3], e = S[4], f = S[5];
-  const float g = S[6], h = S[7], i = S[8];
-  const float co_a = e * i - f * h;
-  const float co_b = -(d * i - f * g);
-  const float co_c = d * h - e * g;
-  const float inv_det = 1.0f / (a * co_a + b * co_b + c * co_c);
-  I[0] = co_a * inv_det;
-  I[1] = -(b * i - c * h) * inv_det;
-  I[2] = (b * f - c * e) * inv_det;
-  I[3] = co_b * inv_det;
-  I[4] = (a * i - c * g) * inv_det;
-  I[5] = -(a * f - c * d) * inv_det;
-  I[6] = co_c * inv_det;
-  I[7] = -(a * h - b * g) * inv_det;
-  I[8] = (a * e - b * d) * inv_det;
-}
-
-// Sum of v over the block; every thread gets the total. red[0..31] holds
-// the warp partials, red[32] the total.
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < kWarps; ++w) total += red[w];
-    red[32] = total;
+    for (int e = 0; e < 9; ++e) {
+      pq[3 + e] = A[e];
+      pq[12 + e] = Q[e];
+    }
   }
-  __syncthreads();
-  return red[32];
 }
 
-__global__ void __launch_bounds__(kThreads)
-ekf_frame_kernel(const float* __restrict__ mu_in,        // [B, N]
-                 const float* __restrict__ sigma_in,     // [B, N, N]
-                 const int* __restrict__ slot_ids_in,    // [B, L]
-                 const int* __restrict__ n_lm_in,        // [B]
-                 const float* __restrict__ last_obs_in,  // [B, L, 3]
-                 const unsigned char* __restrict__ seen_in,  // [B, L]
-                 const int* __restrict__ div_in,         // [B]
-                 const int* __restrict__ drop_in,        // [B]
-                 const float* __restrict__ pose,         // [B, 3]
-                 const float* __restrict__ A9,           // [B, 9]
-                 const float* __restrict__ Q9,           // [B, 9]
-                 const int* __restrict__ ids,            // [B, M] sorted
-                 const float* __restrict__ z,            // [B, M, 3]
-                 const float* __restrict__ R9,           // [B, M, 9]
-                 const unsigned char* __restrict__ valid,  // [B, M]
-                 const int* __restrict__ slots,          // [B, M] frame-start
-                 float* __restrict__ mu_out, float* __restrict__ sigma_out,
-                 int* __restrict__ slot_ids_out, int* __restrict__ n_lm_out,
-                 float* __restrict__ last_obs_out,
-                 unsigned char* __restrict__ seen_out,
-                 int* __restrict__ div_out, int* __restrict__ drop_out,
-                 Cfg cfg) {
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// ===========================================================================
+// The smem (kShared) and device variants: one CTA per lane
+// ===========================================================================
+
+template <bool kShared, int kThreads>
+__global__ void __launch_bounds__(kThreads, kShared ? 2 : 1)
+ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
   extern __shared__ float smem[];
   const int N = cfg.N, L = cfg.L, M = cfg.M;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int NN = N * N;  // <= 227 KB / 4: fits an int
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
+  const long long NN = (long long)N * N;
 
-  float* s = smem;
-  float* mu = s + NN;
+  float* s = kShared ? smem : io.sigma_out + b * NN;
+  float* mu = smem + (kShared ? NN : 0);
   float* mu0 = mu + N;
-  float* Bm = mu0 + N;   // rows of B = Gx sigma; scratch for the predict
-  float* KT = Bm + 3 * N;  // rows of K^T; the insert's u rows
-  float* red = KT + 3 * N;
-  float* frozen_last = red + 33;
-  float* new_last = frozen_last + 3 * L;
-  int* slot_ids = reinterpret_cast<int*>(new_last + 3 * L);
-  int* frozen_seen = slot_ids + L;
-  int* new_seen = frozen_seen + L;
-  int* scal = new_seen + L;
+  float* Bb = mu0 + N;                 // [2][3N]
+  float* Gw = Bb + 6 * N;              // [2][kMaxWarps][6]
+  float* pq = Gw + 12 * kMaxWarps;     // [21]
+  float* f_last = pq + 21;             // [3L]
+  int* s_slot = reinterpret_cast<int*>(f_last + 3 * L);  // [M]
+  int* s_order = s_slot + M;           // [M]
+  unsigned char* f_seen = reinterpret_cast<unsigned char*>(s_order + M);  // [L]
 
-  // ---- load the lane's state ----
-  const float* sig_g = sigma_in + (long long)b * NN;
-  for (int e = tid; e < NN; e += kThreads) s[e] = sig_g[e];
-  for (int j = tid; j < N; j += kThreads) mu[j] = mu_in[(long long)b * N + j];
-  for (int l = tid; l < L; l += kThreads) {
-    slot_ids[l] = slot_ids_in[b * L + l];
-    frozen_seen[l] = seen_in[b * L + l] != 0;
-    new_seen[l] = 0;
-  }
-  for (int e = tid; e < 3 * L; e += kThreads) {
-    frozen_last[e] = new_last[e] = last_obs_in[(long long)b * 3 * L + e];
-  }
-  if (tid == 0) {
-    scal[0] = n_lm_in[b];
-    scal[1] = div_in[b];
-    scal[2] = drop_in[b];
-  }
-  float A[9], Q[9];
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    A[e] = A9[b * 9 + e];
-    Q[e] = Q9[b * 9 + e];
-  }
-  __syncthreads();
+  const float* sig_in = io.sigma + b * NN;
+  const int* ids = io.ids + (long long)b * M;
+  const float* z = io.z + (long long)b * 3 * M;
+  const float* R9 = io.R9 + (long long)b * 9 * M;
+  const unsigned char* valid = io.valid + (long long)b * M;
+  float* last_out = io.last_obs_out + (long long)b * 3 * L;
+  unsigned char* seen_out = io.seen_out + (long long)b * L;
+  int* slot_out = io.slot_ids_out + (long long)b * L;
+  int n_lm = io.n_lm[b];
 
-  // ---- predict: pose rows, then pose columns (+ Q) ----
-  for (int j = tid; j < N; j += kThreads) {
+  // ---- prologue: warp 0 composes, the others load; then lookup and sort
+  if (warp == 0) {
+    compose_lane(io, od, b, N, pq);
+  } else {
+    const int t0 = tid - 32, nt = kThreads - 32;
+    // the observations into L1 for the chain (lines of 128 bytes)
+    for (int e = t0; 128 * e < 36 * M; e += nt) prefetch_l1(reinterpret_cast<const char*>(R9) + 128 * e);
+    for (int e = t0; 128 * e < 12 * M; e += nt) prefetch_l1(reinterpret_cast<const char*>(z) + 128 * e);
+    // sigma into shared memory (the device variant: into the output
+    // buffer, where the frame then runs in place)
+    for (long long e0 = t0; e0 < NN; e0 += (long long)nt * kBatch) {
+      float v[kBatch];
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      Bm[i * N + j] = A[3 * i] * s[j] + A[3 * i + 1] * s[N + j] + A[3 * i + 2] * s[2 * N + j];
-  }
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) {
+      for (int u = 0; u < kBatch; ++u) {
+        const long long e = e0 + (long long)u * nt;
+        if (e < NN) v[u] = sig_in[e];
+      }
 #pragma unroll
-    for (int i = 0; i < 3; ++i) s[i * N + j] = Bm[i * N + j];
+      for (int u = 0; u < kBatch; ++u) {
+        const long long e = e0 + (long long)u * nt;
+        if (e < NN) s[e] = v[u];
+      }
+    }
+    for (int j = t0; j < N; j += nt) mu[j] = mu0[j] = io.mu[(long long)b * N + j];
+    for (int e = t0; e < 3 * L; e += nt) f_last[e] = last_out[e] = io.last_obs[(long long)b * 3 * L + e];
+    for (int l = t0; l < L; l += nt) {
+      f_seen[l] = io.seen[(long long)b * L + l];
+      seen_out[l] = 0;
+      slot_out[l] = io.slot_ids[(long long)b * L + l];
+    }
   }
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) {
-    const float* row = s + j * N;
+  lookup_and_sort(io.slot_ids + (long long)b * L, ids, valid, L, M, s_slot, s_order);
+
+  // ---- the covariance predict with the frame's (A, Q); mu[0:3] <- pose
+  {
+    const float* A = pq + 3;
+    const float* Q = pq + 12;
+    const int na = 3 + 3 * n_lm;
+    float* T0 = Bb;  // rows 0..2 of A sigma
+    for (int j = tid; j < na; j += kThreads) {
+      const float s0 = s[j], s1 = s[N + j], s2 = s[2 * N + j];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      Bm[c * N + j] = row[0] * A[3 * c] + row[1] * A[3 * c + 1] + row[2] * A[3 * c + 2] +
-                      (j < 3 ? Q[3 * j + c] : 0.0f);
-  }
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) {
+      for (int i = 0; i < 3; ++i) T0[i * N + j] = A[3 * i] * s0 + A[3 * i + 1] * s1 + A[3 * i + 2] * s2;
+    }
+    __syncthreads();
+    for (int j = tid; j < na; j += kThreads) {
+      float t[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s[j * N + c] = Bm[c * N + j];
+      for (int k = 0; k < 3; ++k) t[k] = j < 3 ? T0[j * N + k] : s[(long long)j * N + k];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        s[(long long)j * N + c] = t[0] * A[3 * c] + t[1] * A[3 * c + 1] + t[2] * A[3 * c + 2] +
+                                  (j < 3 ? Q[3 * j + c] : 0.0f);
+      if (j >= 3) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) s[i * N + j] = T0[i * N + j];
+      }
+    }
+    if (tid < 3) mu[tid] = mu0[tid] = pq[tid];
+    __syncthreads();
   }
-  if (tid < 3) mu[tid] = pose[b * 3 + tid];
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) mu0[j] = mu[j];
-  __syncthreads();
 
   // ---- the sorted observations, in order ----
-  const float x0 = mu0[0], y0 = mu0[1], th0 = mu0[2];
+  const float x0 = pq[0], y0 = pq[1], th0 = pq[2];
   const float sth = sinf(th0), cth = cosf(th0);
   const float Gl[9] = {cth, sth, 0.0f, -sth, cth, 0.0f, 0.0f, 0.0f, 1.0f};
+  int diverged = io.div[b], dropped = io.drop[b];
+  int par = 0;
 
-  for (int i = 0; i < M; ++i) {
-    const int o = b * M + i;
-    if (!valid[o]) continue;  // uniform across the CTA
-    const int slot = slots[o];
-    const float zz[3] = {z[o * 3], z[o * 3 + 1], z[o * 3 + 2]};
-    float Rk[9];
-#pragma unroll
-    for (int e = 0; e < 9; ++e) Rk[e] = R9[o * 9 + e];
-    const int n_lm = scal[0];
-    __syncthreads();  // every thread has read scal before thread 0 writes it
+  for (int p = 0; p < M; ++p) {
+    const int i = s_order[p];
+    if (!valid[i]) break;  // the invalid ones are sorted last
+    const Obs o = load_obs(z, R9, i, s_slot);
 
-    if (slot >= 0) {
+    if (o.slot >= 0) {
       // ---- known landmark (src/aruco_slam.cpp:108-207) ----
-      const int idx = 3 + 3 * slot;
-      const float gdx = mu0[idx] - x0;
-      const float gdy = mu0[idx + 1] - y0;
-      const float gdth = wrap_angle(mu0[idx + 2] - th0);
-      const float ze[3] = {zz[0] - (gdx * cth + gdy * sth),
-                           zz[1] - (-gdx * sth + gdy * cth),
-                           wrap_angle(zz[2] - gdth)};
-      const float Gp[9] = {-cth, -sth, -gdx * sth + gdy * cth,
-                           sth, -cth, -gdx * cth - gdy * sth,
-                           0.0f, 0.0f, -1.0f};
-      for (int j = tid; j < N; j += kThreads) {
+      const int idx = 3 + 3 * o.slot;
+      const int na = 3 + 3 * n_lm;
+      float ze[3], Gp[9];
+      known_terms(mu0, o, x0, y0, th0, cth, sth, ze, Gp);
+      float* Bm = Bb + par * 3 * N;
+      float* G = Gw + par * 6 * kMaxWarps;
+      par ^= 1;
+      // phase A: B = Gx sigma over the active columns, and B B^T
+      float g[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = tid; j < na; j += kThreads) {
         const float sp0 = s[j], sp1 = s[N + j], sp2 = s[2 * N + j];
-        const float sl0 = s[idx * N + j];
-        const float sl1 = s[(idx + 1) * N + j];
-        const float sl2 = s[(idx + 2) * N + j];
+        const float sl0 = s[(long long)idx * N + j], sl1 = s[(long long)(idx + 1) * N + j];
+        const float sl2 = s[(long long)(idx + 2) * N + j];
+        float bv[3];
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
-          Bm[a * N + j] = Gp[3 * a] * sp0 + Gp[3 * a + 1] * sp1 + Gp[3 * a + 2] * sp2 +
-                          Gl[3 * a] * sl0 + Gl[3 * a + 1] * sl1 + Gl[3 * a + 2] * sl2;
+        for (int a = 0; a < 3; ++a) {
+          bv[a] = Gp[3 * a] * sp0 + Gp[3 * a + 1] * sp1 + Gp[3 * a + 2] * sp2 +
+                  Gl[3 * a] * sl0 + Gl[3 * a + 1] * sl1 + Gl[3 * a + 2] * sl2;
+          Bm[a * N + j] = bv[a];
+        }
+        g[0] += bv[0] * bv[0];
+        g[1] += bv[0] * bv[1];
+        g[2] += bv[0] * bv[2];
+        g[3] += bv[1] * bv[1];
+        g[4] += bv[1] * bv[2];
+        g[5] += bv[2] * bv[2];
+      }
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) g[q] += __shfl_down_sync(0xffffffffu, g[q], off);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < 6; ++q) G[warp * 6 + q] = g[q];
       }
       __syncthreads();
-      // S = B[:, 0:3] Gp^T + B[:, block] Gl^T + R (every thread, redundantly)
+
+      // S = B[:, 0:3] Gp^T + B[:, block] Gl^T + R, S^-1 and ||K||^2, the
+      // same in every thread
       float S[9], invS[9];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
@@ -252,171 +291,321 @@ ekf_frame_kernel(const float* __restrict__ mu_in,        // [B, N]
 #pragma unroll
           for (int k = 0; k < 3; ++k)
             acc += Bm[a * N + k] * Gp[3 * c + k] + Bm[a * N + idx + k] * Gl[3 * c + k];
-          S[3 * a + c] = acc + Rk[3 * a + c];
+          S[3 * a + c] = acc + o.Rk[3 * a + c];
         }
       inv3(S, invS);
-      float part = 0.0f;
-      for (int j = tid; j < N; j += kThreads) {
-        const float b0 = Bm[j], b1 = Bm[N + j], b2 = Bm[2 * N + j];
+      float gs[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int w = 0; w < kWarps; ++w) {
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float kt = invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2;
-          KT[a * N + j] = kt;
-          part += kt * kt;
+        for (int q = 0; q < 6; ++q) gs[q] += G[w * 6 + q];
+      }
+      const float Gm[9] = {gs[0], gs[1], gs[2], gs[1], gs[3], gs[4], gs[2], gs[4], gs[5]};
+      float k_norm2 = 0.0f;  // sum over a of invS[a, :] G invS[a, :]^T
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float gc = Gm[3 * c] * invS[3 * a] + Gm[3 * c + 1] * invS[3 * a + 1] +
+                           Gm[3 * c + 2] * invS[3 * a + 2];
+          k_norm2 += invS[3 * a + c] * gc;
         }
       }
-      const float k_norm2 = block_sum(part, red);  // also publishes KT
-      const float ze_norm2 = ze[0] * ze[0] + ze[1] * ze[1] + ze[2] * ze[2];
-      const bool div_hit = (ze_norm2 >= cfg.div_ze2) || (k_norm2 >= cfg.div_k2);
-      bool gate = false;
-      if (cfg.stationary_gate && frozen_seen[slot]) {
-        float d2 = 0.0f;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float dd = frozen_last[3 * slot + a] - zz[a];
-          d2 += dd * dd;
-        }
-        gate = d2 < cfg.gate_eps2;
-      }
+      bool gate, div_hit;
+      decide(cfg, f_seen, f_last, o, ze, k_norm2, &gate, &div_hit);
       const bool reject = cfg.reject_divergent && div_hit;
       if (!gate && !reject) {
-        for (int j = tid; j < N; j += kThreads)
-          mu[j] = mu[j] + (ze[0] * KT[j] + ze[1] * KT[N + j] + ze[2] * KT[2 * N + j]);
-        // sigma <- sigma - K B, one rank-1 term at a time
-        for (int e = tid; e < NN; e += kThreads) {
-          const int r = e / N;
-          const int c = e - r * N;
-          float v = s[e];
-          v = v - KT[r] * Bm[c];
-          v = v - KT[N + r] * Bm[N + c];
-          v = v - KT[2 * N + r] * Bm[2 * N + c];
-          s[e] = v;
+        // mu += K ze; sigma -= K B, K^T = S^-1 B: rows by warp, columns by
+        // lane, the lane's columns of B in registers
+        for (int j = tid; j < na; j += kThreads) {
+          const float b0 = Bm[j], b1 = Bm[N + j], b2 = Bm[2 * N + j];
+          float dm = 0.0f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            dm += ze[a] * (invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2);
+          mu[j] = mu[j] + dm;
         }
+        for (int cb = 0; cb < na; cb += 32 * kColChunks) {
+          float bc[kColChunks][3];
+#pragma unroll
+          for (int q = 0; q < kColChunks; ++q) {
+            const int c = cb + lane + 32 * q;
+#pragma unroll
+            for (int a = 0; a < 3; ++a) bc[q][a] = c < na ? Bm[a * N + c] : 0.0f;
+          }
+          for (int r = warp; r < na; r += kWarps) {
+            const float b0 = Bm[r], b1 = Bm[N + r], b2 = Bm[2 * N + r];
+            float kt[3];
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+              kt[a] = invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2;
+            float* row = s + (long long)r * N;
+#pragma unroll
+            for (int q = 0; q < kColChunks; ++q) {
+              const int c = cb + lane + 32 * q;
+              if (c < na) row[c] = row[c] - (kt[0] * bc[q][0] + kt[1] * bc[q][1] + kt[2] * bc[q][2]);
+            }
+          }
+        }
+        __syncthreads();  // the next phase A reads the updated rows
       }
       if (tid == 0) {
         // last_obs entry: z, or zeros on a stationary-gate hit (quirk (c))
 #pragma unroll
-        for (int a = 0; a < 3; ++a) new_last[3 * slot + a] = gate ? 0.0f : zz[a];
-        new_seen[slot] = 1;
-        scal[1] += div_hit ? 1 : 0;
+        for (int a = 0; a < 3; ++a) last_out[3 * o.slot + a] = gate ? 0.0f : o.zz[a];
+        seen_out[o.slot] = 1;
       }
+      diverged += div_hit ? 1 : 0;
     } else if (n_lm < L) {
       // ---- new landmark (src/aruco_slam.cpp:208-260) ----
+      // Rows and columns idx..idx+2 are zero and nothing below reads them,
+      // so one pass writes them: sigma_mx across, its transpose down, and
+      // sigma_mm on the new block.
       const int idx = 3 + 3 * n_lm;
-      const float map_r[3] = {x0 + cth * zz[0] - sth * zz[1],
-                              y0 + sth * zz[0] + cth * zz[1],
-                              wrap_angle(th0 + zz[2])};
-      const float dxn = map_r[0] - x0, dyn = map_r[1] - y0;
-      const float Gsk[9] = {-cth, -sth, -sth * dxn + cth * dyn,
-                            sth, -cth, -dxn * cth - dyn * sth,
-                            0.0f, 0.0f, -1.0f};
+      float map_r[3], Gsk[9], GG[9], smm[9];
+      insert_terms(o, x0, y0, th0, cth, sth, Gl, map_r, Gsk, GG);
       const float sig3[9] = {s[0], s[1], s[2], s[N], s[N + 1], s[N + 2],
                              s[2 * N], s[2 * N + 1], s[2 * N + 2]};
-      float T0[9], T1[9], inner[9], innerT[9], GskT[9], GlT[9], smm[9], GG[9];
-      matmul3(Gsk, sig3, T0);
-      transpose3(Gsk, GskT);
-      matmul3(T0, GskT, inner);
-#pragma unroll
-      for (int e = 0; e < 9; ++e) inner[e] += Rk[e];
-      transpose3(inner, innerT);
-      matmul3(Gl, innerT, T1);  // Gmi == Gl = R(theta)^T
-      transpose3(Gl, GlT);
-      matmul3(T1, GlT, smm);
-      matmul3(Gl, Gsk, GG);
-      // u_r = sigma_mx row r + 0.5 * smm[r, :] on the new block: the row
-      // pass and the column pass below each add it once
-      for (int j = tid; j < N; j += kThreads) {
+      insert_smm(sig3, Gsk, Gl, o.Rk, smm);
+      for (int j = tid; j < idx; j += kThreads) {
         const float sp0 = s[j], sp1 = s[N + j], sp2 = s[2 * N + j];
-        const int in_blk = j - idx;
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
-          float u = -(GG[3 * r] * sp0 + GG[3 * r + 1] * sp1 + GG[3 * r + 2] * sp2);
-          if (in_blk >= 0 && in_blk < 3) u += 0.5f * smm[3 * r + in_blk];
-          KT[r * N + j] = u;
+          const float u = -(GG[3 * r] * sp0 + GG[3 * r + 1] * sp1 + GG[3 * r + 2] * sp2);
+          s[(long long)(idx + r) * N + j] = u;
+          s[(long long)j * N + idx + r] = u;
         }
       }
-      __syncthreads();
-      for (int t = tid; t < 3 * N; t += kThreads) {
-        const int r = t / N, j = t - r * N;
-        s[(idx + r) * N + j] += KT[r * N + j];
-      }
-      __syncthreads();
-      for (int t = tid; t < 3 * N; t += kThreads) {
-        const int r = t / N, j = t - r * N;
-        s[j * N + idx + r] += KT[r * N + j];
-      }
-      if (tid < 3) mu[idx + tid] += map_r[tid];
+      if (tid < 9) s[(long long)(idx + tid / 3) * N + idx + tid % 3] = smm[tid];
+      if (tid < 3) mu[idx + tid] = mu[idx + tid] + map_r[tid];
       if (tid == 0) {
-        slot_ids[n_lm] = ids[o];
-        scal[0] = n_lm + 1;
+        slot_out[n_lm] = ids[o.i];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) new_last[3 * n_lm + a] = 0.0f;
-        new_seen[n_lm] = 1;
+        for (int a = 0; a < 3; ++a) last_out[3 * n_lm + a] = 0.0f;
+        seen_out[n_lm] = 1;
       }
+      n_lm += 1;
+      __syncthreads();
     } else {
-      if (tid == 0) scal[2] += 1;  // capacity drop
+      dropped += 1;  // capacity drop
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   // ---- write back; symmetrize on the way out ----
-  float* sig_o = sigma_out + (long long)b * NN;
-  for (int e = tid; e < NN; e += kThreads) {
-    if (cfg.symmetrize) {
-      const int r = e / N;
-      const int c = e - r * N;
-      sig_o[e] = 0.5f * (s[e] + s[c * N + r]);
-    } else {
-      sig_o[e] = s[e];
+  const int na = 3 + 3 * n_lm;
+  if (kShared) {
+    float* sig_o = io.sigma_out + b * NN;
+    for (int r = warp; r < N; r += kWarps) {
+      for (int c = lane; c < N; c += 32) {
+        float v = 0.0f;  // past the active block sigma is zero
+        if (r < na && c < na) v = cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r]) : s[r * N + c];
+        sig_o[(long long)r * N + c] = v;
+      }
+    }
+  } else if (cfg.symmetrize) {
+    for (int r = warp; r < na; r += kWarps) {
+      for (int c = r + 1 + lane; c < na; c += 32) {
+        const float v = 0.5f * (s[(long long)r * N + c] + s[(long long)c * N + r]);
+        s[(long long)r * N + c] = v;
+        s[(long long)c * N + r] = v;
+      }
     }
   }
-  for (int j = tid; j < N; j += kThreads) mu_out[(long long)b * N + j] = mu[j];
-  for (int l = tid; l < L; l += kThreads) {
-    slot_ids_out[b * L + l] = slot_ids[l];
-    seen_out[b * L + l] = static_cast<unsigned char>(new_seen[l]);
-  }
-  for (int e = tid; e < 3 * L; e += kThreads)
-    last_obs_out[(long long)b * 3 * L + e] = new_last[e];
+  for (int j = tid; j < N; j += kThreads) io.mu_out[(long long)b * N + j] = mu[j];
   if (tid == 0) {
-    n_lm_out[b] = scal[0];
-    div_out[b] = scal[1];
-    drop_out[b] = scal[2];
+    io.n_lm_out[b] = n_lm;
+    io.div_out[b] = diverged;
+    io.drop_out[b] = dropped;
+    io.init_out[b] = 1;
+  }
+  if (io.traj) {
+    __syncthreads();  // the device variant's symmetrize is done
+    const long long row = (long long)b * io.F + io.f;
+    if (tid < 9) {
+      const int r = tid / 3, c = tid % 3;
+      io.pose_cov[row * 9 + tid] = kShared
+          ? (cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r]) : s[r * N + c])
+          : s[r * N + c];
+    }
+    if (tid < 3) io.traj[row * 3 + tid] = mu[tid];
+    if (tid == 0) io.nlm_rows[row] = n_lm;
+  }
+}
+
+// ===========================================================================
+// The cluster variant: K6's cluster body, one cluster per lane
+// ===========================================================================
+
+__global__ void __launch_bounds__(kCThreads, 1)
+ekf_frame_batched_cluster_kernel(BatchIo bio, Cfg cfg, Odom od) {
+  extern __shared__ float smem[];
+  const int N = cfg.N, L = cfg.L, M = cfg.M;
+  const int b = blockIdx.x / cfg.G;
+  float* pq = smem + cluster_words(N, cfg.W, M);
+  if (threadIdx.x < 32) compose_lane(bio, od, b, N, pq);  // read after the body's first barrier
+  const long long NN = (long long)N * N;
+  const Io io{bio.mu + (long long)b * N, bio.sigma + b * NN, bio.slot_ids + (long long)b * L,
+              bio.n_lm + b, bio.last_obs + (long long)b * 3 * L, bio.seen + (long long)b * L,
+              bio.init + b, bio.div + b, bio.drop + b, bio.ids + (long long)b * M,
+              bio.z + (long long)b * 3 * M, bio.R9 + (long long)b * 9 * M,
+              bio.valid + (long long)b * M, bio.mu_out + (long long)b * N, bio.sigma_out + b * NN,
+              bio.slot_ids_out + (long long)b * L, bio.n_lm_out + b,
+              bio.last_obs_out + (long long)b * 3 * L, bio.seen_out + (long long)b * L,
+              bio.div_out + b, bio.drop_out + b};
+  const long long row = (long long)b * bio.F + bio.f;
+  const bool rows = bio.traj != nullptr;
+  const Lane ln{pq, rows ? bio.traj + row * 3 : nullptr, rows ? bio.pose_cov + row * 9 : nullptr,
+                rows ? bio.nlm_rows + row : nullptr, bio.init_out + b};
+  cluster_frame(io, cfg, ln);
+}
+
+// The kernel of a variant (0 smem, 1 cluster, 2 device) and its threads.
+const void* kernel_of(int variant, int* threads) {
+  switch (variant) {
+    case 0:
+      *threads = kSThreads;
+      return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<true, kSThreads>);
+    case 1:
+      *threads = kCThreads;
+      return reinterpret_cast<const void*>(ekf_frame_batched_cluster_kernel);
+    case 2:
+      *threads = kDThreads;
+      return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<false, kDThreads>);
+    default:
+      return nullptr;
   }
 }
 
 }  // namespace
 
-extern "C" long long ekf_frame_smem_bytes(int N, int L) {
-  return smem_words(N, L) * 4;
+// Shared bytes per CTA of a variant (0 smem, 1 cluster with G CTAs, 2
+// device) for an N-dim state, L slots and M observations; the wrapper's
+// plan mirrors it (ekf_update_batched.shared_bytes).
+extern "C" long long ekf_frame_batched_smem_bytes(int variant, int N, int L, int M, int G) {
+  if (variant == 1) return batched_cluster_words(N, (N + G - 1) / G, M) * 4;
+  return lane_words(N, L, M, variant == 0) * 4;
 }
 
-extern "C" int ekf_frame_launch(
-    const float* mu_in, const float* sigma_in, const int* slot_ids_in,
-    const int* n_lm_in, const float* last_obs_in, const unsigned char* seen_in,
-    const int* div_in, const int* drop_in,
-    const float* pose, const float* A9, const float* Q9,
-    const int* ids, const float* z, const float* R9,
-    const unsigned char* valid, const int* slots,
-    float* mu_out, float* sigma_out, int* slot_ids_out, int* n_lm_out,
-    float* last_obs_out, unsigned char* seen_out, int* div_out, int* drop_out,
-    int B, int N, int L, int M,
-    int stationary_gate, float gate_eps2, int reject_divergent,
-    float div_ze2, float div_k2, int symmetrize, void* stream) {
-  if (B <= 0) return 0;
-  const long long smem = smem_words(N, L) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      ekf_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// A variant's plan: shared bytes per CTA and how many CTAs (clusters for
+// the cluster variant) the current card holds at once, 0 if none; sets the
+// kernel's attributes, so that a launch needs no other call.
+extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, int* smem_bytes,
+                                      int* resident) {
+  int threads = 0;
+  const void* fn = kernel_of(variant, &threads);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long bytes = ekf_frame_batched_smem_bytes(variant, N, L, M, G);
+  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  // the most any size needs, so that plans cached for other sizes stay valid
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxSharedBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Cfg cfg{N, L, M, stationary_gate, gate_eps2, reject_divergent,
-                div_ze2, div_k2, symmetrize};
-  ekf_frame_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      mu_in, sigma_in, slot_ids_in, n_lm_in, last_obs_in, seen_in, div_in,
-      drop_in, pose, A9, Q9, ids, z, R9, valid, slots, mu_out, sigma_out,
-      slot_ids_out, n_lm_out, last_obs_out, seen_out, div_out, drop_out, cfg);
+  int n = 0;
+  if (variant == 1) {
+    if (G < 1 || G > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    if (G > 8) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    cudaLaunchConfig_t lc = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = G;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    lc.gridDim = dim3(G);
+    lc.blockDim = dim3(threads);
+    lc.dynamicSmemBytes = static_cast<size_t>(bytes);
+    lc.attrs = attr;
+    lc.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, fn, &lc);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, static_cast<size_t>(bytes));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem_bytes = static_cast<int>(bytes);
+  *resident = n;
+  return 0;
+}
+
+// ptrs: mu, sigma, slot_ids, n_lm, last_obs, seen, init, div, drop, ids, z,
+// R9, valid, wl, wr, dt (inputs; observations in arrival order), mu, sigma,
+// slot_ids, n_lm, last_obs, seen, init, div, drop (outputs), traj, pose_cov,
+// nlm_rows (the replay's rows, or null). strides: wl, wr, dt (batch, tick).
+// fcfg: gate_eps2, div_ze2, div_k2, kl, kr, two_b, inv_b, kl_over_b,
+// kr_over_b, half_kl, q_k. icfg: B, N, L, M, G, T, F, f, stationary_gate,
+// reject_divergent, symmetrize, kl_both.
+extern "C" int ekf_frame_batched_launch(int variant, void* const* ptrs, const long long* strides,
+                                        const float* fcfg, const int* icfg, int smem_bytes,
+                                        void* stream) {
+  const int B = icfg[0], N = icfg[1], L = icfg[2], M = icfg[3], G = icfg[4];
+  if (B <= 0) return 0;
+  BatchIo io;
+  io.mu = static_cast<const float*>(ptrs[0]);
+  io.sigma = static_cast<const float*>(ptrs[1]);
+  io.slot_ids = static_cast<const int*>(ptrs[2]);
+  io.n_lm = static_cast<const int*>(ptrs[3]);
+  io.last_obs = static_cast<const float*>(ptrs[4]);
+  io.seen = static_cast<const unsigned char*>(ptrs[5]);
+  io.init = static_cast<const unsigned char*>(ptrs[6]);
+  io.div = static_cast<const int*>(ptrs[7]);
+  io.drop = static_cast<const int*>(ptrs[8]);
+  io.ids = static_cast<const int*>(ptrs[9]);
+  io.z = static_cast<const float*>(ptrs[10]);
+  io.R9 = static_cast<const float*>(ptrs[11]);
+  io.valid = static_cast<const unsigned char*>(ptrs[12]);
+  io.wl = static_cast<const float*>(ptrs[13]);
+  io.wr = static_cast<const float*>(ptrs[14]);
+  io.dt = static_cast<const float*>(ptrs[15]);
+  io.mu_out = static_cast<float*>(ptrs[16]);
+  io.sigma_out = static_cast<float*>(ptrs[17]);
+  io.slot_ids_out = static_cast<int*>(ptrs[18]);
+  io.n_lm_out = static_cast<int*>(ptrs[19]);
+  io.last_obs_out = static_cast<float*>(ptrs[20]);
+  io.seen_out = static_cast<unsigned char*>(ptrs[21]);
+  io.init_out = static_cast<unsigned char*>(ptrs[22]);
+  io.div_out = static_cast<int*>(ptrs[23]);
+  io.drop_out = static_cast<int*>(ptrs[24]);
+  io.traj = static_cast<float*>(ptrs[25]);
+  io.pose_cov = static_cast<float*>(ptrs[26]);
+  io.nlm_rows = static_cast<int*>(ptrs[27]);
+  for (int k = 0; k < 2; ++k) {
+    io.s_wl[k] = strides[k];
+    io.s_wr[k] = strides[2 + k];
+    io.s_dt[k] = strides[4 + k];
+  }
+  io.T = icfg[5];
+  io.F = icfg[6];
+  io.f = icfg[7];
+  const Cfg cfg{N, L, M, G, (N + G - 1) / G, icfg[8], fcfg[0], icfg[9], fcfg[1], fcfg[2], icfg[10]};
+  const Odom od{fcfg[3], fcfg[4], fcfg[5], fcfg[6], fcfg[7], fcfg[8], fcfg[9], fcfg[10], icfg[11]};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (variant == 0) {
+    ekf_frame_batched_lane_kernel<true, kSThreads><<<B, kSThreads, smem_bytes, st>>>(io, cfg, od);
+  } else if (variant == 2) {
+    ekf_frame_batched_lane_kernel<false, kDThreads><<<B, kDThreads, smem_bytes, st>>>(io, cfg, od);
+  } else if (variant == 1) {
+    cudaLaunchConfig_t lc = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = G;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    lc.gridDim = dim3(B * G);
+    lc.blockDim = dim3(kCThreads);
+    lc.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+    lc.stream = st;
+    lc.attrs = attr;
+    lc.numAttrs = 1;
+    err = cudaLaunchKernelEx(&lc, ekf_frame_batched_cluster_kernel, io, cfg, od);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* ekf_frame_error_string(int err) {
+extern "C" const char* ekf_frame_batched_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,0 +1,664 @@
+// The EKF frame update's device code shared by K6 (ekf_frame_update.cu, one
+// stream) and K2 (ekf_frame_batched.cu, B replay lanes): the 3x3 algebra,
+// the prologue's slot lookup and (slot, arrival) sort, the per-observation
+// terms, the encoder-tick compose, and the thread-block-cluster frame body
+// that both kernels run (K6 on one lane, K2 on a grid of B clusters).
+//
+// The cluster body: CTA r of a cluster owns a stripe of W columns of the
+// lane's sigma and the same entries of mu, in its shared memory for the whole
+// frame. Sigma is read from device memory once at the start and written once
+// at the end. Per processed observation:
+//   - phase A: B = Gp sigma[0:3, :] + Gl sigma[idx:idx+3, :] (or the
+//     insert's sigma_mx) for the own columns, into the CTA's shared memory,
+//     double-buffered;
+//   - one hardware cluster barrier;
+//   - every CTA reads the whole B (3N floats) from its peers through
+//     distributed shared memory, forms S, K^T = S^-1 B and ||K||^2 in one
+//     fixed order, so every CTA takes the same gate / reject branch;
+//   - it applies the rank-3 update to its own columns in shared memory (the
+//     insert: rows idx..idx+2 of the own columns, and the owner of the new
+//     columns down them).
+// Phase A of the next observation reads only the CTA's own columns, so one
+// barrier per processed observation is enough; the double buffer keeps a
+// CTA already in the next phase A from overwriting B while a slower one
+// still reads it. The symmetrize reads the transposed entries from the
+// peers and writes the result straight to device memory.
+//
+// K2 runs the same body with its frame prologue: the compose of the frame's
+// encoder ticks (pose, A, Q, by warp 0 of every CTA into its shared memory)
+// and the covariance predict on the own columns (rows 0..2 in every CTA,
+// then columns 0..2 in CTA 0, which owns them), and it writes the replay's
+// rows of the lane's pose, pose covariance and landmark count.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+
+namespace cg = cooperative_groups;
+
+namespace ekf {
+
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr int kCThreads = 512;       // the cluster body: more warps hide shared-memory latency
+constexpr int kBigKey = 2000000000;  // sort key of an invalid observation
+constexpr int kMaxSharedBytes = 232448;  // 227 KB: the most a CTA may use
+constexpr int kMaxCluster = 16;
+// Elements each thread has in flight in the copies from and to device or
+// distributed shared memory: the loads of one batch are issued before any
+// of its stores, so the copies are not bound by one load's latency.
+constexpr int kBatch = 8;
+
+struct Cfg {
+  int N, L, M;              // state dim, landmark slots, observations/frame
+  int G, W;                 // CTAs, columns per CTA (the cluster body)
+  int stationary_gate;      // CompatConfig.stationary_gate
+  float gate_eps2;          // stationary_gate_eps^2
+  int reject_divergent;     // CompatConfig.reject_divergent
+  float div_ze2, div_k2;    // divergence_ze_norm^2, divergence_k_norm^2
+  int symmetrize;           // EkfConfig.symmetrize_sigma
+};
+
+// The odometry constants of the encoder-tick compose (OdomConfig,
+// CovarianceConfig.Q_k, CompatConfig.process_noise_uses_kl_for_both_wheels),
+// each rounded to float32 where the plain version rounds it.
+struct Odom {
+  float kl, kr;             // wheel radii
+  float two_b;              // 2 b
+  float inv_b;              // 1 / b
+  float kl_over_b, kr_over_b;
+  float half_kl;            // 0.5 kl
+  float q_k;
+  int kl_both;
+};
+
+// One lane's arrays (K6: the stream; K2: lane b of the batch).
+struct Io {
+  const float* mu_in;              // [N] (mu0; K2: the pose entries before the compose)
+  const float* sigma_in;           // [N, N]
+  const int* slot_ids_in;          // [L]
+  const int* n_lm_in;              // [1]
+  const float* last_obs_in;        // [L, 3]
+  const unsigned char* seen_in;    // [L]
+  const unsigned char* init_in;    // [1]
+  const int* div_in;               // [1]
+  const int* drop_in;              // [1]
+  const int* ids;                  // [M] arrival order
+  const float* z;                  // [M, 3]
+  const float* R9;                 // [M, 9]
+  const unsigned char* valid;      // [M]
+  float* mu;                       // outputs
+  float* sigma;
+  int* slot_ids_out;
+  int* n_lm_out;
+  float* last_obs_out;
+  unsigned char* seen_out;
+  int* div_out;
+  int* drop_out;
+};
+
+// What K2 adds around the cluster body; all null for K6.
+struct Lane {
+  const float* pq;           // shared memory: pose[3], A[9], Q[9] of the compose
+  float* traj;               // [3] the replay's trajectory row, or null
+  float* cov;                // [9] its pose-covariance row
+  int* nlm;                  // [1] its landmark count
+  unsigned char* init_out;   // [1] the latch, set
+};
+
+// The cluster body's shared memory in 4-byte words: own sigma columns N x W |
+// own mu W | B double buffer 2 x 3W | K^T (first B) 3N | the pose block 9 |
+// reduction 2 x 32 | slots M | order M.
+__host__ __device__ inline long long cluster_words(int N, int W, int M) {
+  return (long long)N * W + 7LL * W + 3LL * N + 9 + 64 + 2LL * M;
+}
+
+__device__ __forceinline__ float wrap_angle(float a) {
+  a = (a >= kPi) ? a - kTwoPi : a;
+  return (a < -kPi) ? a + kTwoPi : a;
+}
+
+// C = X @ Y, row-major 3x3
+__device__ __forceinline__ void matmul3(const float* X, const float* Y, float* C) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      C[3 * i + j] = X[3 * i] * Y[j] + X[3 * i + 1] * Y[3 + j] + X[3 * i + 2] * Y[6 + j];
+}
+
+__device__ __forceinline__ void transpose3(const float* X, float* T) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) T[3 * i + j] = X[3 * j + i];
+}
+
+// Closed-form 3x3 inverse via the adjugate (linalg.inv3x3).
+__device__ __forceinline__ void inv3(const float* S, float* I) {
+  const float a = S[0], b = S[1], c = S[2];
+  const float d = S[3], e = S[4], f = S[5];
+  const float g = S[6], h = S[7], i = S[8];
+  const float co_a = e * i - f * h;
+  const float co_b = -(d * i - f * g);
+  const float co_c = d * h - e * g;
+  const float inv_det = 1.0f / (a * co_a + b * co_b + c * co_c);
+  I[0] = co_a * inv_det;
+  I[1] = -(b * i - c * h) * inv_det;
+  I[2] = (b * f - c * e) * inv_det;
+  I[3] = co_b * inv_det;
+  I[4] = (a * i - c * g) * inv_det;
+  I[5] = -(a * f - c * d) * inv_det;
+  I[6] = co_c * inv_det;
+  I[7] = -(a * h - b * g) * inv_det;
+  I[8] = (a * e - b * d) * inv_det;
+}
+
+// Sum of v over the CTA in one fixed order; every thread gets the total.
+// red[0..31] holds the warp partials (two sets, alternating between calls,
+// so that one barrier a call is enough), and every thread adds them up in
+// warp order.
+__device__ __forceinline__ float block_sum(float v, float* red, int& set) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  float* part = red + 32 * set;
+  set ^= 1;
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.0f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += part[w];
+  return total;
+}
+
+// The prologue (ekf.lookup_slots, ekf.sort_observations): s_slot[i] is
+// observation i's slot (the first slot whose id equals ids[i], else -1),
+// s_order[p] the observation processed p-th: stable by key slot * M +
+// arrival, an invalid observation's key after every valid one. Every
+// thread of the CTA takes part; it ends in a barrier.
+__device__ void lookup_and_sort(const int* slot_ids, const int* ids, const unsigned char* valid,
+                                int L, int M, int* s_slot, int* s_order) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < M; i += blockDim.x) s_slot[i] = INT_MAX;
+  __syncthreads();
+  for (int e = tid; e < M * L; e += blockDim.x) {
+    const int i = e / L, l = e - i * L;
+    if (slot_ids[l] == ids[i]) atomicMin(s_slot + i, l);
+  }
+  __syncthreads();
+  for (int i = tid; i < M; i += blockDim.x)
+    if (s_slot[i] == INT_MAX) s_slot[i] = -1;
+  __syncthreads();
+  for (int i = tid; i < M; i += blockDim.x) {
+    const int ki = valid[i] ? s_slot[i] * M + i : kBigKey;
+    int rank = 0;
+    for (int j = 0; j < M; ++j) {
+      const int kj = valid[j] ? s_slot[j] * M + j : kBigKey;
+      rank += (kj < ki || (kj == ki && j < i)) ? 1 : 0;
+    }
+    s_order[rank] = i;
+  }
+  __syncthreads();
+}
+
+// The bookkeeping arrays' copy into the outputs (by one CTA).
+__device__ void copy_bookkeeping(const Io& io, int L, bool init) {
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    io.slot_ids_out[l] = io.slot_ids_in[l];
+    io.seen_out[l] = init ? 0 : io.seen_in[l];
+  }
+  for (int e = threadIdx.x; e < 3 * L; e += blockDim.x) io.last_obs_out[e] = io.last_obs_in[e];
+}
+
+// One observation's frame-start quantities, the same in every thread.
+struct Obs {
+  int i, slot;
+  float zz[3], Rk[9];
+};
+
+__device__ __forceinline__ Obs load_obs(const float* z, const float* R9, int i, const int* s_slot) {
+  Obs o;
+  o.i = i;
+  o.slot = s_slot[i];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) o.zz[a] = z[i * 3 + a];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) o.Rk[e] = R9[i * 9 + e];
+  return o;
+}
+
+// A known landmark's innovation ze and pose Jacobian Gp at the frame-start
+// mean: pose (x0, y0, th0), the landmark at mu0[idx..idx+2].
+__device__ __forceinline__ void known_terms(const float* mu0, const Obs& o, float x0, float y0,
+                                            float th0, float cth, float sth, float* ze,
+                                            float* Gp) {
+  const int idx = 3 + 3 * o.slot;
+  const float gdx = mu0[idx] - x0;
+  const float gdy = mu0[idx + 1] - y0;
+  const float gdth = wrap_angle(mu0[idx + 2] - th0);
+  ze[0] = o.zz[0] - (gdx * cth + gdy * sth);
+  ze[1] = o.zz[1] - (-gdx * sth + gdy * cth);
+  ze[2] = wrap_angle(o.zz[2] - gdth);
+  const float g[9] = {-cth, -sth, -gdx * sth + gdy * cth,
+                      sth, -cth, -gdx * cth - gdy * sth,
+                      0.0f, 0.0f, -1.0f};
+#pragma unroll
+  for (int e = 0; e < 9; ++e) Gp[e] = g[e];
+}
+
+// The stationary gate (against the frozen previous-frame records) and the
+// divergence decision of a known landmark.
+__device__ __forceinline__ void decide(const Cfg& cfg, const unsigned char* seen_prev,
+                                       const float* last_prev, const Obs& o, const float* ze,
+                                       float k_norm2, bool* gate, bool* div_hit) {
+  const float ze_norm2 = ze[0] * ze[0] + ze[1] * ze[1] + ze[2] * ze[2];
+  // comparisons that are false for NaN, as the JAX gates
+  *div_hit = (ze_norm2 >= cfg.div_ze2) || (k_norm2 >= cfg.div_k2);
+  *gate = false;
+  if (cfg.stationary_gate && seen_prev[o.slot]) {
+    float d2 = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float dd = last_prev[3 * o.slot + a] - o.zz[a];
+      d2 += dd * dd;
+    }
+    *gate = d2 < cfg.gate_eps2;
+  }
+}
+
+// The new landmark's frame-start pieces: map pose, Gsk and GG = Gl Gsk.
+__device__ __forceinline__ void insert_terms(const Obs& o, float x0, float y0, float th0,
+                                             float cth, float sth, const float* Gl,
+                                             float* map_r, float* Gsk, float* GG) {
+  map_r[0] = x0 + cth * o.zz[0] - sth * o.zz[1];
+  map_r[1] = y0 + sth * o.zz[0] + cth * o.zz[1];
+  map_r[2] = wrap_angle(th0 + o.zz[2]);
+  const float dxn = map_r[0] - x0, dyn = map_r[1] - y0;
+  const float g[9] = {-cth, -sth, -sth * dxn + cth * dyn,
+                      sth, -cth, -dxn * cth - dyn * sth,
+                      0.0f, 0.0f, -1.0f};
+#pragma unroll
+  for (int e = 0; e < 9; ++e) Gsk[e] = g[e];
+  matmul3(Gl, Gsk, GG);  // Gmi == Gl = R(theta)^T
+}
+
+// sigma_mm = Gl (Gsk sig3 Gsk^T + R)^T Gl^T from the pose block sig3.
+__device__ __forceinline__ void insert_smm(const float* sig3, const float* Gsk, const float* Gl,
+                                           const float* Rk, float* smm) {
+  float T0[9], T1[9], inner[9], innerT[9], GskT[9], GlT[9];
+  matmul3(Gsk, sig3, T0);
+  transpose3(Gsk, GskT);
+  matmul3(T0, GskT, inner);
+#pragma unroll
+  for (int e = 0; e < 9; ++e) inner[e] += Rk[e];
+  transpose3(inner, innerT);
+  matmul3(Gl, innerT, T1);
+  transpose3(Gl, GlT);
+  matmul3(T1, GlT, smm);
+}
+
+// ekf.predict_compose for one lane: T encoder ticks (wl, wr, dt at element
+// strides s_wl, s_wr, s_dt) folded into the pose and the covariance
+// transform sigma' = blockdiag(A, I) sigma blockdiag(A, I)^T +
+// blockdiag(Q, 0). A lane that is not yet initialized spends its first tick
+// on the latch. pose holds the start pose on entry.
+__device__ void compose_ticks(const Odom& od, bool init, const float* wl, long long s_wl,
+                              const float* wr, long long s_wr, const float* dt, long long s_dt,
+                              int T, float* pose, float* A, float* Q) {
+#pragma unroll
+  for (int e = 0; e < 9; ++e) {
+    A[e] = (e % 4 == 0) ? 1.0f : 0.0f;
+    Q[e] = 0.0f;
+  }
+#pragma unroll 1
+  for (int k = 0; k < T; ++k) {
+    if (!init) {  // the latch: the first tick moves nothing
+      init = true;
+      continue;
+    }
+    const float w_l = wl[k * s_wl], w_r = wr[k * s_wr], d = dt[k * s_dt];
+    const float dsl = od.kl * d * w_l;
+    const float dsr = od.kr * d * w_r;
+    const float dth = (dsr - dsl) / od.two_b;
+    const float ds = 0.5f * (dsr + dsl);
+    const float tmp = pose[2] + 0.5f * dth;
+    const float c = cosf(tmp), s = sinf(tmp);
+    const float H[9] = {1.0f, 0.0f, -ds * s, 0.0f, 1.0f, ds * c, 0.0f, 0.0f, 1.0f};
+    float wkh[6];  // 3 x 2
+    if (od.kl_both) {  // quirk (b): kl scales both wheel columns
+      const float f = od.half_kl * d;
+      wkh[0] = f * c;
+      wkh[1] = f * c;
+      wkh[2] = f * s;
+      wkh[3] = f * s;
+      wkh[4] = f * od.inv_b;
+      wkh[5] = f * -od.inv_b;
+    } else {
+      const float f = 0.5f * d;
+      wkh[0] = f * (od.kl * c);
+      wkh[1] = f * (od.kr * c);
+      wkh[2] = f * (od.kl * s);
+      wkh[3] = f * (od.kr * s);
+      wkh[4] = f * od.kl_over_b;
+      wkh[5] = f * -od.kr_over_b;
+    }
+    const float su0 = od.q_k * fabsf(w_l), su1 = od.q_k * fabsf(w_r);
+    float HA[9], HQ[9], Qn[9], Ht[9];
+    matmul3(H, A, HA);
+    matmul3(H, Q, HQ);
+    transpose3(H, Ht);
+    matmul3(HQ, Ht, Qn);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float qk = (wkh[2 * i] * su0) * wkh[2 * j] + (wkh[2 * i + 1] * su1) * wkh[2 * j + 1];
+        Qn[3 * i + j] = Qn[3 * i + j] + qk;
+      }
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      A[e] = HA[e];
+      Q[e] = Qn[e];
+    }
+    const float x = pose[0] + ds * c, y = pose[1] + ds * s;
+    pose[2] = wrap_angle(pose[2] + dth);
+    pose[0] = x;
+    pose[1] = y;
+  }
+}
+
+// The frame body on a thread-block cluster (see the head of this file). K6
+// passes an empty Lane; K2 passes its compose (in shared memory, written
+// before the body's first barrier) and its replay rows.
+__device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int N = cfg.N, L = cfg.L, M = cfg.M, W = cfg.W;
+  extern __shared__ float smem[];
+  float* sig = smem;                          // [N, W] own columns
+  float* muo = sig + (long long)N * W;        // [W]
+  float* Bbuf = muo + W;                      // [2, 3, W] B / sigma_mx, own columns
+  float* KT = Bbuf + 6 * W;                   // [3, N]
+  float* Bsc = KT + 3 * N;                    // [9] the pose block (inserts)
+  float* red = Bsc + 9;                       // [2, 32] warp partials
+  int* s_slot = reinterpret_cast<int*>(red + 64);  // [M]
+  int* s_order = s_slot + M;                  // [M]
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int c0 = rank * W;
+  const int Wb = max(0, min(W, N - c0));
+  const bool lead = rank == 0;  // rank 0 keeps the bookkeeping
+  // K2 always runs the frame (its compose spent the latch); K6 skips it
+  // before the first encoder tick
+  const bool init = ln.pq != nullptr || io.init_in[0] != 0;
+
+  // ---- the working state: own columns of sigma and mu ----
+  for (int e0 = tid; e0 < N * Wb; e0 += nt * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * nt;
+      if (e < N * Wb) {
+        const int r = e / Wb, t = e - r * Wb;
+        v[u] = io.sigma_in[(long long)r * N + c0 + t];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * nt;
+      if (e < N * Wb) {
+        const int r = e / Wb, t = e - r * Wb;
+        sig[r * W + t] = v[u];
+      }
+    }
+  }
+  for (int t = tid; t < Wb; t += nt) muo[t] = io.mu_in[c0 + t];
+  if (lead) copy_bookkeeping(io, L, init);
+  lookup_and_sort(io.slot_ids_in, io.ids, io.valid, L, M, s_slot, s_order);  // ends in a barrier
+  int n_lm = io.n_lm_in[0];
+  int diverged = io.div_in[0];
+  int dropped = io.drop_in[0];
+  float x0 = io.mu_in[0], y0 = io.mu_in[1], th0 = io.mu_in[2];
+
+  if (ln.pq) {
+    // ---- the covariance predict with the frame's (A, Q); mu[0:3] <- pose
+    const float* A = ln.pq + 3;
+    const float* Q = ln.pq + 12;
+    x0 = ln.pq[0];
+    y0 = ln.pq[1];
+    th0 = ln.pq[2];
+    for (int t = tid; t < Wb; t += nt) {  // rows 0..2 of the own columns
+      const float s0 = sig[t], s1 = sig[W + t], s2 = sig[2 * W + t];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) sig[i * W + t] = A[3 * i] * s0 + A[3 * i + 1] * s1 + A[3 * i + 2] * s2;
+    }
+    __syncthreads();
+    if (lead) {  // columns 0..2 (+ Q), all in rank 0
+      for (int j = tid; j < N; j += nt) {
+        float* row = sig + j * W;
+        const float t0 = row[0], t1 = row[1], t2 = row[2];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          row[c] = t0 * A[3 * c] + t1 * A[3 * c + 1] + t2 * A[3 * c + 2] + (j < 3 ? Q[3 * j + c] : 0.0f);
+      }
+      if (tid < 3) muo[tid] = ln.pq[tid];
+    }
+    __syncthreads();
+  }
+
+  if (init) {  // else the addImage early-out (src/aruco_slam.cpp:84)
+    const float sth = sinf(th0), cth = cosf(th0);
+    const float Gl[9] = {cth, sth, 0.0f, -sth, cth, 0.0f, 0.0f, 0.0f, 1.0f};
+    int parity = 0, red_set = 0;
+
+    for (int p = 0; p < M; ++p) {
+      const int i = s_order[p];
+      if (!io.valid[i]) continue;  // uniform across the cluster
+      const Obs o = load_obs(io.z, io.R9, i, s_slot);
+      float* Bown = Bbuf + parity * 3 * W;
+      const int par = parity;
+      if (o.slot < 0 && n_lm >= L) {
+        dropped += 1;  // capacity drop
+        continue;
+      }
+      parity ^= 1;
+
+      if (o.slot >= 0) {
+        // ---- known landmark (src/aruco_slam.cpp:108-207) ----
+        const int idx = 3 + 3 * o.slot;
+        float ze[3], Gp[9];
+        known_terms(io.mu_in, o, x0, y0, th0, cth, sth, ze, Gp);
+        // phase A: B at the own columns
+        for (int t = tid; t < Wb; t += nt) {
+          const float sp0 = sig[t], sp1 = sig[W + t], sp2 = sig[2 * W + t];
+          const float sl0 = sig[idx * W + t], sl1 = sig[(idx + 1) * W + t];
+          const float sl2 = sig[(idx + 2) * W + t];
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            Bown[a * W + t] = Gp[3 * a] * sp0 + Gp[3 * a + 1] * sp1 + Gp[3 * a + 2] * sp2 +
+                              Gl[3 * a] * sl0 + Gl[3 * a + 1] * sl1 + Gl[3 * a + 2] * sl2;
+        }
+        cluster.sync();
+
+        // the whole B from its owners, into KT's place
+        for (int r = tid; r < N; r += nt) {
+          const int owner = r / W;
+          const float* pb = cluster.map_shared_rank(Bbuf + par * 3 * W, owner);
+          const int lt = r - owner * W;
+          const float b0 = pb[lt], b1 = pb[W + lt], b2 = pb[2 * W + lt];
+          KT[r] = b0;
+          KT[N + r] = b1;
+          KT[2 * N + r] = b2;
+        }
+        __syncthreads();
+        // S = B[:, 0:3] Gp^T + B[:, block] Gl^T + R (every thread)
+        float S[9], invS[9];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              acc += KT[a * N + k] * Gp[3 * c + k] + KT[a * N + idx + k] * Gl[3 * c + k];
+            S[3 * a + c] = acc + o.Rk[3 * a + c];
+          }
+        inv3(S, invS);
+        __syncthreads();  // every thread has read S's columns of B
+        // K^T = S^-1 B over all N rows, in place; ||K||^2 in one fixed order
+        float part = 0.0f;
+        for (int r = tid; r < N; r += nt) {
+          const float b0 = KT[r], b1 = KT[N + r], b2 = KT[2 * N + r];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float kt = invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2;
+            KT[a * N + r] = kt;
+            part += kt * kt;
+          }
+        }
+        const float k_norm2 = block_sum(part, red, red_set);  // also orders the KT writes
+        bool gate, div_hit;
+        decide(cfg, io.seen_in, io.last_obs_in, o, ze, k_norm2, &gate, &div_hit);
+        const bool reject = cfg.reject_divergent && div_hit;
+        if (!gate && !reject) {
+          for (int t = tid; t < Wb; t += nt) {
+            const float b0 = Bown[t], b1 = Bown[W + t], b2 = Bown[2 * W + t];
+            float dm = 0.0f;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+              dm += ze[a] * (invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2);
+            muo[t] = muo[t] + dm;
+          }
+          // sigma <- sigma - K B on the own columns
+          if (Wb > 0) {
+            const int dr = nt / Wb, dt = nt - dr * Wb;
+            int r = tid / Wb, t = tid - r * Wb;
+            while (r < N) {
+              float* q = sig + r * W + t;
+              float v = *q;
+              v = v - KT[r] * Bown[t];
+              v = v - KT[N + r] * Bown[W + t];
+              v = v - KT[2 * N + r] * Bown[2 * W + t];
+              *q = v;
+              t += dt;
+              r += dr;
+              if (t >= Wb) {
+                t -= Wb;
+                r += 1;
+              }
+            }
+          }
+        }
+        if (lead && tid == 0) {
+          // last_obs entry: z, or zeros on a stationary-gate hit (quirk (c))
+#pragma unroll
+          for (int a = 0; a < 3; ++a) io.last_obs_out[3 * o.slot + a] = gate ? 0.0f : o.zz[a];
+          io.seen_out[o.slot] = 1;
+        }
+        diverged += div_hit ? 1 : 0;
+      } else {
+        // ---- new landmark (src/aruco_slam.cpp:208-260) ----
+        const int idx = 3 + 3 * n_lm;
+        float map_r[3], Gsk[9], GG[9];
+        insert_terms(o, x0, y0, th0, cth, sth, Gl, map_r, Gsk, GG);
+        // phase A: sigma_mx = -(Gmi Gsk) sigma[0:3, :] at the own columns
+        for (int t = tid; t < Wb; t += nt) {
+          const float sp0 = sig[t], sp1 = sig[W + t], sp2 = sig[2 * W + t];
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+            Bown[r * W + t] = -(GG[3 * r] * sp0 + GG[3 * r + 1] * sp1 + GG[3 * r + 2] * sp2);
+        }
+        cluster.sync();
+
+        // the pose block, rank 0's (this insert does not write it)
+        if (tid < 9) {
+          const float* s0 = cluster.map_shared_rank(sig, 0);
+          Bsc[tid] = s0[(tid / 3) * W + tid % 3];
+        }
+        __syncthreads();
+        float smm[9];
+        insert_smm(Bsc, Gsk, Gl, o.Rk, smm);
+        // rows idx..idx+2 of the own columns += sigma_mx
+        for (int e = tid; e < 3 * Wb; e += nt) {
+          const int r = e / Wb, t = e - r * Wb;
+          sig[(idx + r) * W + t] += Bown[r * W + t];
+        }
+        __syncthreads();
+        // the owner of columns idx..idx+2: += sigma_mx^T down them (from
+        // the peers), and sigma_mm on the new 3x3 block
+        for (int c = 0; c < 3; ++c) {
+          const int col = idx + c;
+          if (col < c0 || col >= c0 + Wb) continue;  // uniform in the CTA
+          for (int j = tid; j < N; j += nt) {
+            const int owner = j / W;
+            const float* pb = cluster.map_shared_rank(Bbuf + par * 3 * W, owner);
+            float* q = sig + j * W + (col - c0);
+            float v = *q + pb[c * W + (j - owner * W)];
+            const int rb = j - idx;
+            if (rb >= 0 && rb < 3) v += smm[3 * rb + c];
+            *q = v;
+          }
+          if (tid == 0) muo[col - c0] = muo[col - c0] + map_r[c];
+        }
+        if (lead && tid == 0) {
+          io.slot_ids_out[n_lm] = io.ids[o.i];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) io.last_obs_out[3 * n_lm + a] = 0.0f;
+          io.seen_out[n_lm] = 1;
+        }
+        n_lm += 1;
+      }
+      __syncthreads();
+    }
+  }
+
+  // ---- the result. Symmetrized, each CTA writes whole rows: row j of its
+  // own columns' indices, 0.5 (sigma[j, r] + sigma[r, j]), the first term
+  // from the owner of column r (contiguous in its shared memory), the
+  // second from its own column j. Otherwise its own columns as they are.
+  cluster.sync();  // every CTA's last update is done
+  if (init && cfg.symmetrize) {
+    for (int e0 = tid; e0 < Wb * N; e0 += nt * kBatch) {
+      float tr[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + u * nt;
+        if (e < Wb * N) {
+          const int t = e / N, r = e - t * N, owner = r / W;
+          tr[u] = cluster.map_shared_rank(sig, owner)[(c0 + t) * W + (r - owner * W)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + u * nt;
+        if (e < Wb * N) {
+          const int t = e / N, r = e - t * N;
+          io.sigma[(long long)(c0 + t) * N + r] = 0.5f * (tr[u] + sig[r * W + t]);
+        }
+      }
+    }
+  } else {
+    for (int e = tid; e < N * Wb; e += nt) {
+      const int r = e / Wb, t = e - r * Wb;
+      io.sigma[(long long)r * N + c0 + t] = sig[r * W + t];
+    }
+  }
+  for (int t = tid; t < Wb; t += nt) io.mu[c0 + t] = muo[t];
+  if (lead && tid == 0) {
+    io.n_lm_out[0] = n_lm;
+    io.div_out[0] = diverged;
+    io.drop_out[0] = dropped;
+    if (ln.init_out) ln.init_out[0] = 1;
+  }
+  if (lead && ln.traj) {
+    __syncthreads();  // rank 0's writes of sigma[0:3, 0:3] are visible to it
+    if (tid < 9) ln.cov[tid] = io.sigma[(tid / 3) * N + tid % 3];
+    if (tid < 3) ln.traj[tid] = muo[tid];
+    if (tid == 0) ln.nlm[0] = n_lm;
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its shared memory
+}
+
+}  // namespace ekf

@@ -1,4 +1,5 @@
-// K1: the PnP front-end, one thread per (sequence, marker-slot) lane.
+// K1: the PnP front-end, a group of 8 threads per (sequence, marker-slot)
+// lane: one thread per (start, corner) pair.
 //
 // Replaces the Pallas kernel aruco_slam_tpu/ops/kernels/pnp_frontend.py
 // (_pnp_kernel, launched by pnp_frontend_batch). Per lane: pixel corners ->
@@ -6,24 +7,31 @@
 // Zhang init and the planar-flip second start -> Gauss-Newton (settle on
 // both starts, the lower residual finishes; unrolled 6x6 Cholesky) ->
 // robot-frame observation (x, y, heading) -> diagonal covariance from the
-// mean-squared reprojection error -> range and covariance-norm gates.
+// mean-squared reprojection error -> range and covariance-norm gates. A
+// padded slot (valid = 0) exits at once with keep = 0, z = 0 and R = I.
 //
-// What bounds it on Hopper: registers and the FP32 pipe. A lane reads 32
-// bytes and writes 52; everything else is straight-line float math held in
-// registers (the 8x6 Jacobian is never stored: J^T J and J^T r accumulate
-// row by row). One thread per lane keeps it register-resident; the design
-// spends nothing on shared memory or synchronisation. __launch_bounds__(128)
-// caps the block so the compiler may use up to 255 registers per thread
-// without a launch failure. ptxas's register and spill count is printed by
-// the build (ops/kernels/_build.py passes -Xptxas -v).
+// What bounds it on Hopper: the latency of a dependent chain of about 10k
+// float operations per lane, not bytes (a lane reads 33 bytes and writes
+// 49). One thread per lane gave the main path's 4,096 lanes 32 blocks of
+// 128 threads: about 100 of the 132 SMs idle and one warp per scheduler,
+// with nothing to hide the chain's latency. Here the 8 threads of a lane
+// (four lanes a warp, 32,768 threads in all) split the work: thread (s, k)
+// undistorts corner k, forms corner k's residual, Jacobian rows and share
+// of J^T J and J^T r in Gauss-Newton start s; the four corners' shares meet
+// by warp shuffles (a fixed tree, so the four threads hold the same bits),
+// and each thread then solves the 6x6 system itself. The two starts settle
+// side by side and pick the winner with one shuffle; both halves then run
+// the finish on it. The homography and Zhang init, a few hundred
+// operations, are computed by all 8 threads alike.
 //
 // Unlike Mosaic, CUDA has atan2f, so the heading is finished here and the
 // full 3x3 covariance is written; nothing is completed outside.
 //
-// Garbage corners (padding slots) flow through as inf/NaN and must end as
-// keep = 0: every gate is a <= comparison, false for NaN, and the
-// Cholesky floor uses nan_max (fmaxf would drop a NaN and could let a
-// garbage lane through). Built without fast-math for the same reason.
+// Garbage corners (padding slots marked valid) flow through as inf/NaN and
+// must end as keep = 0: every gate is a <= comparison, false for NaN, and
+// the Cholesky floor uses nan_max (fmaxf would drop a NaN and could let a
+// garbage lane through); a NaN in one corner reaches the whole lane through
+// the shuffled sums. Built without fast-math for the same reason.
 
 #include <cuda_runtime.h>
 
@@ -93,33 +101,6 @@ __device__ void rodrigues(float w0, float w1, float w2, float* R) {
   }
 }
 
-// Normalized reprojection residuals r[8] and camera points pc[12] of the
-// four object corners (ox, oy, 0) under pose (R, t).
-__device__ __forceinline__ void residual(const float* R, const float* t,
-                                         const float* ox, const float* oy,
-                                         const float* xn, const float* yn,
-                                         float* r, float* pc) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float px = R[0] * ox[k] + R[1] * oy[k] + t[0];
-    const float py = R[3] * ox[k] + R[4] * oy[k] + t[1];
-    const float pz = R[6] * ox[k] + R[7] * oy[k] + t[2];
-    const float inv_z = 1.0f / pz;
-    r[2 * k] = px * inv_z - xn[k];
-    r[2 * k + 1] = py * inv_z - yn[k];
-    pc[3 * k] = px;
-    pc[3 * k + 1] = py;
-    pc[3 * k + 2] = pz;
-  }
-}
-
-__device__ __forceinline__ float sumsq8(const float* r) {
-  float s = 0.0f;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) s += r[m] * r[m];
-  return s;
-}
-
 // Solve the 6x6 SPD system A x = b by unrolled Cholesky (linalg.solve_spd).
 // A holds the lower triangle row-major: A[i][j] at A[i * 6 + j], j <= i.
 __device__ __forceinline__ void solve_spd6(const float* A, const float* b, float* x) {
@@ -151,13 +132,34 @@ __device__ __forceinline__ void solve_spd6(const float* A, const float* b, float
   }
 }
 
-// Gauss-Newton with the residual and camera points of the current iterate
-// carried (pnp._gauss_newton_refine): the rotation steps as
-// R <- R exp(skew(-d[0:3])), a step is kept only if it lowers sum r^2.
-// Returns the final sum r^2.
-__device__ float gn_refine(float* R, float* t, float* r, float* pc,
-                           const float* ox, const float* oy,
-                           const float* xn, const float* yn, int iters) {
+
+// The sum over the 4 corner threads of one start (lanes xor 1, 2), the
+// same bits in all four.
+__device__ __forceinline__ float corner_sum(float v, unsigned mask) {
+  v += __shfl_xor_sync(mask, v, 1);
+  v += __shfl_xor_sync(mask, v, 2);
+  return v;
+}
+
+// Corner (X, Y, 0) under pose (R, t): its camera point pc[3] and its
+// normalized reprojection residual (r0, r1) against (xk, yk).
+__device__ __forceinline__ void corner_residual(const float* R, const float* t, float X, float Y,
+                                                float xk, float yk, float* pc, float& r0,
+                                                float& r1) {
+  pc[0] = R[0] * X + R[1] * Y + t[0];
+  pc[1] = R[3] * X + R[4] * Y + t[1];
+  pc[2] = R[6] * X + R[7] * Y + t[2];
+  const float inv_z = 1.0f / pc[2];
+  r0 = pc[0] * inv_z - xk;
+  r1 = pc[1] * inv_z - yk;
+}
+
+// Gauss-Newton on one start, the calling thread holding corner (X, Y) and
+// its residual (pnp._gauss_newton_refine): the rotation steps as
+// R <- R exp(skew(-d[0:3])), a step is kept only if it lowers sum r^2 (ss,
+// the corners' sum). Returns the final sum r^2.
+__device__ float gn_refine(float* R, float* t, float& r0, float& r1, float* pc, float ss,
+                           float X, float Y, float xk, float yk, int iters, unsigned mask) {
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     float JtJ[36];
@@ -166,10 +168,8 @@ __device__ float gn_refine(float* R, float* t, float* r, float* pc,
     for (int a = 0; a < 36; ++a) JtJ[a] = 0.0f;
 #pragma unroll
     for (int a = 0; a < 6; ++a) Jtr[a] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float X = ox[k], Y = oy[k];
-      const float px = pc[3 * k], py = pc[3 * k + 1], pz = pc[3 * k + 2];
+    {
+      const float px = pc[0], py = pc[1], pz = pc[2];
       const float inv_z = 1.0f / pz;
       const float iz2 = inv_z * inv_z;
       // M = R @ skew(X_k), X_k = (X, Y, 0)
@@ -191,7 +191,7 @@ __device__ float gn_refine(float* R, float* t, float* r, float* pc,
         J[3] = row == 0 ? inv_z : 0.0f;
         J[4] = row == 0 ? 0.0f : inv_z;
         J[5] = dw;
-        const float rm = r[2 * k + row];
+        const float rm = row == 0 ? r0 : r1;
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
           Jtr[a] += J[a] * rm;
@@ -201,64 +201,93 @@ __device__ float gn_refine(float* R, float* t, float* r, float* pc,
       }
     }
 #pragma unroll
-    for (int a = 0; a < 6; ++a) JtJ[a * 6 + a] += 1e-9f;
+    for (int a = 0; a < 6; ++a) {
+      Jtr[a] = corner_sum(Jtr[a], mask);
+#pragma unroll
+      for (int c = 0; c <= a; ++c) JtJ[a * 6 + c] = corner_sum(JtJ[a * 6 + c], mask);
+      JtJ[a * 6 + a] += 1e-9f;
+    }
     float d[6];
     solve_spd6(JtJ, Jtr, d);
     float dR[9], R_new[9];
     rodrigues(-d[0], -d[1], -d[2], dR);
     matmul3(R, dR, R_new);
     const float t_new[3] = {t[0] - d[3], t[1] - d[4], t[2] - d[5]};
-    float r_new[8], pc_new[12];
-    residual(R_new, t_new, ox, oy, xn, yn, r_new, pc_new);
-    if (sumsq8(r_new) < sumsq8(r)) {  // NaN: keep the current iterate
+    float pc_new[3], q0, q1;
+    corner_residual(R_new, t_new, X, Y, xk, yk, pc_new, q0, q1);
+    const float ss_new = corner_sum(q0 * q0 + q1 * q1, mask);
+    if (ss_new < ss) {  // NaN: keep the current iterate; the same in the 4 threads
 #pragma unroll
       for (int e = 0; e < 9; ++e) R[e] = R_new[e];
 #pragma unroll
-      for (int e = 0; e < 3; ++e) t[e] = t_new[e];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) r[e] = r_new[e];
-#pragma unroll
-      for (int e = 0; e < 12; ++e) pc[e] = pc_new[e];
+      for (int e = 0; e < 3; ++e) {
+        t[e] = t_new[e];
+        pc[e] = pc_new[e];
+      }
+      r0 = q0;
+      r1 = q1;
+      ss = ss_new;
     }
   }
-  return sumsq8(r);
+  return ss;
 }
 
-__global__ void __launch_bounds__(128)
+constexpr int kGroup = 8;     // threads a lane: (start, corner)
+constexpr int kThreads = 128;  // 16 lanes a block
+
+__global__ void __launch_bounds__(kThreads)
 pnp_frontend_kernel(const float* __restrict__ corners,  // [L, 4, 2]
+                    const unsigned char* __restrict__ valid,  // [L]
                     float* __restrict__ z_out,          // [L, 3]
                     float* __restrict__ R_out,          // [L, 9]
                     unsigned char* __restrict__ keep_out,  // [L]
                     int lanes, Params p, int settle, int finish) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+  const int lane = (blockIdx.x * kThreads + threadIdx.x) / kGroup;
+  if (lane >= lanes) return;  // whole groups
+  const int gi = threadIdx.x % kGroup;
+  const int k = gi & 3;        // the corner
+  const int start = gi >> 2;   // 0: Zhang's start, 1: its planar flip
+  const int wl = threadIdx.x & 31;
+  const unsigned mask = 0xFFu << (wl & ~7);  // the lane's 8 threads of the warp
+  const int base = wl & ~3;   // this start's corner 0
+  if (!valid[lane]) {  // a padded slot, uniform in the group
+    if (gi == 0) {
+      z_out[lane * 3] = z_out[lane * 3 + 1] = z_out[lane * 3 + 2] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 9; ++e) R_out[lane * 9 + e] = (e % 4 == 0) ? 1.0f : 0.0f;
+      keep_out[lane] = 0;
+    }
+    return;
+  }
 
+  // undistort corner k (camera.undistort_normalized): with zero
+  // coefficients every step is the exact identity
+  const float uk = corners[lane * 8 + 2 * k];
+  const float vk = corners[lane * 8 + 2 * k + 1];
+  const float xd = (uk - p.cx) / p.fx;
+  const float yd = (vk - p.cy) / p.fy;
+  float x = xd, y = yd;
+#pragma unroll
+  for (int it = 0; it < kUndistortIters; ++it) {
+    const float r2 = x * x + y * y;
+    const float radial = 1.0f + r2 * (p.k1 + r2 * (p.k2 + r2 * p.k3));
+    const float dx = p.p1 * 2.0f * x * y + p.p2 * (r2 + 2.0f * x * x);
+    const float dy = p.p2 * 2.0f * x * y + p.p1 * (r2 + 2.0f * y * y);
+    x = (xd - dx) / radial;
+    y = (yd - dy) / radial;
+  }
   float u[4], v[4], xn[4], yn[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    u[k] = corners[lane * 8 + 2 * k];
-    v[k] = corners[lane * 8 + 2 * k + 1];
-    // undistort (camera.undistort_normalized): with zero coefficients
-    // every step is the exact identity
-    const float xd = (u[k] - p.cx) / p.fx;
-    const float yd = (v[k] - p.cy) / p.fy;
-    float x = xd, y = yd;
-#pragma unroll
-    for (int it = 0; it < kUndistortIters; ++it) {
-      const float r2 = x * x + y * y;
-      const float radial = 1.0f + r2 * (p.k1 + r2 * (p.k2 + r2 * p.k3));
-      const float dx = p.p1 * 2.0f * x * y + p.p2 * (r2 + 2.0f * x * x);
-      const float dy = p.p2 * 2.0f * x * y + p.p1 * (r2 + 2.0f * y * y);
-      x = (xd - dx) / radial;
-      y = (yd - dy) / radial;
-    }
-    xn[k] = x;
-    yn[k] = y;
+  for (int c = 0; c < 4; ++c) {
+    u[c] = __shfl_sync(mask, uk, base + c);
+    v[c] = __shfl_sync(mask, vk, base + c);
+    xn[c] = __shfl_sync(mask, x, base + c);
+    yn[c] = __shfl_sync(mask, y, base + c);
   }
   const float h = p.half;
   const float ox[4] = {-h, h, h, -h};  // TL, TR, BR, BL (aruco_slam.h:189)
   const float oy[4] = {h, h, -h, -h};
-
+  const float X = ox[k], Y = oy[k];
   // --- Heckbert unit-square homography, then H = Hu @ A_inv -------------
   const float sx = xn[0] - xn[1] + xn[2] - xn[3];
   const float sy = yn[0] - yn[1] + yn[2] - yn[3];
@@ -333,45 +362,50 @@ pnp_frontend_kernel(const float* __restrict__ corners,  // [L, 4, 2]
   for (int e = 0; e < 9; ++e) Rf[e] = ((e % 4 == 0) ? 1.0f : 0.0f) + st * K[e] + omc * KK[e];
   matmul3(Rf, R0, Rb);
 
-  // --- dual-start settle, winner finish ---------------------------------
-  float Ra[9], ta[3], r[8], pc[12];
+  // --- the two starts settle side by side; the lower residual finishes --
+  float R[9], t[3] = {t0[0], t0[1], t0[2]};
 #pragma unroll
-  for (int e = 0; e < 9; ++e) Ra[e] = R0[e];
+  for (int e = 0; e < 9; ++e) R[e] = start ? Rb[e] : R0[e];
+  float pc[3], q0, q1;
+  corner_residual(R, t, X, Y, xn[k], yn[k], pc, q0, q1);
+  float ss = corner_sum(q0 * q0 + q1 * q1, mask);
+  const float res = gn_refine(R, t, q0, q1, pc, ss, X, Y, xn[k], yn[k], settle, mask);
+  const float res_other = __shfl_xor_sync(mask, res, 4);
+  const bool pick_b = (start ? res : res_other) < (start ? res_other : res);
+  const bool mine = pick_b == (start == 1);
 #pragma unroll
-  for (int e = 0; e < 3; ++e) ta[e] = t0[e];
-  residual(Ra, ta, ox, oy, xn, yn, r, pc);
-  const float res_a = gn_refine(Ra, ta, r, pc, ox, oy, xn, yn, settle);
-  float tb[3] = {t0[0], t0[1], t0[2]};
-  residual(Rb, tb, ox, oy, xn, yn, r, pc);
-  const float res_b = gn_refine(Rb, tb, r, pc, ox, oy, xn, yn, settle);
-  float R[9], t[3];
-  const bool pick_b = res_b < res_a;
+  for (int e = 0; e < 9; ++e) {
+    const float o = __shfl_xor_sync(mask, R[e], 4);
+    R[e] = mine ? R[e] : o;
+  }
 #pragma unroll
-  for (int e = 0; e < 9; ++e) R[e] = pick_b ? Rb[e] : Ra[e];
-#pragma unroll
-  for (int e = 0; e < 3; ++e) t[e] = pick_b ? tb[e] : ta[e];
-  residual(R, t, ox, oy, xn, yn, r, pc);
-  gn_refine(R, t, r, pc, ox, oy, xn, yn, finish);
+  for (int e = 0; e < 3; ++e) {
+    const float o = __shfl_xor_sync(mask, t[e], 4);
+    t[e] = mine ? t[e] : o;
+  }
+  corner_residual(R, t, X, Y, xn[k], yn[k], pc, q0, q1);
+  ss = corner_sum(q0 * q0 + q1 * q1, mask);
+  gn_refine(R, t, q0, q1, pc, ss, X, Y, xn[k], yn[k], finish, mask);
 
   // --- observation, covariance, gates (ops.frontend) --------------------
   // mean-squared pixel error through the full distorted pinhole
   // (src/aruco_slam.cpp:460-465)
-  float rms = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float inv_z = 1.0f / pc[3 * k + 2];
-    const float x_p = pc[3 * k] * inv_z;
-    const float y_p = pc[3 * k + 1] * inv_z;
+  float e2;
+  {
+    const float inv_z = 1.0f / pc[2];
+    const float x_p = pc[0] * inv_z;
+    const float y_p = pc[1] * inv_z;
     const float r2 = x_p * x_p + y_p * y_p;
     const float radial = 1.0f + r2 * (p.k1 + r2 * (p.k2 + r2 * p.k3));
     const float xy2 = 2.0f * x_p * y_p;
     const float x_dst = x_p * radial + p.p1 * xy2 + p.p2 * (r2 + 2.0f * x_p * x_p);
     const float y_dst = y_p * radial + p.p2 * xy2 + p.p1 * (r2 + 2.0f * y_p * y_p);
-    const float du = p.fx * x_dst + p.cx - u[k];
-    const float dv = p.fy * y_dst + p.cy - v[k];
-    rms += du * du + dv * dv;
+    const float du = p.fx * x_dst + p.cx - uk;
+    const float dv = p.fy * y_dst + p.cy - vk;
+    e2 = du * du + dv * dv;
   }
-  rms *= 0.25f;
+  const float rms = corner_sum(e2, mask) * 0.25f;
+  if (gi != 0) return;
   const float ddu = u[0] - u[2], ddv = v[0] - v[2];
   const float diag_px = sqrtf(ddu * ddu + ddv * ddv);
   const float tnorm = norm3(t);
@@ -393,8 +427,8 @@ pnp_frontend_kernel(const float* __restrict__ corners,  // [L, 4, 2]
 
 }  // namespace
 
-extern "C" int pnp_frontend_launch(const float* corners, float* z, float* R9,
-                                   unsigned char* keep, int lanes,
+extern "C" int pnp_frontend_launch(const float* corners, const unsigned char* valid, float* z,
+                                   float* R9, unsigned char* keep, int lanes,
                                    float fx, float fy, float cx, float cy,
                                    float half, float thresh,
                                    float rx, float ry, float rth,
@@ -404,10 +438,10 @@ extern "C" int pnp_frontend_launch(const float* corners, float* z, float* R9,
   if (lanes <= 0) return 0;
   const Params p{fx, fy, cx, cy, half, thresh, rx, ry, rth, t2cx, t2cy,
                  k1, k2, p1, p2, k3};
-  const int threads = 128;
-  const int blocks = (lanes + threads - 1) / threads;
-  pnp_frontend_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      corners, z, R9, keep, lanes, p, settle, finish);
+  const long long threads = (long long)lanes * kGroup;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  pnp_frontend_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      corners, valid, z, R9, keep, lanes, p, settle, finish);
   return static_cast<int>(cudaGetLastError());
 }
 

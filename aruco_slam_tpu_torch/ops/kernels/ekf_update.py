@@ -32,7 +32,6 @@ import torch
 
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.kernels import _build
-from aruco_slam_tpu_torch.ops.kernels.ekf_update_batched import _check
 from aruco_slam_tpu_torch.utils.config import SlamConfig
 
 Tensor = torch.Tensor
@@ -56,6 +55,17 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _plans: dict = {}  # (device index, variant, N, CTAs) -> launch plan
 _barriers: dict = {}  # (device index, stream) -> the grid variant's barrier words
 _CFG_ARGS = [_I, _F, _I, _F, _F, _I, _P]  # the compat flags, symmetrize, stream
+
+
+def _check(name: str, t: Tensor, shape: tuple, dtype, device, contiguous: bool = True) -> None:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _lib():

@@ -1,189 +1,363 @@
-"""K2: one EKF frame step for a batch of replay lanes as one CUDA kernel
-launch (``csrc/ekf_frame_batched.cu``, one CTA per lane, the lane's sigma
-in shared memory).
+"""K2: the whole EKF frame step of B replay lanes as one CUDA launch per frame
+(``csrc/ekf_frame_batched.cu``), from the raw frame: the compose of the
+frame's encoder ticks, the slot lookup, the (slot, arrival) sort, the
+covariance predict, the sequential observation updates and the symmetrize,
+with the latch set and, in a replay, the frame's rows of the trajectory,
+pose covariance and landmark count written.
 
-Counterpart of ``aruco_slam_tpu.ops.kernels.ekf_update_batched``, batch
-major: the covariance predict with the frame's composed (A, Q), mu[0:3] <-
-pose, then the frame's observations in their sorted order through the
-sequential update (``models.ekf.apply_sorted``), then the symmetrize. The
-plain version is ``ekf.apply_predict`` + ``ekf.apply_sorted``; the wrapper
-takes it for a CPU tensor and launches the kernel, or raises, for a CUDA
-tensor.
+Counterpart of ``aruco_slam_tpu.ops.kernels.ekf_update_batched`` together
+with the glue that ``aruco_slam_tpu.runner._replay_batch_kernel`` runs
+around it every frame. Three variants, chosen by the state's size alone
+(:func:`variant`), so that no ``max_landmarks`` is refused:
+
+- ``"smem"``: one CTA per lane, its sigma in shared memory (max_landmarks
+  up to :data:`MAX_SMEM_LANDMARKS`);
+- ``"cluster"``: K6's 16-CTA cluster body, one cluster per lane (up to
+  :data:`MAX_CLUSTER_LANDMARKS`);
+- ``"device"``: one CTA per lane, its sigma in device memory (any larger
+  state).
+
+The plain version is :func:`frame_step_reference`: the torch glue
+(:func:`frame_step_inputs`), ``ekf.apply_predict`` and ``ekf.apply_sorted``.
+The wrapper takes it for a CPU tensor and launches the kernel, or raises,
+for a CUDA tensor; a refused launch raises ``RuntimeError`` and nothing
+retries on another variant. Per call the wrapper makes one device launch
+and no other device work: the launch plans are cached per device and size,
+and the outputs are the caller's buffers or views of one allocation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import operator
+from typing import NamedTuple, Optional
 
 import torch
 
 from aruco_slam_tpu_torch.models import ekf
-from aruco_slam_tpu_torch.ops.kernels import _build
+from aruco_slam_tpu_torch.ops.kernels import _build, ekf_update
 from aruco_slam_tpu_torch.utils.config import SlamConfig
 
 Tensor = torch.Tensor
 
-# Kernel launches since import (or since a caller reset it to 0).
-LAUNCHES = 0
+VARIANTS = ("smem", "cluster", "device")
+# Kernel launches by variant since import (or since a caller reset them).
+LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
-# A block's shared memory on Hopper: 227 KB (232,448 bytes).
+# A block's shared memory on Hopper: 227 KB (232,448 bytes); the
+# observations per frame that the variants' shared memory is planned for;
+# the warps whose Gram partials the smem and device variants keep.
 MAX_SHARED_BYTES = 232_448
+MAX_OBS = 256
+_MAX_WARPS = 32
 
 _P = ctypes.c_void_p
-_F = ctypes.c_float
 _I = ctypes.c_int
 
+_plans: dict = {}  # (device index, variant, N, M) -> (shared bytes, CTAs a lane)
+_stream = ekf_update._stream
 
-def shared_bytes(n_dim: int, max_lm: int) -> int:
-    """Shared memory the kernel takes for one lane: sigma N^2 plus
-    mu/mu0/B/K^T (8N), a 33-word reduction scratch, last_obs twice (6L),
-    slot ids and two seen masks (3L) and three counters — the layout in
-    ``csrc/ekf_frame_batched.cu`` (smem_words)."""
-    return 4 * (n_dim * n_dim + 8 * n_dim + 33 + 9 * max_lm + 3)
+
+class Rows(NamedTuple):
+    """A replay's per-frame outputs, which the step writes at frame ``f``."""
+
+    trajectory: Tensor  # [B, F, 3] float32
+    pose_cov: Tensor  # [B, F, 3, 3] float32
+    n_landmarks: Tensor  # [B, F] int32
+    f: int
+
+
+def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_OBS) -> int:
+    """Shared bytes per CTA of a variant (csrc: ``lane_words``,
+    ``batched_cluster_words``). The smem and device variants: sigma (smem
+    only), mu and mu0, the double-buffered B, the Gram partials, pose / A /
+    Q, the frozen last_obs and seen, the slots and the order. The cluster
+    variant: K6's layout over 16 CTAs, then pose / A / Q."""
+    if kind == "cluster":
+        w = -(-n_dim // ekf_update.MAX_CLUSTER)
+        return 4 * (n_dim * w + 7 * w + 3 * n_dim + 73 + 2 * n_obs + 21)
+    words = (8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm + 2 * n_obs + (max_lm + 3) // 4)
+    if kind == "smem":
+        words += n_dim * n_dim
+    return 4 * words
+
+
+def variant(n_dim: int) -> tuple[str, int]:
+    """The variant for an ``n_dim`` state, by its size alone, and its CTAs
+    per lane: ``("smem", 1)`` where a lane's sigma fits one CTA's shared
+    memory, else ``("cluster", 16)`` where it fits a cluster's, else
+    ``("device", 1)``."""
+    max_lm = (n_dim - 3) // 3
+    if shared_bytes("smem", n_dim, max_lm) <= MAX_SHARED_BYTES:
+        return "smem", 1
+    if shared_bytes("cluster", n_dim, max_lm) <= MAX_SHARED_BYTES:
+        return "cluster", ekf_update.MAX_CLUSTER
+    return "device", 1
+
+
+# The largest maps of the two shared-memory variants (N = 3 + 3 * max_landmarks).
+MAX_SMEM_LANDMARKS = max(lm for lm in range(1, 1024) if variant(3 + 3 * lm)[0] == "smem")
+MAX_CLUSTER_LANDMARKS = max(lm for lm in range(1, 1024) if variant(3 + 3 * lm)[0] != "device")
 
 
 def _lib():
     lib = _build.load("ekf_frame_batched")
-    if lib.ekf_frame_launch.argtypes is None:
-        lib.ekf_frame_launch.argtypes = (
-            [_P] * 24 + [_I] * 4 + [_I, _F, _I, _F, _F, _I, _P]
-        )
-        lib.ekf_frame_launch.restype = _I
-        lib.ekf_frame_smem_bytes.argtypes = [_I, _I]
-        lib.ekf_frame_smem_bytes.restype = ctypes.c_longlong
-        lib.ekf_frame_error_string.argtypes = [_I]
-        lib.ekf_frame_error_string.restype = ctypes.c_char_p
+    if lib.ekf_frame_batched_launch.argtypes is None:
+        lib.ekf_frame_batched_launch.argtypes = [_I, _P, _P, _P, _P, _I, _P]
+        lib.ekf_frame_batched_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 2
+        lib.ekf_frame_batched_smem_bytes.argtypes = [_I] * 5
+        lib.ekf_frame_batched_smem_bytes.restype = ctypes.c_longlong
+        lib.ekf_frame_batched_launch.restype = _I
+        lib.ekf_frame_batched_plan.restype = _I
+        lib.ekf_frame_batched_error_string.argtypes = [_I]
+        lib.ekf_frame_batched_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name: str, t: Tensor, shape: tuple, dtype, device) -> None:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_STATE = ("mu", "sigma", "slot_ids", "n_landmarks", "last_obs", "seen_prev", "initialized",
+          "diverged", "dropped")
+_ROWS = ("rows.trajectory", "rows.pose_cov", "rows.n_landmarks")
+_shape, _dtype, _device = (operator.attrgetter(a) for a in ("shape", "dtype", "device"))
+_expected: dict = {}  # (B, L, M, T, F, out given) -> (names, shapes, dtypes, contiguous)
 
 
-def _check_inputs(state, pose, A, Q, ids, z, R9, valid, slots, config) -> None:
-    f32, i32 = torch.float32, torch.int32
-    B, N = state.mu.shape
+def _expect(B, L, M, T, F, with_out):
+    """The (names, shapes, dtypes, contiguous) that the tensors of a call
+    must have, in the order :func:`_check_inputs` lists them."""
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    N = 3 + 3 * L
+    state = ((B, N), (B, N, N), (B, L), (B,), (B, L, 3), (B, L), (B,), (B,), (B,))
+    state_t = (f32, f32, i32, i32, f32, b8, b8, i32, i32)
+    names = _STATE + ("ids", "z", "R", "valid", "wl", "wr", "dt")
+    shapes = state + ((B, M), (B, M, 3), (B, M, 3, 3), (B, M), (B, T), (B, T), (B, T))
+    dtypes = state_t + (i32, f32, f32, b8, f32, f32, f32)
+    contiguous = (True,) * 13 + (False,) * 3  # the ticks may be strided views
+    if with_out:
+        names += tuple(f"out.{n}" for n in _STATE)
+        shapes, dtypes, contiguous = shapes + state, dtypes + state_t, contiguous + (True,) * 9
+    if F >= 0:
+        names += _ROWS
+        shapes += ((B, F, 3), (B, F, 3, 3), (B, F))
+        dtypes, contiguous = dtypes + (f32, f32, i32), contiguous + (True,) * 3
+    return names, [torch.Size(x) for x in shapes], list(dtypes), contiguous
+
+
+def _check_inputs(state, frame, controls, config, out, rows) -> None:
+    """Every tensor's shape, type, device and layout, in one pass of C-level
+    maps against the expectations cached per size; the first failing
+    tensor is named only when one fails."""
+    mu = state.mu
+    if mu.dim() != 2:
+        raise ValueError(f"mu must be [B, N], got {list(mu.shape)}")
+    B, N = mu.shape
     L = config.ekf.max_landmarks
-    M = ids.shape[1] if ids.dim() == 2 else -1
     if N != 3 + 3 * L:
         raise ValueError(f"mu is [B, {N}], config max_landmarks {L} needs N = {3 + 3 * L}")
-    dev = state.mu.device
-    for name, t, shape, dtype in (
-        ("mu", state.mu, (B, N), f32),
-        ("sigma", state.sigma, (B, N, N), f32),
-        ("slot_ids", state.slot_ids, (B, L), i32),
-        ("n_landmarks", state.n_landmarks, (B,), i32),
-        ("last_obs", state.last_obs, (B, L, 3), f32),
-        ("seen_prev", state.seen_prev, (B, L), torch.bool),
-        ("diverged", state.diverged, (B,), i32),
-        ("dropped", state.dropped, (B,), i32),
-        ("pose", pose, (B, 3), f32),
-        ("A", A, (B, 9), f32),
-        ("Q", Q, (B, 9), f32),
-        ("ids", ids, (B, M), i32),
-        ("z", z, (B, M, 3), f32),
-        ("R9", R9, (B, M, 9), f32),
-        ("valid", valid, (B, M), torch.bool),
-        ("slots", slots, (B, M), i32),
-    ):
-        _check(name, t, shape, dtype, dev)
+    if frame.ids.dim() != 2 or controls.dt.dim() != 2:
+        raise ValueError(f"ids must be [B, M] and the ticks [B, T], got "
+                         f"{list(frame.ids.shape)} and {list(controls.dt.shape)}")
+    M, T = frame.ids.shape[1], controls.dt.shape[1]
+    if M > MAX_OBS:
+        raise ValueError(f"frame_step_batched takes at most {MAX_OBS} observations per frame, "
+                         f"got {M}")
+    ts = (*state, *frame, *controls)
+    F = -1
+    if out is not None:
+        ts += tuple(out)
+    if rows is not None:
+        F = rows.trajectory.shape[1] if rows.trajectory.dim() == 3 else 0
+        if not 0 <= rows.f < F:
+            raise ValueError(f"row {rows.f} is outside the replay's {F} frames")
+        ts += rows[:3]
+    key = (B, L, M, T, F, out is not None)
+    names, shapes, dtypes, contiguous = _expected.get(key) or _expected.setdefault(
+        key, _expect(*key))
+    if not (list(map(_shape, ts)) == shapes and list(map(_dtype, ts)) == dtypes
+            and set(map(_device, ts)) == {mu.device}
+            and all(map(torch.Tensor.is_contiguous, itertools.compress(ts, contiguous)))):
+        for name, t, shape, dtype, contig in zip(names, ts, shapes, dtypes, contiguous):
+            ekf_update._check(name, t, tuple(shape), dtype, mu.device, contig)
+    # The kernel reads the state while it writes out (the cluster variant's
+    # rank 0 writes slot_ids before its peers have read them).
+    if out is not None and {t.untyped_storage().data_ptr() for t in state} & {
+            t.untyped_storage().data_ptr() for t in out}:
+        raise ValueError("out must not share memory with the input state")
 
 
-def frame_step_reference(state, pose, A, Q, ids, z, R9, valid, slots, config):
-    """The plain version: the batched covariance predict, then the masked
-    sequential update over the sorted observations, in torch ops."""
+def frame_step_inputs(state: ekf.EkfState, frame: ekf.FrameObservations,
+                      controls: ekf.Control, config: SlamConfig):
+    """The plain version's glue: compose the frame's encoder ticks, look up
+    each observation's frame-start slot, sort, and sanitise. Returns
+    (pose, A, Q, ids, z, R9, valid, slots), the sorted frame in the layout
+    of the JAX kernel's arguments."""
+    B, M = frame.ids.shape
+    pose, A, Q = ekf.predict_compose(
+        state.mu[:, :3], state.initialized, controls, config
+    )
+    obs, slots = ekf.sort_observations(frame, ekf.lookup_slots(state.slot_ids, frame.ids))
+    # Sanitize invalid slots: the update skips them, but a NaN from PnP on
+    # padded corners must not reach any arithmetic.
+    ok = obs.valid[..., None]
+    eye9 = torch.eye(3, dtype=state.mu.dtype, device=state.mu.device).reshape(9)
+    z = torch.where(ok, obs.z, 0.0).to(state.mu.dtype)
+    R9 = torch.where(ok, obs.R.reshape(B, M, 9), eye9).to(state.mu.dtype)
+    return (pose.contiguous(), A.reshape(B, 9).contiguous(), Q.reshape(B, 9), obs.ids, z, R9,
+            obs.valid, slots)
+
+
+def _deliver(new: ekf.EkfState, out: Optional[ekf.EkfState], rows: Optional[Rows]):
+    if rows is not None:
+        rows.trajectory[:, rows.f] = new.mu[:, :3]
+        rows.pose_cov[:, rows.f] = new.sigma[:, :3, :3]
+        rows.n_landmarks[:, rows.f] = new.n_landmarks
+    if out is None:
+        return new
+    for o, n in zip(out, new):
+        o.copy_(n)
+    return out
+
+
+def frame_step_reference(state: ekf.EkfState, frame: ekf.FrameObservations,
+                         controls: ekf.Control, config: SlamConfig,
+                         out: Optional[ekf.EkfState] = None,
+                         rows: Optional[Rows] = None) -> ekf.EkfState:
+    """The plain version of :func:`frame_step_batched`, in torch ops: the
+    glue, the batched covariance predict with the composed (A, Q), mu[0:3]
+    <- pose, the masked sequential update over the sorted observations,
+    and the latch set."""
+    pose, A, Q, ids, z, R9, valid, slots = frame_step_inputs(state, frame, controls, config)
     B, M = ids.shape
     mu = state.mu.clone()
     mu[:, :3] = pose
     sigma = ekf.apply_predict(state.sigma, A.reshape(B, 3, 3), Q.reshape(B, 3, 3))
-    frame = ekf.FrameObservations(ids, z, R9.reshape(B, M, 3, 3), valid)
-    return ekf.apply_sorted(state._replace(mu=mu, sigma=sigma), frame, slots, config)
+    sorted_frame = ekf.FrameObservations(ids, z, R9.reshape(B, M, 3, 3), valid)
+    new = ekf.apply_sorted(state._replace(mu=mu, sigma=sigma), sorted_frame, slots, config)
+    return _deliver(new._replace(initialized=torch.ones_like(state.initialized)), out, rows)
 
 
 def frame_step_batched(
     state: ekf.EkfState,  # batch-major; sigma [B, N, N] float32
-    pose: Tensor,  # [B, 3] predicted pose mean
-    A: Tensor,  # [B, 9] composed pose Jacobian, row-major 3x3
-    Q: Tensor,  # [B, 9] composed process noise
-    ids: Tensor,  # [B, M] int32, sorted
-    z: Tensor,  # [B, M, 3] float32
-    R9: Tensor,  # [B, M, 9] float32
-    valid: Tensor,  # [B, M] bool
-    slots: Tensor,  # [B, M] int32 frame-start slots (ekf.lookup_slots), sorted
+    frame: ekf.FrameObservations,  # [B, M] in arrival order; valid is K1's keep
+    controls: ekf.Control,  # the frame's encoder ticks wl, wr, dt [B, T] (T may be 0)
     config: SlamConfig,
+    out: Optional[ekf.EkfState] = None,  # buffers for the new state (not the input's)
+    rows: Optional[Rows] = None,  # a replay's rows, written at frame rows.f
 ) -> ekf.EkfState:
-    """One EKF frame step (covariance predict + sequential observation
-    updates + symmetrize) for every lane. ``state.initialized`` passes
-    through unchanged. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
-    _check_inputs(state, pose, A, Q, ids, z, R9, valid, slots, config)
+    """One frame's EKF step for every lane from the raw frame: compose,
+    lookup, sort, predict, the sequential update, the symmetrize; the
+    latch set. Returns the new state (``out`` where given). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel."""
+    _check_inputs(state, frame, controls, config, out, rows)
+    return frame_step_prechecked(state, frame, controls, config, out, rows)
+
+
+def frame_step_prechecked(state, frame, controls, config, out=None, rows=None) -> ekf.EkfState:
+    """:func:`frame_step_batched` without its input checks, for a caller
+    whose every call has the shapes, types, devices, layout and buffers of
+    an earlier call that passed them: a replay's frames after its first
+    (the frames are slices of the same arrays, the states alternate
+    between the same two buffers, the rows stay)."""
     if state.mu.device.type == "cpu":
-        return frame_step_reference(state, pose, A, Q, ids, z, R9, valid, slots, config)
+        return frame_step_reference(state, frame, controls, config, out, rows)
     if state.mu.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.mu.device}")
-    return _launch(state, pose, A, Q, ids, z, R9, valid, slots, config)
+    return _launch(state, frame, controls, config, out, rows, variant(state.mu.shape[1]))
 
 
-def _launch(state, pose, A, Q, ids, z, R9, valid, slots, config):
-    global LAUNCHES
-    B, N = state.mu.shape
-    M = ids.shape[1]
-    L = config.ekf.max_landmarks
-    need = shared_bytes(N, L)
-    if need > MAX_SHARED_BYTES:
-        largest = max(
-            lm for lm in range(1, L)
-            if shared_bytes(3 + 3 * lm, lm) <= MAX_SHARED_BYTES
-        )
-        raise ValueError(
-            f"max_landmarks={L} needs {need} bytes of shared memory per lane; "
-            f"a Hopper block holds at most {MAX_SHARED_BYTES} (227 KB), so "
-            f"this kernel takes max_landmarks <= {largest}"
-        )
-    lib = _lib()
-    if lib.ekf_frame_smem_bytes(N, L) != need:
-        raise RuntimeError("shared_bytes() disagrees with the kernel's layout")
-    out = ekf.EkfState(
-        mu=torch.empty_like(state.mu),
-        sigma=torch.empty_like(state.sigma),
-        slot_ids=torch.empty_like(state.slot_ids),
-        n_landmarks=torch.empty_like(state.n_landmarks),
-        last_obs=torch.empty_like(state.last_obs),
-        seen_prev=torch.empty_like(state.seen_prev),
-        initialized=state.initialized,
-        diverged=torch.empty_like(state.diverged),
-        dropped=torch.empty_like(state.dropped),
-    )
-    cc = config.compat
-    dev = state.mu.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ekf_frame_launch(
-            state.mu.data_ptr(), state.sigma.data_ptr(), state.slot_ids.data_ptr(),
-            state.n_landmarks.data_ptr(), state.last_obs.data_ptr(),
-            state.seen_prev.data_ptr(), state.diverged.data_ptr(),
-            state.dropped.data_ptr(),
-            pose.data_ptr(), A.data_ptr(), Q.data_ptr(), ids.data_ptr(),
-            z.data_ptr(), R9.data_ptr(), valid.data_ptr(), slots.data_ptr(),
-            out.mu.data_ptr(), out.sigma.data_ptr(), out.slot_ids.data_ptr(),
-            out.n_landmarks.data_ptr(), out.last_obs.data_ptr(),
-            out.seen_prev.data_ptr(), out.diverged.data_ptr(),
-            out.dropped.data_ptr(),
-            B, N, L, M,
-            int(cc.stationary_gate), cc.stationary_gate_eps**2,
-            int(cc.reject_divergent), cc.divergence_ze_norm**2,
-            cc.divergence_k_norm**2, int(config.ekf.symmetrize_sigma), stream,
-        )
+def _raise_on(err: int, lib, what: str) -> None:
     if err != 0:
-        raise RuntimeError(
-            f"ekf_frame kernel launch failed: {lib.ekf_frame_error_string(err).decode()}"
+        raise RuntimeError(f"ekf_frame_batched {what} failed: "
+                           f"{lib.ekf_frame_batched_error_string(err).decode()}")
+
+
+def _plan(lib, dev_index: int, kind: str, N: int, L: int, M: int, ctas: int):
+    key = (dev_index, kind, N, M)
+    plan = _plans.get(key)
+    if plan is None:
+        smem, resident = ctypes.c_int(), ctypes.c_int()
+        err = lib.ekf_frame_batched_plan(VARIANTS.index(kind), N, L, M, ctas,
+                                         ctypes.byref(smem), ctypes.byref(resident))
+        _raise_on(err, lib, f"{kind} plan (N={N}, M={M})")
+        if smem.value != shared_bytes(kind, N, L, M):
+            raise RuntimeError("shared_bytes() disagrees with the kernel's layout")
+        if resident.value < 1:
+            raise RuntimeError(f"ekf_frame_batched: the {kind} variant with {smem.value} shared "
+                               f"bytes a CTA cannot be resident")
+        plan = _plans[key] = (smem.value, ctas)
+    return plan
+
+
+def _outputs(state: ekf.EkfState) -> ekf.EkfState:
+    """A new state as views of one float32 allocation."""
+    B, N = state.mu.shape
+    L = state.slot_ids.shape[1]
+    byte_words = (B * L + B + 3) // 4  # seen_prev, then initialized
+    words = B * (N + N * N + L + 1 + 3 * L + 2) + byte_words
+    buf = torch.empty(words, dtype=torch.float32, device=state.mu.device)
+    at = 0
+
+    def take(n):
+        nonlocal at
+        at += n
+        return buf[at - n: at]
+
+    i32, u8 = torch.int32, torch.uint8
+    mu = take(B * N).view(B, N)
+    sigma = take(B * N * N).view(B, N, N)
+    slot_ids = take(B * L).view(i32).view(B, L)
+    n_lm = take(B).view(i32)
+    last_obs = take(B * 3 * L).view(B, L, 3)
+    div = take(B).view(i32)
+    drop = take(B).view(i32)
+    flags = take(byte_words).view(u8)
+    return ekf.EkfState(
+        mu=mu, sigma=sigma, slot_ids=slot_ids, n_landmarks=n_lm, last_obs=last_obs,
+        seen_prev=flags[:B * L].view(torch.bool).view(B, L),
+        initialized=flags[B * L: B * L + B].view(torch.bool),
+        diverged=div, dropped=drop,
+    )
+
+
+def _launch(state, frame, controls, config, out, rows, choice):
+    """One launch of the variant ``choice`` (``variant``'s answer)."""
+    kind, ctas = choice
+    B, N = state.mu.shape
+    L = config.ekf.max_landmarks
+    M = frame.ids.shape[1]
+    T = controls.dt.shape[1]
+    dev = state.mu.device
+    lib = _lib()
+    with torch.cuda.device(dev):
+        plan = _plan(lib, torch.cuda.current_device(), kind, N, L, M, ctas)
+        stream = _stream(dev)
+        if out is None:
+            out = _outputs(state)
+        traj, cov, nlm = (rows.trajectory.data_ptr(), rows.pose_cov.data_ptr(),
+                          rows.n_landmarks.data_ptr()) if rows is not None else (None,) * 3
+        ptrs = (ctypes.c_void_p * 28)(
+            *(t.data_ptr() for t in state), *(t.data_ptr() for t in frame),
+            *(t.data_ptr() for t in controls),
+            out.mu.data_ptr(), out.sigma.data_ptr(), out.slot_ids.data_ptr(),
+            out.n_landmarks.data_ptr(), out.last_obs.data_ptr(), out.seen_prev.data_ptr(),
+            out.initialized.data_ptr(), out.diverged.data_ptr(), out.dropped.data_ptr(),
+            traj, cov, nlm,
         )
-    LAUNCHES += 1
+        strides = (ctypes.c_longlong * 6)(*controls.wl.stride(), *controls.wr.stride(),
+                                          *controls.dt.stride())
+        cc, od = config.compat, config.odom
+        fcfg = (ctypes.c_float * 11)(
+            cc.stationary_gate_eps**2, cc.divergence_ze_norm**2, cc.divergence_k_norm**2,
+            od.kl, od.kr, 2.0 * od.b, 1.0 / od.b, od.kl / od.b, od.kr / od.b, 0.5 * od.kl,
+            config.covariance.Q_k,
+        )
+        F, f = (rows.trajectory.shape[1], rows.f) if rows is not None else (0, 0)
+        icfg = (ctypes.c_int * 12)(
+            B, N, L, M, ctas, T, F, f, int(cc.stationary_gate), int(cc.reject_divergent),
+            int(config.ekf.symmetrize_sigma), int(cc.process_noise_uses_kl_for_both_wheels),
+        )
+        err = lib.ekf_frame_batched_launch(VARIANTS.index(kind), ptrs, strides, fcfg, icfg,
+                                           plan[0], stream)
+    _raise_on(err, lib, f"{kind} launch (N={N})")
+    LAUNCHES[kind] += 1
     return out

@@ -1,5 +1,6 @@
 """K1: the batched PnP front-end as one CUDA kernel launch
-(``csrc/pnp_frontend.cu``, one thread per (sequence, marker-slot) lane).
+(``csrc/pnp_frontend.cu``, a group of 8 threads per (sequence, marker-slot)
+lane: one per (Gauss-Newton start, corner)).
 
 Counterpart of ``aruco_slam_tpu.ops.kernels.pnp_frontend`` with the same
 contract: corners ``[B, M, 4, 2]`` and the slot mask ``[B, M]`` in, the
@@ -7,7 +8,8 @@ robot-frame observation ``z [B, M, 3]``, its diagonal covariance
 ``R [B, M, 3, 3]`` and the gate ``keep [B, M]`` out. The plain version is
 ``ops.frontend.observations_from_corners`` (square PnP in torch ops); the
 wrapper takes it for a CPU tensor and launches the kernel, or raises, for a
-CUDA tensor.
+CUDA tensor. The kernel reads ``valid`` itself: a padded slot exits at once
+with keep = 0 (and z = 0, R = I), so ``keep`` needs no masking after it.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("pnp_frontend")
     if lib.pnp_frontend_launch.argtypes is None:
-        lib.pnp_frontend_launch.argtypes = [_P, _P, _P, _P, _I] + [_F] * 16 + [_I, _I, _P]
+        lib.pnp_frontend_launch.argtypes = [_P] * 5 + [_I] + [_F] * 16 + [_I, _I, _P]
         lib.pnp_frontend_launch.restype = _I
         lib.pnp_frontend_error_string.argtypes = [_I]
         lib.pnp_frontend_error_string.restype = ctypes.c_char_p
@@ -98,7 +100,8 @@ def _launch(corners, valid, camera, config):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pnp_frontend_launch(
-            corners.data_ptr(), z.data_ptr(), R.data_ptr(), keep.data_ptr(), lanes,
+            corners.data_ptr(), valid.data_ptr(), z.data_ptr(), R.data_ptr(), keep.data_ptr(),
+            lanes,
             camera.fx, camera.fy, camera.cx, camera.cy,
             config.aruco.marker_length / 2.0, config.useful_distance_threshold,
             config.covariance.R_x, config.covariance.R_y, config.covariance.R_theta,
@@ -110,4 +113,4 @@ def _launch(corners, valid, camera, config):
             f"pnp_frontend kernel launch failed: {lib.pnp_frontend_error_string(err).decode()}"
         )
     LAUNCHES += 1
-    return z, R, keep & valid
+    return z, R, keep

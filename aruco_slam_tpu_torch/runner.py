@@ -6,13 +6,16 @@ Counterpart of ``aruco_slam_tpu.runner``. The batched path
 first pass through the batched detector (:func:`detect_frames`: K3, the
 fused threshold/close/CCL kernel, and the detector's torch stages, chunk by
 chunk), which turns them into corner data. The frame loop is then a Python
-loop over F frames with the state kept on the device; per frame:
+loop over F frames with the state kept on the device; per frame, on the
+card, two launches:
 
-1. compose the frame's encoder ticks into (pose, A, Q) (``ekf.predict_compose``);
-2. at corner level, the PnP front-end over every (lane, slot) — K1,
+1. at corner level, the PnP front-end over every (lane, slot) — K1,
    ``ops.kernels.pnp_frontend``;
-3. look up each observation's frame-start slot and sort by (slot, arrival);
-4. one EKF frame step — K2, ``ops.kernels.ekf_update_batched``.
+2. the whole EKF frame step from the raw frame — K2,
+   ``ops.kernels.ekf_update_batched``: the compose of the frame's encoder
+   ticks, the slot lookup and (slot, arrival) sort, the predict, the
+   sequential update, and the frame's rows of the outputs, which are
+   allocated once per replay. The state alternates between two buffers.
 
 The single-stream path (``replay`` / ``replay_sequence``, the JAX
 ``_replay_jit``) runs per frame the fused predict over the frame's encoder
@@ -217,6 +220,7 @@ def replay_batch(
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_batch, ekf_update_batched.frame_step_batched,
+        ekf_update_batched.frame_step_prechecked,
     )
 
 
@@ -242,12 +246,16 @@ def replay_batch_reference(
     )
 
 
-def _replay_batch(data, config, camera, level, pnp_fn, step_fn) -> ReplayResult:
+def _replay_batch(data, config, camera, level, pnp_fn, step_fn,
+                  later_step_fn=None) -> ReplayResult:
+    """The frame loop; ``later_step_fn``, where given, steps the frames
+    after the first, whose inputs and buffers ``step_fn`` has checked."""
     _check_level(level)
     if level == "corners" and camera is None:
         raise ValueError("corner-level replay needs the camera")
     B, F, _ = data.obs_ids.shape
     dtype = torch.float32
+    device = data.obs_ids.device
 
     # time-major once per replay, so each frame's slice is contiguous
     def tm(x):
@@ -260,8 +268,15 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn) -> ReplayResult:
     else:
         z_f, R_f = tm(data.obs_z), tm(data.obs_R)
 
-    state = ekf.init_state(config, B, data.obs_ids.device, dtype)
-    traj, covs, n_lm = [], [], []
+    # The outputs, written frame by frame, and two states that the frames
+    # alternate between: no frame keeps a view of an earlier state.
+    rows = dict(
+        trajectory=torch.empty(B, F, 3, dtype=dtype, device=device),
+        pose_cov=torch.empty(B, F, 3, 3, dtype=dtype, device=device),
+        n_landmarks=torch.empty(B, F, dtype=torch.int32, device=device),
+    )
+    state = ekf.init_state(config, B, device, dtype)
+    spare = ekf.init_state(config, B, device, dtype)
     for f in range(F):
         if level == "corners":
             z, R, valid = pnp_fn(corners_f[f], valid_f[f], camera, config)
@@ -269,38 +284,10 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn) -> ReplayResult:
             z, R, valid = z_f[f], R_f[f], valid_f[f]
         frame = ekf.FrameObservations(ids_f[f], z, R, valid)
         controls = ekf.Control(enc_w[f, :, :, 0], enc_w[f, :, :, 1], enc_dt[f])
-        state = step_fn(state, *frame_step_inputs(state, frame, controls, config),
-                        config=config)
-        state = state._replace(initialized=torch.ones_like(state.initialized))
-        traj.append(state.mu[:, :3])
-        covs.append(state.sigma[:, :3, :3])
-        n_lm.append(state.n_landmarks)
-    return ReplayResult(
-        trajectory=torch.stack(traj, dim=1),
-        pose_cov=torch.stack(covs, dim=1),
-        n_landmarks=torch.stack(n_lm, dim=1),
-        final_state=state,
-    )
-
-
-def frame_step_inputs(state: ekf.EkfState, frame: ekf.FrameObservations,
-                      controls: ekf.Control, config: SlamConfig):
-    """The torch glue before a frame step: compose the frame's encoder
-    ticks, look up each observation's frame-start slot, sort, and sanitise.
-    Returns the K2 arguments (pose, A, Q, ids, z, R9, valid, slots)."""
-    B, M = frame.ids.shape
-    pose, A, Q = ekf.predict_compose(
-        state.mu[:, :3], state.initialized, controls, config
-    )
-    obs, slots = ekf.sort_observations(frame, ekf.lookup_slots(state.slot_ids, frame.ids))
-    # Sanitize invalid slots: the kernel skips them, but a NaN from PnP on
-    # padded corners must not reach any arithmetic.
-    ok = obs.valid[..., None]
-    eye9 = torch.eye(3, dtype=state.mu.dtype, device=state.mu.device).reshape(9)
-    z = torch.where(ok, obs.z, 0.0).to(state.mu.dtype)
-    R9 = torch.where(ok, obs.R.reshape(B, M, 9), eye9).to(state.mu.dtype)
-    return (pose.contiguous(), A.reshape(B, 9).contiguous(), Q.reshape(B, 9), obs.ids, z, R9,
-            obs.valid, slots)
+        step = step_fn if f == 0 or later_step_fn is None else later_step_fn
+        state, spare = step(state, frame, controls, config, spare,
+                            ekf_update_batched.Rows(**rows, f=f)), state
+    return ReplayResult(**rows, final_state=state)
 
 
 def frame_update_for(config: SlamConfig, batched: bool):
@@ -334,9 +321,10 @@ def update_batched(state: ekf.EkfState, frame: ekf.FrameObservations,
     encoder ticks (A = I and Q = 0 leave sigma exactly as it was). A lane
     with no encoder tick yet keeps its state."""
     none = torch.zeros(frame.ids.shape[0], 0, dtype=state.mu.dtype, device=state.mu.device)
-    args = frame_step_inputs(state, frame, ekf.Control(none, none, none), config)
     return ekf.keep_uninitialized(
-        ekf_update_batched.frame_step_batched(state, *args, config=config), state
+        ekf_update_batched.frame_step_batched(state, frame, ekf.Control(none, none, none),
+                                              config),
+        state,
     )
 
 

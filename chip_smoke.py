@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the hand-written
 CUDA kernels from this checkout, holds each against its plain PyTorch version
 at the main paths' shapes, then drives the main paths — batched corner-level
-replay (256 lanes x 600 frames, K1 + K2), batched image-level replay (32 lanes
+replay (256 lanes x 600 frames, K1 + K2's smem variant; BASELINE config 2's
+arena at 128 and 512 landmarks, K2's cluster and device variants), batched
+image-level replay (32 lanes
 x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
 detection of rendered 1920x1080 frames (K3-K5s in their block body),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
@@ -17,18 +19,34 @@ Phases (each raises on failure; the script then exits non-zero):
      the four kernel sources (nvcc, sm_90a, all at once) and print ptxas's
      register report.
   1. K1 (PnP front-end) vs its plain version: B=256 x M=16 lanes of real
-     corners, padded and garbage slots included, on an undistorted and a
-     distorted camera. keep equal on every lane; z, R to atol 2e-5 (R rtol
-     2e-4) where kept.
-  2. K2 (EKF frame step) vs its plain version: B=256, N=99, M=16 over 20
-     consecutive frames of real inputs (and a small-capacity config where
-     landmarks drop). Integer state exact; mu, sigma to atol 5e-5 / rtol 5e-3.
+     corners, padded slots (not valid) and garbage slots (marked valid)
+     included, on an undistorted and a distorted camera. keep equal on every
+     lane; z, R to atol 2e-5 (R rtol 2e-4) where kept. Timed: the kernel
+     alone (torch.profiler over 20 launches, exactly one device event each;
+     again with the garbage slots padded), through the wrapper, and plain.
+  2. K2 (the whole EKF frame step from the raw frame) vs its plain version
+     (frame_step_inputs + the plain step) in each variant over 20
+     consecutive frames of real inputs with 10 encoder ticks a frame, one
+     frame without ticks and one lane not yet initialized: smem at B=256,
+     N=99 (and 4 slots, where landmarks drop), cluster at B=32, 128 slots,
+     device at B=4, 512 slots (K2_CASES). Integer state exact; mu, sigma
+     and the rows to atol 5e-5 / rtol 5e-3. Each variant timed as K1 is
+     (exactly one device event a call) beside its plain version and bound.
   3. the main path: runner.replay_batch over 8 synthetic sequences (seeds
      0-7, 60 s) tiled to 256 lanes, EkfConfig(max_landmarks=32,
-     max_observations_per_frame=16), the sequences' own camera. Each kernel
-     launches exactly once per frame; landmarks and slots equal the plain
+     max_observations_per_frame=16), the sequences' own camera. K1 and K2
+     launch exactly once per frame; landmarks and slots equal the plain
      path's on every lane and the trajectory is within TRAJ_TOL of it over
-     the plain run's cut depth (the first PLAIN_FRAMES frames); frames/s.
+     the plain run's cut depth (the first PLAIN_FRAMES frames); frames/s
+     (median of 3); one replay under torch.profiler: device events per
+     frame, busy share, K1 and K2 device time; peak device memory.
+  3b. the batched user with a large map: BASELINE config 2's arena
+     (benchmarks/run_all.py:77-89, 100 markers), seeds 0-7 at corner level
+     tiled to 32 lanes, EkfConfig(max_landmarks=128,
+     max_observations_per_frame=16), the first 300 frames (K2's cluster
+     variant once per frame); then 4 lanes x 100 frames at 512 slots (its
+     device variant). Each against the plain replay of the same frames:
+     landmarks and slots equal, trajectory within TRAJ_TOL; frames/s.
   4. the CCL family K3, K4, K5, K5s vs their plain versions, bit for bit,
      in both bodies: the cluster body (a frame per cluster of 8 CTAs) on 32
      rendered 640x480 frames at varied poses, 8 uniform-noise frames and 2
@@ -69,11 +87,12 @@ Phases (each raises on failure; the script then exits non-zero):
   7. the single-stream main path: runner.replay_sequence of BASELINE config
      2 (benchmarks/run_all.py config2_loop_100: the 100-marker 20 x 16 m
      arena, 210 s tour, EkfConfig(max_landmarks=128,
-     max_observations_per_frame=16), 2,100 frames at obs level) against
-     runner.replay_reference. K6 (cluster variant) launches once per frame;
-     landmarks and slots equal; trajectory within TRAJ_TOL; ATE of both;
-     frames/s (median of 3). Then fused_update=True (plain update_fused)
-     against the same reference. Then the first GRID_FRAMES frames with
+     max_observations_per_frame=16), 2,100 frames at obs level). K6
+     (cluster variant) launches once per frame; against
+     runner.replay_reference: landmarks and slots equal, trajectory within
+     TRAJ_TOL, ATE of both; frames/s of one timed replay; then
+     fused_update=True (plain update_fused) against the same reference.
+     Then the first GRID_FRAMES frames with
      max_landmarks=512 (K6's grid variant once per frame) against the plain
      replay of the same frames.
   8. the streaming SlamSystem with the default SlamConfig(): 60 frames of
@@ -86,6 +105,7 @@ The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import functools
 import json
 import statistics
@@ -113,6 +133,11 @@ IMG_CHUNK = 128
 # 1920x1080 frames per detector call on the block body's path (the frames a
 # 1080p camera's user detects in one call; 16 blocks of the 132 SMs).
 HD_CHUNK = 16
+# Phase 3b: BASELINE config 2's arena at corner level, batched: lanes and
+# frames at 128 slots (K2's cluster variant), and at 512 slots (its device
+# variant; the plain replay costs about 40 ms a frame there).
+C2_LANES, C2_FRAMES = 32, 300
+DEVICE_LANES, DEVICE_FRAMES = 4, 100
 # Frames of config 2 replayed with 512 landmark slots (K6's grid variant):
 # its plain replay costs about 60 ms a frame on the card.
 GRID_FRAMES = 200
@@ -135,6 +160,9 @@ F32_OPS_PER_S = 67e12
 # J^T J and J^T r; the 6x6 Cholesky and solves; the pose update), plus the
 # 8-step undistortion of 4 corners and the homography / Zhang start.
 K1_OPS_PER_LANE = 10_000
+# K2's compose per encoder tick: the midpoint arc (about 15), sin and cos
+# (about 20 each), H A and H Q H^T (63) and the 3x2 noise product (about 30).
+COMPOSE_OPS_PER_TICK = 150
 # The CCL family per pixel: the threshold about 5 (block sum, window mean,
 # compare), the 3x3 closing 18, and each CCL round 17 (8-neighbour min, four
 # directional run scans).
@@ -148,14 +176,19 @@ def _bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _ekf_bound(B, N, L, M, known, predict):
+def _ekf_bound(B, N, L, M, rank3_ops, ticks=None):
     """An EKF frame step's bound: sigma and mu read and written once, the
-    observations and the bookkeeping read once; 6 N^2 operations per known
-    observation's rank-3 update, and 30 N per lane for K2's predict."""
+    observations and the bookkeeping read once; ``rank3_ops`` for the known
+    observations' rank-3 updates (6 n^2 each, n the lane's active rows and
+    columns, 3 + 3 landmarks). With ``ticks`` (K2): the ticks read (12
+    bytes each), the replay's rows written (52 bytes a lane), 30 N
+    operations a lane for the predict and COMPOSE_OPS_PER_TICK a tick."""
     state = (2 * N * N + 2 * N) * 4 + 2 * L * (4 + 12 + 1)
-    obs = M * (4 + 12 + 36 + 1 + 4)
-    n_bytes = B * (state + obs + (84 if predict else 0))
-    return _bound(n_bytes, 6 * N * N * known + (30 * N * B if predict else 0))
+    obs = M * (4 + 12 + 36 + 1)
+    if ticks is None:
+        return _bound(B * (state + obs), rank3_ops)
+    return _bound(B * (state + obs + 12 * ticks + 52),
+                  rank3_ops + B * (30 * N + COMPOSE_OPS_PER_TICK * ticks))
 
 
 def _cuda_time(fn, reps):
@@ -171,6 +204,53 @@ def _cuda_time(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Seconds of idle time at each end of a profiled window, tried in turn. In
+# a long process torch.profiler (torch 2.11+cu128 on an H100) came to place
+# device events several ms before their launches and dropped those that fell
+# before the window opened: K6's check counted 7-11 of 20 launches after the
+# earlier phases. A profile that also traced host activity over a replay
+# made later profiles drop some too, so no profile here traces the host.
+PROFILE_PADS_S = (0.2, 1.0, 3.0)
+
+
+@contextlib.contextmanager
+def _profiled(pad=PROFILE_PADS_S[0]):
+    """torch.profiler around the block: device activity only, the window
+    opened ``pad`` seconds before the block and closed ``pad`` seconds after
+    its device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad)
+
+
+def _kernel_ms(call, part, reps=20):
+    """(device ms per launch of the kernels whose names hold ``part``,
+    device events per call) over ``reps`` calls under torch.profiler,
+    after a warm-up call: the kernel's own time, without the host time
+    that separates back-to-back calls. A profile that saw fewer than
+    ``reps`` device events dropped some, and runs again in a wider window."""
+    call()
+    for pad in PROFILE_PADS_S:
+        with _profiled(pad) as prof:
+            for _ in range(reps):
+                call()
+        by_name = _device_busy(prof)[1]
+        n_all = sum(c for c, _ in by_name.values())
+        if n_all >= reps:
+            break
+        print(f"(profiler: {n_all} device events of {reps} calls of {part} in a {pad} s "
+              f"window; again in a wider one)")
+    hits = [v for k, v in by_name.items() if part in k]
+    n = sum(c for c, _ in hits)
+    _require(n > 0, f"no device event of {part} in {reps} calls: {sorted(by_name)}")
+    return sum(us for _, us in hits) / n / 1e3, n_all / reps
 
 
 def _require(cond, what):
@@ -233,6 +313,9 @@ def phase1_k1(cfg, dev):
         # garbage corners marked valid in a few slots: the gates must drop them
         corners[::17, -1] = [[np.inf, 0.0], [np.nan, 1.0], [1e9, 2.0], [0.0, 0.0]]
         valid[::17, -1] = True
+        # padded slots (not valid) holding garbage: the kernel skips them
+        corners[::11, -2] = np.nan
+        valid[::11, -2] = False
         c = torch.as_tensor(corners, device=dev)
         v = torch.as_tensor(valid, device=dev)
         z, R, keep = pk.pnp_frontend_batch(c, v, cam, cfg)
@@ -240,6 +323,7 @@ def phase1_k1(cfg, dev):
         torch.cuda.synchronize()
         _require(torch.equal(keep, keepr), f"K1 keep differs on {int((keep != keepr).sum())} lanes")
         _require(not bool(keep[::17, -1].any()), "K1 kept a garbage slot")
+        _require(not bool(keep[::11, -2].any()), "K1 kept a padded slot")
         _require(int(keep.sum()) > B, "K1 kept too few real markers to mean anything")
         ez = _max_err(z, zr, keep)
         eR = _max_err(R, Rr, keep)
@@ -249,81 +333,130 @@ def phase1_k1(cfg, dev):
               f"max |dz|={ez:.3e} max |dR|={eR:.3e}")
         worst = max(worst, ez, eR)
         if timing is None:
-            ms = _cuda_time(lambda: pk.pnp_frontend_batch(c, v, cam, cfg), 50)
-            plain = _cuda_time(lambda: pk.pnp_frontend_reference(c, v, cam, cfg), 5)
-            timing = (ms, plain)
-    lanes = B * M  # corners 32 B + valid 1 B in; z 12 + R 36 + keep 1 B out
-    bound = _bound(lanes * 82, lanes * K1_OPS_PER_LANE)
-    print(f"phase 1: K1 {timing[0]:.4f} ms/launch, plain {timing[1]:.4f} ms/call, "
-          f"bound {bound[0]:.5f} ms ({bound[1]})")
+            call = lambda: pk.pnp_frontend_batch(c, v, cam, cfg)  # noqa: E731
+            ms, events = _kernel_ms(call, "pnp_frontend")
+            _require(events == 1, f"K1 made {events} device events per call, not one")
+            timing = (ms, _cuda_time(lambda: pk.pnp_frontend_reference(c, v, cam, cfg), 5),
+                      _cuda_time(call, 50))
+            n_valid = int(v.sum())
+            # the same lanes with the garbage slots padded instead: a lane's
+            # inf / NaN takes the IEEE slow paths of division and sqrt
+            v_clean = v.clone()
+            v_clean[::17, -1] = False
+            clean_ms, _ = _kernel_ms(lambda: pk.pnp_frontend_batch(c, v_clean, cam, cfg),
+                                     "pnp_frontend")
+            print(f"phase 1: K1 {clean_ms:.4f} ms/launch on the device with the garbage "
+                  f"slots padded ({int(v_clean.sum())} lanes valid)")
+    # Every lane reads valid (1 B) and writes z 12 + R 36 + keep 1 B; a
+    # valid one also reads its corners (32 B) and runs the solve. A padded
+    # slot exits at once.
+    lanes = B * M
+    bound = _bound(lanes * 50 + n_valid * 32, n_valid * K1_OPS_PER_LANE)
+    print(f"phase 1: K1 {timing[0]:.4f} ms/launch on the device ({timing[2]:.4f} ms/call "
+          f"through the wrapper), plain {timing[1]:.4f} ms/call, bound {bound[0]:.5f} ms "
+          f"({bound[1]}; {n_valid} of {lanes} lanes valid)")
     return worst, timing, bound
 
 
-def _k2_inputs(state, f, data, cfg, cam):
+def _k2_frame(f, data, cfg, cam, ticks=True):
     """Frame f's K2 arguments as the main path makes them: K1 on the
-    frame's corners, then the runner's glue."""
-    from aruco_slam_tpu_torch import runner
+    frame's corners, the frame's encoder ticks as strided views (none when
+    ``ticks`` is false)."""
     from aruco_slam_tpu_torch.models import ekf
     from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
 
     valid = data.obs_valid[:, f].contiguous()
     z, R, keep = pk.pnp_frontend_batch(data.corners_px[:, f].contiguous(), valid, cam, cfg)
     frame = ekf.FrameObservations(data.obs_ids[:, f].contiguous(), z, R, keep)
-    ew = data.enc_w[:, f]
-    controls = ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[:, f])
-    return runner.frame_step_inputs(state, frame, controls, cfg)
+    ew, edt = data.enc_w[:, f], data.enc_dt[:, f]
+    if not ticks:
+        ew, edt = ew[:, :0], edt[:, :0]
+    return frame, ekf.Control(ew[..., 0], ew[..., 1], edt)
 
 
-def phase2_k2(cfg, dev):
-    """K2 against its plain version over 20 consecutive frames; returns
-    (max err, ms, plain ms) at the main-path shapes."""
-    import dataclasses
+# K2's cases: (what, lanes, max_landmarks). Each runs 20 consecutive frames
+# of real inputs (K1 on rendered corners, 10 encoder ticks a frame) after a
+# 20-frame warm replay; frame 25 runs with no ticks (T = 0) and lane 1 is
+# not yet initialized at frame 20.
+K2_CASES = (
+    ("smem", B, 32),  # the main path's shape, N = 99
+    ("smem", B, 4),  # capacity drops
+    ("cluster", 32, 128),  # BASELINE config 2's map, N = 387
+    ("device", 4, 512),  # N = 1,539
+)
 
+
+def phase2_k2(dev):
+    """K2 in each variant against its plain version over 20 consecutive
+    frames; returns {variant: (max err, ms, plain ms, bound)} at the
+    variant's first case."""
     from aruco_slam_tpu_torch import runner
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
     from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
-    from aruco_slam_tpu_torch.utils.config import EkfConfig
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
     cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
     seqs = _sequences(cam, range(100, 132), 5.0)  # 32 distinct sequences
-    data = runner.build_batch_data(seqs, B, "corners", dev)
-    small = dataclasses.replace(cfg, ekf=EkfConfig(max_landmarks=4, max_observations_per_frame=M))
-    worst, timing = 0.0, None
-    for c in (cfg, small):
-        n_dim = 3 + 3 * c.ekf.max_landmarks
+    out_stats, dropped = {}, 0
+    for kind, lanes, L in K2_CASES:
+        c = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+        n_dim = 3 + 3 * L
+        _require(kb.variant(n_dim)[0] == kind, f"K2 at {L} landmarks: {kb.variant(n_dim)}")
+        data = runner.build_batch_data(seqs, lanes, "corners", dev)
         warm = runner.replay_batch(data._replace(**{
             k: v[:, :20] for k, v in data._asdict().items() if v is not None
         }), c, cam, "corners")
         state = warm.final_state
-        err = 0.0
-        for f in range(20, 40):
-            args = _k2_inputs(state, f, data, c, cam)
-            out = kb.frame_step_batched(state, *args, config=c)
-            ref = kb.frame_step_reference(state, *args, config=c)
+        state.initialized[1] = False
+        F = 40
+        rows = [kb.Rows(torch.zeros(lanes, F, 3, device=dev),
+                        torch.zeros(lanes, F, 3, 3, device=dev),
+                        torch.zeros(lanes, F, dtype=torch.int32, device=dev), 0) for _ in "ab"]
+        err, before = 0.0, dict(kb.LAUNCHES)
+        for f in range(20, F):
+            frame, controls = _k2_frame(f, data, c, cam, ticks=f != 25)
+            out = kb.frame_step_batched(state, frame, controls, c, rows=rows[0]._replace(f=f))
+            ref = kb.frame_step_reference(state, frame, controls, c, rows=rows[1]._replace(f=f))
             torch.cuda.synchronize()
-            for name in ("slot_ids", "n_landmarks", "seen_prev", "diverged", "dropped"):
+            for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
+                         "dropped"):
                 _require(torch.equal(getattr(out, name), getattr(ref, name)),
-                         f"K2 {name} differs at frame {f} (N={n_dim})")
+                         f"K2 ({kind}) {name} differs at frame {f} (N={n_dim})")
             for name in ("mu", "sigma", "last_obs"):
                 a, r = getattr(out, name), getattr(ref, name)
                 _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
-                         f"K2 {name} differs at frame {f} (N={n_dim}): {_max_err(a, r):.3e}")
+                         f"K2 ({kind}) {name} differs at frame {f} (N={n_dim}): "
+                         f"{_max_err(a, r):.3e}")
                 err = max(err, _max_err(a, r))
-            if timing is None and f == 39:
-                ms = _cuda_time(lambda: kb.frame_step_batched(state, *args, config=c), 50)
-                plain = _cuda_time(lambda: kb.frame_step_reference(state, *args, config=c), 5)
-                valid, slots = args[6], args[7]
-                known = int((valid & (slots >= 0)).sum())
-                timing = (ms, plain, _ekf_bound(B, n_dim, c.ekf.max_landmarks, M, known, True))
-            state = out._replace(initialized=torch.ones_like(out.initialized))
-        print(f"phase 2: K2 B={B} N={n_dim} M={M} frames 20-39: landmarks "
-              f"{int(state.n_landmarks.min())}-{int(state.n_landmarks.max())}, "
-              f"dropped {int(state.dropped.sum())}, max |err| {err:.3e}")
-        worst = max(worst, err)
-    _require(int(state.dropped.sum()) > 0, "the small-capacity run never dropped a landmark")
-    print(f"phase 2: K2 {timing[0]:.4f} ms/launch, plain {timing[1]:.4f} ms/call, "
-          f"bound {timing[2][0]:.5f} ms ({timing[2][1]})")
-    return worst, timing
+            if kind not in out_stats and f == F - 1:
+                call = lambda: kb.frame_step_batched(state, frame, controls, c)  # noqa: E731
+                ms, events = _kernel_ms(call, "ekf_frame_batched")
+                _require(events == 1, f"K2 ({kind}) made {events} device events per call, "
+                         f"not one")
+                wrap_ms = _cuda_time(call, 50)
+                plain = _cuda_time(lambda: kb.frame_step_reference(state, frame, controls, c), 5)
+                _, _, _, _, _, _, valid, slots = kb.frame_step_inputs(state, frame, controls, c)
+                known = (valid & (slots >= 0)).sum(dim=1).double()
+                active = (3 + 3 * state.n_landmarks).double()
+                rank3 = float((6 * known * active * active).sum())
+                bound = _ekf_bound(lanes, n_dim, L, M, rank3, controls.dt.shape[1])
+                out_stats[kind] = [0.0, ms, plain, bound, wrap_ms]
+                print(f"phase 2: K2 ({kind}) B={lanes} N={n_dim} M={M} T={controls.dt.shape[1]}: "
+                      f"{ms:.4f} ms/launch on the device ({wrap_ms:.4f} ms/call through the "
+                      f"wrapper), one device event a call, plain {plain:.4f} ms/call, bound "
+                      f"{bound[0]:.5f} ms ({bound[1]}; {int(known.sum())} known observations)")
+            state = out
+        _require(kb.LAUNCHES[kind] - before[kind] >= 20, f"K2 ({kind}) did not launch its variant")
+        for a, r in zip(rows[0][:3], rows[1][:3]):
+            _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3), f"K2 ({kind}) rows differ")
+        out_stats[kind][0] = max(out_stats[kind][0], err)
+        dropped += int(state.dropped.sum()) if L == 4 else 0
+        print(f"phase 2: K2 ({kind}) B={lanes} N={n_dim} frames 20-39 (frame 25 without ticks, "
+              f"lane 1 uninitialized at 20): landmarks {int(state.n_landmarks.min())}-"
+              f"{int(state.n_landmarks.max())}, dropped {int(state.dropped.sum())}, "
+              f"max |err| {err:.3e}")
+    _require(dropped > 0, "the small-capacity run never dropped a landmark")
+    return {k: tuple(v) for k, v in out_stats.items()}
 
 
 def phase3_main_path(cfg, dev):
@@ -340,14 +473,14 @@ def phase3_main_path(cfg, dev):
     _require(tuple(data.obs_ids.shape) == (B, F, M), f"data shape {tuple(data.obs_ids.shape)}")
 
     torch.cuda.synchronize()
-    pk.LAUNCHES = 0
-    kb.LAUNCHES = 0
+    _reset_counts(pk, kb)
     out = runner.replay_batch(data, cfg, cam, "corners")
     torch.cuda.synchronize()
-    launches = {"pnp_frontend": pk.LAUNCHES, "ekf_frame_batched": kb.LAUNCHES}
+    launches = _counts(pk, kb)
     print(f"phase 3: launches in one {B}x{F} replay: {launches}")
-    _require(launches == {"pnp_frontend": F, "ekf_frame_batched": F},
-             f"expected {F} launches of each kernel, got {launches}")
+    _require(launches == {"pnp_frontend": F, "ekf_frame_batched.smem": F,
+                          "ekf_frame_batched.cluster": 0, "ekf_frame_batched.device": 0},
+             f"expected {F} launches of K1 and of K2's smem variant, got {launches}")
 
     # The plain path runs the first PLAIN_FRAMES frames (its cut depth: the
     # kernel path's prefix is the same computation); so does the kernel
@@ -391,6 +524,108 @@ def phase3_main_path(cfg, dev):
           f"{', '.join(f'{t:.3f}' for t in times)} s per {B}x{F} replay); "
           f"plain path {B * PLAIN_FRAMES / plain_s:.1f} frames/s ({plain_s:.3f} s for "
           f"{B}x{PLAIN_FRAMES})")
+    _profile_replay("phase 3", lambda: runner.replay_batch(data, cfg, cam, "corners"), F)
+    return launches
+
+
+def _reset_counts(pk, kb):
+    pk.LAUNCHES = 0
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+
+
+def _counts(pk, kb):
+    return {"pnp_frontend": pk.LAUNCHES,
+            **{f"ekf_frame_batched.{k}": v for k, v in kb.LAUNCHES.items()}}
+
+
+def _profile_replay(what, replay, frames):
+    """One replay under torch.profiler: device events per frame, the
+    device-busy share of its wall time, K1's and K2's device ms per frame;
+    and the replay's peak device memory (a second, unprofiled run)."""
+    with _profiled(PROFILE_PADS_S[1]) as prof:
+        t0 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, by_name = _device_busy(prof)
+    n_dev = sum(c for c, _ in by_name.values())
+    k1 = sum(v[1] for k, v in by_name.items() if "pnp_frontend" in k) / frames / 1e3
+    k2 = sum(v[1] for k, v in by_name.items() if "ekf_frame" in k) / frames / 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    replay()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    others = sorted(((v[0], k) for k, v in by_name.items()
+                     if "pnp_frontend" not in k and "ekf_frame" not in k), reverse=True)[:4]
+    print(f"{what}: profile of one replay: {n_dev / frames:.2f} device events per frame "
+          f"(others: {others}), device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+          f"({100 * busy / 1e6 / wall:.1f}%), K1 {k1:.4f} ms and K2 {k2:.4f} ms of device time "
+          f"per frame; peak device memory {peak:.1f} MiB above the inputs")
+    return n_dev / frames
+
+
+def phase3b_config2_batched(dev):
+    """The batched user with a large map: BASELINE config 2's arena at corner
+    level through runner.replay_batch, K2's cluster variant (128 slots) and
+    its device variant (512 slots), against the plain replay."""
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
+    from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
+    from aruco_slam_tpu_torch.sim import synthetic
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    arena = synthetic.make_arena(n_markers=100, width=20.0, height=16.0)
+    seqs = [
+        synthetic.generate_sequence(
+            synthetic.SimParams(duration=210.0, profile="tour", tour_width=20.0,
+                                tour_height=16.0, tour_inset=1.6, encoder_noise=0.4,
+                                fov_deg=90.0, max_view_angle_deg=85.0, seed=s, max_obs=M),
+            marker_map=arena, level="corners",
+            camera=CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0),
+        )
+        for s in range(8)
+    ]
+    cam = seqs[0].camera()
+    full = runner.build_batch_data(seqs, C2_LANES, "corners", dev)
+    launches = {}
+    for kind, lanes, L, frames in (("cluster", C2_LANES, 128, C2_FRAMES),
+                                   ("device", DEVICE_LANES, 512, DEVICE_FRAMES)):
+        cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+        data = full._replace(**{k: v[:lanes, :frames] for k, v in full._asdict().items()
+                                if v is not None})
+        torch.cuda.synchronize()
+        _reset_counts(pk, kb)
+        res = {}
+        t = _timed(lambda: res.update(out=runner.replay_batch(data, cfg, cam, "corners")))
+        got = _counts(pk, kb)
+        want = {"pnp_frontend": frames, "ekf_frame_batched.smem": 0,
+                "ekf_frame_batched.cluster": 0, "ekf_frame_batched.device": 0,
+                f"ekf_frame_batched.{kind}": frames}
+        _require(got == want, f"{kind}: expected launches {want}, got {got}")
+        launches[kind] = got[f"ekf_frame_batched.{kind}"]
+        plain = {}
+        t_plain = _timed(lambda: plain.update(
+            ref=runner.replay_batch_reference(data, cfg, cam, "corners")))
+        out, ref = res["out"], plain["ref"]
+        _require(bool(torch.isfinite(out.trajectory).all()), f"{kind}: non-finite trajectory")
+        _require(torch.equal(out.n_landmarks, ref.n_landmarks), f"{kind}: n_landmarks differ")
+        _require(torch.equal(out.final_state.slot_ids, ref.final_state.slot_ids),
+                 f"{kind}: slot_ids differ")
+        err = _max_err(out.trajectory, ref.trajectory)
+        _require(err <= TRAJ_TOL, f"{kind}: trajectory deviates from the plain path by {err}")
+        times = [t] + [_timed(lambda: runner.replay_batch(data, cfg, cam, "corners"))
+                       for _ in range(2)]
+        print(f"phase 3b: config 2's arena, {lanes} lanes x {frames} frames, max_landmarks={L} "
+              f"(K2 {kind}): launches {got}; landmarks {int(out.n_landmarks[:, -1].min())}-"
+              f"{int(out.n_landmarks[:, -1].max())} and slots equal to the plain replay, "
+              f"trajectory max |kernel - plain| {err:.3e}; "
+              f"{lanes * frames / statistics.median(times):.1f} frames/s (median of 3: "
+              f"{', '.join(f'{x:.3f}' for x in times)} s), plain "
+              f"{lanes * frames / t_plain:.1f} frames/s ({t_plain:.3f} s)")
     return launches
 
 
@@ -641,15 +876,15 @@ def phase5_image_path(dev):
     torch.cuda.synchronize()
     for k in ccl.LAUNCHES:
         ccl.LAUNCHES[k] = 0
-    pk.LAUNCHES = 0
-    kb.LAUNCHES = 0
+    _reset_counts(pk, kb)
     out = runner.replay_batch(data, cfg, cam, "images", det_cfg, IMG_CHUNK)
     torch.cuda.synchronize()
-    launches = {**ccl.LAUNCHES, "pnp_frontend": pk.LAUNCHES, "ekf_frame_batched": kb.LAUNCHES}
+    launches = {**ccl.LAUNCHES, **_counts(pk, kb)}
     print(f"phase 5: launches in one {IMG_B}x{n_frames} image-level replay: {launches}")
     chunks = -(-total // IMG_CHUNK)
     _require(launches == {**dict.fromkeys(ccl.LAUNCHES, 0), "threshold_label_union.cluster": chunks,
-                          "pnp_frontend": n_frames, "ekf_frame_batched": n_frames},
+                          "pnp_frontend": n_frames, "ekf_frame_batched.smem": n_frames,
+                          "ekf_frame_batched.cluster": 0, "ekf_frame_batched.device": 0},
              f"expected K3 (cluster body) x {chunks}, K1 and K2 x {n_frames}; got {launches}")
 
     det = runner.detect_frames(data.images, det_cfg, IMG_CHUNK)
@@ -834,17 +1069,7 @@ def _k6_frame(state, rng, n_known=9, n_new=4):
 def _k6_timing(call):
     """(ms per call over 100 calls, the kernel alone in ms and the device
     events per call, both from torch.profiler over 20 calls) of a K6 call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    ms = _cuda_time(call, 100)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            call()
-        torch.cuda.synchronize()
-    by_name = _device_busy(prof)[1]
-    spans = [v for k, v in by_name.items() if "ekf_frame_update" in k]
-    dev_ms = spans[0][1] / spans[0][0] / 1e3 if spans else None
-    return ms, dev_ms, sum(c for c, _ in by_name.values()) / 20
+    return (_cuda_time(call, 100), *_kernel_ms(call, "ekf_frame_update"))
 
 
 def phase6_k6(dev):
@@ -903,11 +1128,11 @@ def phase6_k6(dev):
         plain = _cuda_time(lambda: k6.frame_update_reference(state, frame, cfg), 5)
         slots = ekf.lookup_slots(state.slot_ids, frame.ids)
         known = int((frame.valid & (slots >= 0)).sum())
-        bound = _ekf_bound(1, 3 + 3 * L, L, M, known, False)
+        bound = _ekf_bound(1, 3 + 3 * L, L, M, 6 * (3 + 3 * L) ** 2 * known)
         timings[L] = (kind, ms, plain, dev_ms, bound)
         print(f"phase 6: K6 max_landmarks={L} N={3 + 3 * L} {choice}: {ms:.4f} ms/call "
               f"through the wrapper, kernel alone "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler), "
+              f"{dev_ms:.4f} ms (profiler), "
               f"{events:.2f} device events per call; plain {plain:.4f} ms/call; bound "
               f"{bound[0]:.5f} ms ({bound[1]}, {known} known)")
         if L in (64, 128):  # the cluster size, timed on the same frame
@@ -916,7 +1141,7 @@ def phase6_k6(dev):
                     continue
                 t, d, _ = _k6_timing(lambda c=ctas: k6._launch(state, frame, cfg, ("cluster", c)))
                 print(f"phase 6: K6 N={3 + 3 * L} at {ctas} CTAs a cluster: {t:.4f} ms/call, "
-                      f"kernel alone {'not measured' if d is None else f'{d:.4f} ms'}")
+                      f"kernel alone {d:.4f} ms")
     _require(repeats > 0, "no stationary-gate hit in phase 6")
 
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=64, max_observations_per_frame=M))
@@ -938,8 +1163,6 @@ def phase7_single_stream(dev):
     """BASELINE config 2 through runner.replay_sequence (K6) against the
     plain replay; then the fused update against the same reference."""
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     from aruco_slam_tpu_torch import runner
     from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
@@ -988,11 +1211,9 @@ def phase7_single_stream(dev):
           f"plain| {err:.3e} (tolerance {TRAJ_TOL}); ATE K6 {ate:.6f} m, plain {ate_ref:.6f} m")
     _require(ate < 1.0, f"ATE {ate} m: the filter lost track")
 
-    times = [_timed(lambda: runner.replay(data, cfg)) for _ in range(3)]
-    fps = F / statistics.median(times)
-    print(f"phase 7: single-stream {fps:.1f} frames/s (median of 3: "
-          f"{', '.join(f'{t:.3f}' for t in times)} s per {F}-frame replay); plain "
-          f"{F / plain_s:.1f} frames/s ({plain_s:.3f} s)")
+    k6_s = _timed(lambda: runner.replay(data, cfg))
+    print(f"phase 7: single-stream {F / k6_s:.1f} frames/s (one timed {F}-frame replay: "
+          f"{k6_s:.3f} s); plain {F / plain_s:.1f} frames/s ({plain_s:.3f} s)")
 
     fused_cfg = dataclasses.replace(cfg, ekf=dataclasses.replace(cfg.ekf, fused_update=True))
     fused = {}
@@ -1004,7 +1225,7 @@ def phase7_single_stream(dev):
     head = data._replace(**{k: v[:200] for k, v in data._asdict().items() if v is not None})
     runner.replay(head, cfg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(PROFILE_PADS_S[-1]) as prof:
         t0 = time.perf_counter()
         runner.replay(head, cfg)
         torch.cuda.synchronize()
@@ -1132,9 +1353,10 @@ def main() -> int:
         return out
 
     phase(0, phase0_card)
-    k1_err, (k1_ms, k1_plain), k1_bound = phase(1, phase1_k1, cfg, dev)
-    k2_err, (k2_ms, k2_plain, k2_bound) = phase(2, phase2_k2, cfg, dev)
+    k1_err, (k1_ms, k1_plain, k1_wrap), k1_bound = phase(1, phase1_k1, cfg, dev)
+    k2_stats = phase(2, phase2_k2, dev)
     launches = phase(3, phase3_main_path, cfg, dev)
+    c2_launches = phase("3b", phase3b_config2_batched, dev)
     ccl_stats = phase(4, phase4_ccl, dev)
     img_launches = phase(5, phase5_image_path, dev)
     k6_err, k6_times = phase(6, phase6_k6, dev)
@@ -1150,12 +1372,19 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None, **extra}
 
+    # K1 and K2: ms is the device time per launch (the profiler), wrapper_ms
+    # the host-bound time per call through the wrapper
     kernels = [
         row("pnp_frontend", "pnp_frontend.cu", "pnp_frontend.py:219",
-            launches["pnp_frontend"], k1_err, k1_ms, k1_plain, k1_bound),
-        row("ekf_frame_batched", "ekf_frame_batched.cu", "ekf_update_batched.py:77",
-            launches["ekf_frame_batched"], k2_err, k2_ms, k2_plain, k2_bound),
+            launches["pnp_frontend"], k1_err, k1_ms, k1_plain, k1_bound, wrapper_ms=k1_wrap),
     ]
+    # K2's variants on their paths: smem in phase 3, cluster and device in 3b
+    k2_launches = {"smem": launches["ekf_frame_batched.smem"], **c2_launches}
+    for kind in ("smem", "cluster", "device"):
+        err, ms, plain_ms, bound, wrap_ms = k2_stats[kind]
+        kernels.append(row(f"ekf_frame_batched.{kind}", "ekf_frame_batched.cu",
+                           "ekf_update_batched.py:77", k2_launches[kind], err, ms, plain_ms,
+                           bound, wrapper_ms=wrap_ms))
     for name, line in (("threshold_label_union", 229), ("threshold_label", 217),
                        ("label_components", 200), ("label_components_seeded", 207)):
         for kind in ("cluster", "block"):
@@ -1164,12 +1393,12 @@ def main() -> int:
             kernels.append(row(key, "ccl.cu", f"ccl.py:{line}", img_launches[key], err, ms,
                                plain_ms, bound))
     # K6 at its paths' shapes: config 2 (N = 387) and 512 slots (N = 1,539);
-    # ms is the kernel alone where the profiler saw it, else the wrapper's
+    # ms is the kernel alone (the profiler), wrapper_ms the call through the wrapper
     for kind, L in (("cluster", 128), ("grid", 512)):
         _, wrap_ms, plain_ms, dev_ms, bound = k6_times[L]
         kernels.append(row(f"ekf_frame_update.{kind}", "ekf_frame_update.cu", "ekf_update.py:73",
                            k6_launches[kind], k6_err[kind],
-                           wrap_ms if dev_ms is None else dev_ms, plain_ms, bound,
+                           dev_ms, plain_ms, bound,
                            wrapper_ms=wrap_ms))
     idle = [k["name"] for k in kernels if not k["launches"]]
     _require(not idle, f"kernels the paths never launched: {idle}")

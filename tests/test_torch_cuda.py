@@ -56,13 +56,18 @@ def test_pnp_kernel_matches_plain(dev, dist):
     valid = data.obs_valid.flatten(0, 1).contiguous()
     corners[::7, -1] = float("nan")  # garbage slots, marked valid
     valid[::7, -1] = True
+    corners[::5, 0] = float("inf")  # padded slots: garbage, not valid
+    valid[::5, 0] = False
     before = pk.LAUNCHES
     z, R, keep = pk.pnp_frontend_batch(corners, valid, cam, CFG)
     zr, Rr, keepr = pk.pnp_frontend_reference(corners, valid, cam, CFG)
     torch.cuda.synchronize()
     assert pk.LAUNCHES == before + 1
     assert torch.equal(keep, keepr)
-    assert not keep[::7, -1].any()
+    assert not keep[::7, -1].any() and not keep[::5, 0].any()
+    # a padded slot exits at once with z = 0 and R = I
+    assert torch.equal(z[::5, 0], torch.zeros_like(z[::5, 0]))
+    assert torch.equal(R[::5, 0], torch.eye(3, device=dev).expand_as(R[::5, 0]))
     torch.testing.assert_close(z[keep], zr[keep], atol=2e-5, rtol=0)
     torch.testing.assert_close(R[keep], Rr[keep], atol=2e-5, rtol=2e-4)
 
@@ -76,10 +81,10 @@ def test_frame_kernel_replay_matches_plain(dev, compat):
         CFG, ekf=EkfConfig(max_landmarks=3, max_observations_per_frame=6), compat=compat
     )
     cam, data = _data(dev)
-    before = (pk.LAUNCHES, kb.LAUNCHES)
+    before = (pk.LAUNCHES, kb.LAUNCHES["smem"])
     out = runner.replay_batch(data, cfg, cam, "corners")
     frames = data.obs_ids.shape[1]
-    assert (pk.LAUNCHES, kb.LAUNCHES) == (before[0] + frames, before[1] + frames)
+    assert (pk.LAUNCHES, kb.LAUNCHES["smem"]) == (before[0] + frames, before[1] + frames)
     ref = runner.replay_batch_reference(data, cfg, cam, "corners")
     torch.cuda.synchronize()
     assert torch.equal(out.n_landmarks, ref.n_landmarks)
@@ -92,19 +97,30 @@ def test_frame_kernel_replay_matches_plain(dev, compat):
 
 
 def test_frame_kernel_refuses_oversized_state(dev):
+    """The state K2 once refused (78 landmarks, past one CTA's shared
+    memory) is refused no more: it takes the cluster variant and matches
+    the plain version."""
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=78, max_observations_per_frame=2))
     B, M = 1, 2
     state = ekf.init_state(cfg, B, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="227 KB"):
-        kb.frame_step_batched(
-            state, torch.zeros(B, 3, **f32), torch.zeros(B, 9, **f32),
-            torch.zeros(B, 9, **f32), torch.zeros(B, M, **i32),
-            torch.zeros(B, M, 3, **f32), torch.zeros(B, M, 9, **f32),
-            torch.zeros(B, M, dtype=torch.bool, device=dev),
-            torch.full((B, M), -1, **i32), cfg,
-        )
+    frame = ekf.FrameObservations(
+        torch.tensor([[7, -1]], dtype=torch.int32, device=dev),
+        torch.tensor([[[1.0, 0.5, 0.1], [0.0, 0.0, 0.0]]], **f32),
+        (0.01 * torch.eye(3, **f32)).expand(B, M, 3, 3).contiguous(),
+        torch.tensor([[True, False]], device=dev),
+    )
+    ticks = torch.zeros(B, 0, **f32)
+    controls = ekf.Control(ticks, ticks, ticks)
+    assert kb.variant(3 + 3 * 78)[0] == "cluster"
+    before = kb.LAUNCHES["cluster"]
+    out = kb.frame_step_batched(state, frame, controls, cfg)
+    ref = kb.frame_step_reference(state, frame, controls, cfg)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["cluster"] == before + 1
+    assert out.n_landmarks.tolist() == ref.n_landmarks.tolist() == [1]
+    for name in ("mu", "sigma"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5, rtol=5e-3)
 
 
 def _frames(dev, shape):
@@ -266,6 +282,60 @@ def test_frame_update_kernel_matches_plain(dev, max_lm, reject):
     torch.cuda.synchronize()
     for name in ekf.EkfState._fields[:6]:
         assert torch.equal(getattr(still, name), getattr(state, name)), name
+
+
+def _k2_case(dev, max_lm, B=3, T=10, seed=0):
+    """B lanes of ``_k6_case`` (``max_lm - 2`` landmarks, so inserts drop),
+    lane 1 not yet initialized, with T encoder ticks each (as strided views
+    of one [B, T, 2] tensor, as the replay hands them over)."""
+    lanes = [_k6_case(dev, max_lm, max_lm - 2, seed + b) for b in range(B)]
+    cfg = lanes[0][0]
+    state = ekf.EkfState(*(torch.cat(x) for x in zip(*(st for _, st, _ in lanes))))
+    state = state._replace(initialized=torch.arange(B, device=dev) != 1)
+    frame = ekf.FrameObservations(*(torch.cat(x) for x in zip(*(fr for _, _, fr in lanes))))
+    rng = np.random.default_rng(seed)
+    w = torch.as_tensor(rng.uniform(-1.0, 3.0, (B, T, 2)).astype(np.float32), device=dev)
+    dt = torch.as_tensor(rng.uniform(0.005, 0.02, (B, T)).astype(np.float32), device=dev)
+    return cfg, state, frame, ekf.Control(w[..., 0], w[..., 1], dt)
+
+
+@pytest.mark.parametrize("max_lm,kind", [(8, "smem"), (kb.MAX_SMEM_LANDMARKS, "smem"),
+                                         (100, "cluster"), (kb.MAX_CLUSTER_LANDMARKS + 1, "device")])
+@pytest.mark.parametrize("ticks", [10, 0])
+def test_frame_step_variants_match_plain(dev, max_lm, kind, ticks):
+    """K2 in each variant against its plain version on one frame of known,
+    new, gated, dropped and invalid observations, with and without encoder
+    ticks, one lane uninitialized; the replay rows it writes; exactly one
+    device event per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, state, frame, controls = _k2_case(dev, max_lm, T=ticks)
+    assert kb.variant(3 + 3 * max_lm)[0] == kind
+    B, F = state.mu.shape[0], 4
+
+    def rows():
+        return kb.Rows(torch.zeros(B, F, 3, device=dev), torch.zeros(B, F, 3, 3, device=dev),
+                       torch.zeros(B, F, dtype=torch.int32, device=dev), 2)
+
+    got_rows, ref_rows = rows(), rows()
+    before = dict(kb.LAUNCHES)
+    out = kb.frame_step_batched(state, frame, controls, cfg, rows=got_rows)
+    ref = kb.frame_step_reference(state, frame, controls, cfg, rows=ref_rows)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == {**before, kind: before[kind] + 1}
+    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged", "dropped"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert int(out.dropped.sum()) > 0 and bool(out.initialized.all())
+    for name in ("mu", "sigma", "last_obs"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5, rtol=5e-3)
+    assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
+    for a, b in zip(got_rows[:2], ref_rows[:2]):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kb.frame_step_batched(state, frame, controls, cfg)
+        torch.cuda.synchronize()
+    assert sum(e.device_type == DeviceType.CUDA for e in prof.events()) == 1
 
 
 def test_slam_system_on_the_card_matches_the_cpu(dev):

@@ -139,14 +139,13 @@ def test_predict_compose_matches_jax():
             np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-6)
 
 
-def _glue(state, f, data, cfg):
-    """Frame f's K2 arguments, as runner.replay_batch makes them."""
+def _frame(f, data):
+    """Frame f's observations and encoder ticks, as runner.replay_batch
+    hands them to K2."""
     ew = data.enc_w[:, f]
-    frame = ekf.FrameObservations(
-        data.obs_ids[:, f], data.obs_z[:, f], data.obs_R[:, f], data.obs_valid[:, f]
-    )
-    controls = ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[:, f])
-    return runner.frame_step_inputs(state, frame, controls, cfg)
+    frame = ekf.FrameObservations(*(x[:, f].contiguous() for x in (
+        data.obs_ids, data.obs_z, data.obs_R, data.obs_valid)))
+    return frame, ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[:, f])
 
 
 @pytest.mark.parametrize("reject_divergent", [False, True])
@@ -170,8 +169,9 @@ def test_frame_step_plain_matches_jax_kernel(reject_divergent):
     }), cfg)
     state = warm.final_state
     for f in range(6, 10):
-        args = _glue(state, f, data, cfg)
-        ours = ekf_update_batched.frame_step_batched(state, *args, config=cfg)
+        frame, controls = _frame(f, data)
+        ours = ekf_update_batched.frame_step_batched(state, frame, controls, cfg)
+        args = ekf_update_batched.frame_step_inputs(state, frame, controls, cfg)
         pose, A, Q, ids, z, R9, valid, slots = (a.numpy() for a in args)
         out = jkb.frame_step_batched(
             convert.batched_state_to_trailing(state), pose.T, A.T, Q.T, ids.T,
@@ -185,7 +185,8 @@ def test_frame_step_plain_matches_jax_kernel(reject_divergent):
             np.testing.assert_allclose(
                 getattr(ours, name), getattr(ref, name), atol=5e-5, rtol=5e-3, err_msg=name
             )
-        state = ours._replace(initialized=torch.ones_like(ours.initialized))
+        assert bool(ours.initialized.all())  # the step sets the latch
+        state = ours
     assert int(state.dropped.sum()) > 0  # capacity drops exercised
     if not reject_divergent:
         assert int(state.diverged.sum()) > 0  # the divergence counter fired

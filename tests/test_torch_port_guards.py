@@ -76,39 +76,54 @@ def test_build_without_nvcc_names_the_compiler(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-def _k2_args(B=2, M=3, device="cpu"):
+def _k2_args(B=2, M=3, T=2, device="cpu"):
     state = ekf.init_state(CFG, B, device)
     f32 = dict(dtype=torch.float32, device=device)
-    i32 = dict(dtype=torch.int32, device=device)
-    return dict(
-        state=state,
-        pose=torch.zeros(B, 3, **f32),
-        A=torch.eye(3, **f32).reshape(1, 9).repeat(B, 1),
-        Q=torch.zeros(B, 9, **f32),
-        ids=torch.full((B, M), -1, **i32),
-        z=torch.zeros(B, M, 3, **f32),
-        R9=torch.eye(3, **f32).reshape(1, 1, 9).repeat(B, M, 1),
-        valid=torch.zeros(B, M, dtype=torch.bool, device=device),
-        slots=torch.full((B, M), -1, **i32),
-        config=CFG,
+    frame = ekf.FrameObservations(
+        torch.full((B, M), -1, dtype=torch.int32, device=device), torch.zeros(B, M, 3, **f32),
+        torch.eye(3, **f32).repeat(B, M, 1, 1), torch.zeros(B, M, dtype=torch.bool, device=device),
     )
+    ticks = torch.ones(B, T, 3, **f32)  # wl, wr, dt as strided views of one tensor
+    controls = ekf.Control(ticks[..., 0], ticks[..., 1], 0.01 * ticks[..., 2])
+    return dict(state=state, frame=frame, controls=controls, config=CFG)
 
 
 def test_frame_step_rejects_bad_inputs():
     ok = _k2_args()
     out = ekf_update_batched.frame_step_batched(**ok)
-    assert out.n_landmarks.tolist() == [0, 0]
-    with pytest.raises(TypeError, match="slots"):
-        ekf_update_batched.frame_step_batched(**{**ok, "slots": ok["slots"].long()})
-    sig = ok["state"].sigma
+    assert out.n_landmarks.tolist() == [0, 0] and out.initialized.tolist() == [True, True]
+    frame, state = ok["frame"], ok["state"]
+    with pytest.raises(TypeError, match="ids"):
+        ekf_update_batched.frame_step_batched(**{**ok, "frame": frame._replace(ids=frame.ids.long())})
+    sig = state.sigma
     strided = sig.transpose(1, 2)  # same shape (square), not contiguous
     assert strided.shape == sig.shape and not strided.is_contiguous()
     with pytest.raises(ValueError, match="sigma"):
-        ekf_update_batched.frame_step_batched(
-            **{**ok, "state": ok["state"]._replace(sigma=strided)}
-        )
+        ekf_update_batched.frame_step_batched(**{**ok, "state": state._replace(sigma=strided)})
     with pytest.raises(ValueError, match="z must be"):
-        ekf_update_batched.frame_step_batched(**{**ok, "z": ok["z"][:, :2]})
+        ekf_update_batched.frame_step_batched(**{**ok, "frame": frame._replace(z=frame.z[:, :2])})
+    with pytest.raises(ValueError, match="wl must be"):
+        ekf_update_batched.frame_step_batched(
+            **{**ok, "controls": ok["controls"]._replace(wl=ok["controls"].wl[:, :1])})
+    with pytest.raises(ValueError, match="max_landmarks"):
+        ekf_update_batched.frame_step_batched(
+            **{**ok, "config": SlamConfig(ekf=EkfConfig(max_landmarks=5))})
+    rows = ekf_update_batched.Rows(torch.zeros(2, 4, 3), torch.zeros(2, 4, 3, 3),
+                                   torch.zeros(2, 4, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="outside"):
+        ekf_update_batched.frame_step_batched(**ok, rows=rows)
+    with pytest.raises(TypeError, match="rows.n_landmarks"):
+        ekf_update_batched.frame_step_batched(
+            **ok, rows=rows._replace(n_landmarks=rows.n_landmarks.long(), f=0))
+    with pytest.raises(ValueError, match="out.sigma"):
+        ekf_update_batched.frame_step_batched(
+            **ok, out=state._replace(sigma=torch.zeros(2, 15, 14)))
+    spare = ekf.init_state(CFG, 2, "cpu")
+    with pytest.raises(ValueError, match="share memory"):
+        ekf_update_batched.frame_step_batched(**ok, out=spare._replace(slot_ids=state.slot_ids))
+    with pytest.raises(ValueError, match="share memory"):
+        ekf_update_batched.frame_step_batched(**ok, out=state)
+    assert ekf_update_batched.frame_step_batched(**ok, out=spare) is spare
 
 
 def _k6_args(B=1, M=3, device="cpu"):
@@ -270,6 +285,44 @@ def test_refused_k6_launch_raises_and_tries_no_other_variant(monkeypatch, max_lm
     assert ekf_update.LAUNCHES == before
 
 
+class _RefusingK2:
+    """K2's library with plans that succeed and launches that are refused."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ekf_frame_batched_plan(self, variant, N, L, M, G, smem, resident):
+        kind = ekf_update_batched.VARIANTS[variant]
+        smem._obj.value = ekf_update_batched.shared_bytes(kind, N, L, M)
+        resident._obj.value = 1
+        return 0
+
+    def ekf_frame_batched_launch(self, variant, *args):
+        self.calls.append(ekf_update_batched.VARIANTS[variant])
+        return 2  # cudaErrorMemoryAllocation
+
+    def ekf_frame_batched_error_string(self, err):
+        return b"out of memory"
+
+
+@pytest.mark.parametrize("max_lm,kind", [(32, "smem"), (128, "cluster"), (400, "device")])
+def test_refused_k2_launch_raises_and_tries_no_other_variant(monkeypatch, max_lm, kind):
+    """A refused K2 launch raises in every variant: no other variant and no
+    plain version runs, and nothing is counted as launched."""
+    lib = _RefusingK2()
+    _as_if_on_the_card(monkeypatch, ekf_update_batched, lib)
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
+    args = _k2_args()
+    choice = ekf_update_batched.variant(3 + 3 * max_lm)
+    assert choice[0] == kind
+    before = dict(ekf_update_batched.LAUNCHES)
+    with pytest.raises(RuntimeError, match=f"{kind} launch.*out of memory"):
+        ekf_update_batched._launch(ekf.init_state(cfg, 2, "cpu"), args["frame"],
+                                   args["controls"], cfg, None, None, choice)
+    assert lib.calls == [kind]
+    assert ekf_update_batched.LAUNCHES == before
+
+
 @pytest.mark.parametrize("shape,kind", [((64, 256), "cluster"), ((48, 40), "block")])
 def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, kind):
     lib = _RefusingCcl()
@@ -293,12 +346,13 @@ def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, k
 
 
 def test_shared_memory_budget():
-    assert ekf_update_batched.shared_bytes(99, 32) == 43_668  # main path: N = 99
-    fits = [
-        lm for lm in range(1, 128)
-        if ekf_update_batched.shared_bytes(3 + 3 * lm, lm) <= ekf_update_batched.MAX_SHARED_BYTES
-    ]
-    assert max(fits) == 77 and 64 in fits
+    """K2's smem variant holds the main path's lane (N = 99) in 46,456
+    bytes and every map up to 77 landmarks; its cluster variant reaches as
+    far as K6's; beyond that the device variant takes every size."""
+    assert ekf_update_batched.shared_bytes("smem", 99, 32) == 46_456  # main path: N = 99
+    assert ekf_update_batched.MAX_SMEM_LANDMARKS == 77
+    assert ekf_update_batched.MAX_CLUSTER_LANDMARKS == ekf_update.MAX_CLUSTER_LANDMARKS == 308
+    assert ekf_update_batched.variant(3 + 3 * 309) == ("device", 1)
 
 
 def test_lookup_slots_never_argmaxes_bool(monkeypatch):

@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""Same-card comparison of two checkouts of the PyTorch port, for the paths
-that K6 and the CCL family serve. Host-bound rates move by up to 2x from
-one machine to the next, so two versions are compared only inside one run,
-in the order A, B, B, A (each in a fresh process that builds its own
-kernels).
+"""Same-card comparison of two checkouts of the PyTorch port on the batched
+corner-level main path (chip_smoke.py phase 3). Host-bound rates move by up
+to 2x from one machine to the next, so two versions are compared only
+inside one run, in the order A, B, B, A (each in a fresh process that
+builds its own kernels).
 
     python3 tools/port_ab.py PATH_A PATH_B
 
 Each PATH is the root of a checkout (it holds ``aruco_slam_tpu_torch/``).
-Per run it prints one JSON line of:
-  - ``c2_fps``: BASELINE config 2 (benchmarks/run_all.py config2_loop_100,
-    2,100 frames, 128 landmarks) through ``runner.replay``, frames/s,
-    median of 3 (host clock around a synchronize);
-  - ``c2_events_per_frame`` / ``c2_busy``: torch.profiler over its first
-    200 frames, device events per frame and the device-busy share of the
-    profiled call's wall time;
-  - ``k6_wrapper_ms`` / ``k6_alone_ms``: K6 at N = 387 on one frame of 9
-    known and 4 new markers in shuffled order, ms per call over 200 calls
-    and the kernel's device time (torch.profiler);
-  - ``k3_ms_128`` / ``k3_ms_16``: one K3 launch on 128 and 16 rendered
-    640x480 frames (CUDA events, mean of 20);
-  - ``detect_ms_per_frame``: ``runner.detect_frames`` over 256 rendered
-    640x480 frames at 128 frames per call.
+Per run it prints one JSON line of, for ``runner.replay_batch`` over 8
+synthetic sequences (seeds 0-7, 60 s, 16 marker slots) tiled to 256 lanes,
+600 frames at corner level, EkfConfig(max_landmarks=32,
+max_observations_per_frame=16):
+  - ``fps``: frames/s (lanes x frames over the wall time), median of 3
+    (host clock around a synchronize);
+  - ``events_per_frame`` / ``busy``: torch.profiler over one replay, device
+    events per frame and the device-busy share of its wall time;
+  - ``k1_ms`` / ``k2_ms``: the device time per launch of K1 and K2 (kernels
+    whose names hold ``pnp_frontend`` and ``ekf_frame``) in that profile;
+  - ``peak_mib``: the replay's peak device memory above its inputs;
+  - ``check_us``: K2's input checks alone (host clock, median of 5 x 2,000
+    calls) on the replay's last frame, with the 16 inputs of a call;
+  - ``check_all_us``: the same with every tensor the replay hands K2 (the
+    parent: the 16; from the frame-step redesign on: the 16, the spare
+    state and the rows, and their aliasing);
+  - ``check_per_frame_us``: what the checks cost the replay per frame (the
+    parent checks every frame; later versions check the first frame only).
 Then a table of the medians per checkout. Needs one CUDA card.
 """
 
@@ -32,19 +36,6 @@ import sys
 from pathlib import Path
 
 
-def _cuda_time(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _profile(torch, fn):
     """(device events, device-busy share of the call's wall time,
     {name: [count, us]}) of one call under torch.profiler."""
@@ -53,7 +44,10 @@ def _profile(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: tracing the host too makes later profiles in
+    # the process drop device events
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -79,108 +73,87 @@ def measure(root):
     sys.path.insert(0, str(root))
     import time
 
-    import numpy as np
     import torch
 
     from aruco_slam_tpu_torch import runner
-    from aruco_slam_tpu_torch.models import ekf
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
-    from aruco_slam_tpu_torch.ops.detector import DetectorConfig
-    from aruco_slam_tpu_torch.ops.kernels import ccl
-    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
-    from aruco_slam_tpu_torch.sim import renderer, synthetic
+    from aruco_slam_tpu_torch.sim import synthetic
     from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    out = {}
+    B, F, M = 256, 600, 16
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    seqs = [synthetic.generate_sequence(synthetic.SimParams(duration=60.0, seed=s, max_obs=M),
+                                        level="corners", camera=cam) for s in range(8)]
+    cam = seqs[0].camera()
+    data = runner.build_batch_data(seqs, B, "corners", dev)
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=32, max_observations_per_frame=M))
 
-    # BASELINE config 2, single stream
-    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=128, max_observations_per_frame=16))
-    seq = synthetic.generate_sequence(
-        synthetic.SimParams(duration=210.0, profile="tour", tour_width=20.0, tour_height=16.0,
-                            tour_inset=1.6, encoder_noise=0.4, fov_deg=90.0,
-                            max_view_angle_deg=85.0, seed=11),
-        marker_map=synthetic.make_arena(n_markers=100, width=20.0, height=16.0),
-    )
-    data = runner.replay_data_from_sequence(seq, "obs", dev)
-    runner.replay(data, cfg)  # warm
+    def replay():
+        return runner.replay_batch(data, cfg, cam, "corners")
+
+    replay()  # warm: builds the kernels
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runner.replay(data, cfg)
+        replay()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    out["c2_fps"] = seq.num_frames / statistics.median(times)
-    head = data._replace(**{k: v[:200] for k, v in data._asdict().items() if v is not None})
-    n_ev, out["c2_busy"], _ = _profile(torch, lambda: runner.replay(head, cfg))
-    out["c2_events_per_frame"] = n_ev / 200
-
-    # K6 at N = 387 on one frame: 9 known, 4 new, 3 invalid, shuffled
-    rng = np.random.default_rng(128)
-    L, n_lm, M = 128, 100, 16
-    N, na = 3 + 3 * L, 3 + 3 * n_lm
-    A = rng.normal(size=(na, na)) * 0.1
-    sigma = np.zeros((N, N), np.float32)
-    sigma[:na, :na] = A @ A.T + 0.05 * np.eye(na)
-    mu = np.zeros(N, np.float32)
-    mu[:na] = rng.normal(size=na)
-    slot_ids = np.full(L, -1, np.int32)
-    slot_ids[:n_lm] = rng.choice(100_000, n_lm, replace=False)
-
-    def t(x, dtype):
-        return torch.as_tensor(x, dtype=dtype, device=dev)[None]
-
-    state = ekf.init_state(cfg, 1, dev)._replace(
-        mu=t(mu, torch.float32), sigma=t(sigma, torch.float32),
-        slot_ids=t(slot_ids, torch.int32),
-        n_landmarks=torch.tensor([n_lm], dtype=torch.int32, device=dev),
-        last_obs=t(rng.normal(size=(L, 3)), torch.float32),
-        seen_prev=torch.ones(1, L, dtype=torch.bool, device=dev),
-        initialized=torch.ones(1, dtype=torch.bool, device=dev))
-    ids = np.full(M, -1, np.int32)
-    ids[:13] = np.concatenate([slot_ids[rng.choice(n_lm, 9, replace=False)],
-                               200_000 + rng.choice(100_000, 4, replace=False)])
-    z = (rng.normal(size=(M, 3)) * 0.5).astype(np.float32)
-    Bn = (rng.normal(size=(M, 3, 3)) * 0.05).astype(np.float32)
-    R = Bn @ np.transpose(Bn, (0, 2, 1)) + 0.01 * np.eye(3, dtype=np.float32)
-    perm = rng.permutation(M)
-    frame = ekf.FrameObservations(*(torch.as_tensor(x[perm], device=dev)[None]
-                                    for x in (ids, z, R, ids >= 0)))
-    call = lambda: k6.frame_update(state, frame, cfg)  # noqa: E731
-    out["k6_wrapper_ms"] = _cuda_time(torch, call, 200)
-
-    def twenty():
-        for _ in range(20):
-            call()
-
-    n_ev, _, by_name = _profile(torch, twenty)
-    spans = [v for k, v in by_name.items() if "ekf_frame_update" in k]
-    out["k6_alone_ms"] = spans[0][1] / spans[0][0] / 1e3 if spans else None
-    out["k6_events_per_call"] = n_ev / 20
-
-    # K3 and detection on rendered 640x480 frames
-    rng = np.random.default_rng(4)
-    poses = np.stack([rng.uniform(0.8, 4.3, 64), rng.uniform(-3.9, -0.8, 64),
-                      rng.uniform(-np.pi, np.pi, 64)], axis=1)
-    vga = renderer.render_poses(poses, synthetic.make_arena(n_markers=20),
-                                CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0), device=dev)
-    frames = vga.repeat(4, 1, 1).contiguous()  # 256
-    det = DetectorConfig()
-    args = (det.adaptive_radius, det.adaptive_C, det.mean_stride, det.ccl_rounds,
-            det.closed_ccl_rounds)
-    for n in (128, 16):
-        img = frames[:n].contiguous()
-        out[f"k3_ms_{n}"] = _cuda_time(torch, lambda: ccl.threshold_label_union(img, *args), 20)
-    runner.detect_frames(frames, det, 128)  # warm
+    out = {"fps": B * F / statistics.median(times)}
+    n_ev, out["busy"], by_name = _profile(torch, replay)
+    out["events_per_frame"] = n_ev / F
+    for key, part in (("k1_ms", "pnp_frontend"), ("k2_ms", "ekf_frame")):
+        hits = [v for k, v in by_name.items() if part in k]
+        out[key] = sum(v[1] for v in hits) / sum(v[0] for v in hits) / 1e3
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        runner.detect_frames(frames, det, 128)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    replay()
     torch.cuda.synchronize()
-    out["detect_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / (3 * frames.shape[0])
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out.update(_check_costs(torch, runner, data, cfg, replay()))
     return out
+
+
+def _check_costs(torch, runner, data, cfg, res):
+    """Host microseconds of K2's input checks on the replay's last frame."""
+    import time
+
+    from aruco_slam_tpu_torch.models import ekf
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
+
+    B, F, M = data.obs_ids.shape
+    dev = data.obs_ids.device
+    state = res.final_state
+    ew = data.enc_w[:, F - 1]
+    frame = ekf.FrameObservations(
+        data.obs_ids[:, F - 1].contiguous(), torch.zeros(B, M, 3, device=dev),
+        torch.eye(3, device=dev).repeat(B, M, 1, 1), data.obs_valid[:, F - 1].contiguous())
+    controls = ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[:, F - 1])
+    if hasattr(kb, "Rows"):  # K2 takes the raw frame and checks the replay once
+        spare = ekf.init_state(cfg, B, dev)
+        rows = kb.Rows(res.trajectory, res.pose_cov, res.n_landmarks, F - 1)
+        one, every, per_replay = (state, frame, controls, cfg, None, None), \
+            (state, frame, controls, cfg, spare, rows), True
+    else:  # K2 takes the glue's sorted frame and checks every frame
+        one = every = (state, *runner.frame_step_inputs(state, frame, controls, cfg), cfg)
+        per_replay = False
+
+    def host_us(args, n=2000):
+        kb._check_inputs(*args)
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                kb._check_inputs(*args)
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+        return statistics.median(runs)
+
+    costs = {"check_us": host_us(one), "check_all_us": host_us(every)}
+    costs["check_per_frame_us"] = costs["check_all_us"] / (F if per_replay else 1)
+    return costs
 
 
 def main():
