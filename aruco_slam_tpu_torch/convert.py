@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aruco_slam_tpu_torch.models.ba import BAProblem
 from aruco_slam_tpu_torch.models.ekf import EkfState
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.detector import DetectorConfig
@@ -107,3 +108,30 @@ def batched_state_to_trailing(state: EkfState) -> dict:
         div=a["diverged"][None, :],
         drop=a["dropped"][None, :],
     )
+
+
+_BA_INDEX_FIELDS = ("obs_kf", "obs_lm", "odo_i", "odo_j")
+
+
+def ba_problem_from_numpy(problem, device=None) -> BAProblem:
+    """A tensor :class:`BAProblem` on ``device`` (None: the card) from a
+    numpy one, as either package's graph builder or ``prepare`` makes it:
+    indices int64, masks bool, and the floats in their own dtype (float32,
+    or float64 for the oracle tests)."""
+    device = resolve(device)
+    fields = {}
+    for name in BAProblem._fields:
+        arr = np.asarray(getattr(problem, name))
+        if name in _BA_INDEX_FIELDS:
+            arr = arr.astype(np.int64)
+        fields[name] = torch.tensor(arr, device=device)
+    return BAProblem(**fields)
+
+
+def ba_problem_to_numpy(problem: BAProblem) -> BAProblem:
+    """The inverse: a numpy BAProblem with the builders' int32 indices."""
+    fields = {}
+    for name in BAProblem._fields:
+        arr = getattr(problem, name).detach().cpu().numpy()
+        fields[name] = arr.astype(np.int32) if name in _BA_INDEX_FIELDS else arr
+    return BAProblem(**fields)

@@ -375,9 +375,17 @@ def _replay_single(data, config, camera, level, update_fn) -> ReplayResult:
     _check_level(level)
     if level == "corners" and camera is None:
         raise ValueError("corner-level replay needs the camera")
+    F = data.obs_ids.shape[0]
     state = ekf.init_state(config, 1, data.obs_ids.device)
-    traj, covs, n_lm = [], [], []
-    for f in range(data.obs_ids.shape[0]):
+    # The outputs, written frame by frame: a view of a frame's state would
+    # keep its whole [N, N] sigma alive until the end.
+    rows = ReplayResult(
+        trajectory=state.mu.new_empty(F, 3),
+        pose_cov=state.sigma.new_empty(F, 3, 3),
+        n_landmarks=state.n_landmarks.new_empty(F),
+        final_state=None,
+    )
+    for f in range(F):
         ew = data.enc_w[f][None]
         state = ekf.predict_block(
             state, ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[f][None]), config
@@ -388,15 +396,10 @@ def _replay_single(data, config, camera, level, update_fn) -> ReplayResult:
         else:
             frame = ekf.FrameObservations(ids, data.obs_z[f][None], data.obs_R[f][None], valid)
         state = update_fn(state, frame, config)
-        traj.append(state.mu[0, :3])
-        covs.append(state.sigma[0, :3, :3])
-        n_lm.append(state.n_landmarks[0])
-    return ReplayResult(
-        trajectory=torch.stack(traj),
-        pose_cov=torch.stack(covs),
-        n_landmarks=torch.stack(n_lm),
-        final_state=state,
-    )
+        rows.trajectory[f] = state.mu[0, :3]
+        rows.pose_cov[f] = state.sigma[0, :3, :3]
+        rows.n_landmarks[f] = state.n_landmarks[0]
+    return rows._replace(final_state=state)
 
 
 def replay_sequence(

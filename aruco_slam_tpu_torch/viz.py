@@ -1,12 +1,13 @@
-"""Output records (L4) — the part of ``aruco_slam_tpu.viz`` that
-:class:`~aruco_slam_tpu_torch.system.SlamSystem` uses: the reference's rviz
-surface without ROS, in numpy on the host.
+"""Output records (L4) — counterpart of ``aruco_slam_tpu.viz``: the
+reference's rviz surface without ROS, in numpy on the host, as
+:class:`~aruco_slam_tpu_torch.system.SlamSystem` and the CLI use it.
 
 - :func:`pose_with_covariance`    — ``toRosPose`` (src/aruco_slam.cpp:378-410)
   with the 3-DoF -> 6x6 covariance packing at {0,1,5,6,7,11,30,31,35}
 - :func:`mapped_markers`          — ``toRosMappedMarkers`` (:265-281)
 - :func:`detected_marker_records` — ``toRosDetectedMarkers`` (:336-347)
 - :func:`draw_detections`         — ``getMarkedImg`` (:318-319)
+- :func:`plot_run`                — an offline trajectory/map plot (PNG)
 
 A state here is the port's ``EkfState`` with a batch axis of one (its
 tensors may lie on any device); detections are one frame's, unbatched.
@@ -16,17 +17,14 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def _host(x) -> np.ndarray:
-    """A tensor (any device) or array as a host numpy array."""
-    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+from aruco_slam_tpu_torch.utils.device import host
 
 
 def pose_with_covariance(state) -> dict:
     """Pose + covariance record with the reference's 6x6 packing
     (rows/cols x, y, z, rot_x, rot_y, rot_z; planar entries only)."""
-    mu = _host(state.mu[0, :3])
-    sigma = _host(state.sigma[0, :3, :3])
+    mu = host(state.mu[0, :3])
+    sigma = host(state.sigma[0, :3, :3])
     cov6 = np.zeros(36)
     cov6[[0, 1, 5, 6, 7, 11, 30, 31, 35]] = sigma.reshape(-1)
     return {
@@ -39,9 +37,9 @@ def pose_with_covariance(state) -> dict:
 
 def landmarks(state, config):
     """(landmarks [n, 3], aruco_ids [n]) of the active slots, on the host."""
-    n = int(_host(state.n_landmarks)[0])
-    lms = _host(state.mu[0, 3:]).reshape(config.ekf.max_landmarks, 3)
-    return lms[:n], _host(state.slot_ids[0])[:n]
+    n = int(host(state.n_landmarks)[0])
+    lms = host(state.mu[0, 3:]).reshape(config.ekf.max_landmarks, 3)
+    return lms[:n], host(state.slot_ids[0])[:n]
 
 
 def mapped_markers(state, config) -> list[dict]:
@@ -67,9 +65,9 @@ def mapped_markers(state, config) -> list[dict]:
 
 def detected_marker_records(detections, marker_length: float) -> list[dict]:
     """Live detections (red, 0.1 s lifetime) — reference :336-347."""
-    ids = _host(detections.ids)
-    valid = _host(detections.valid)
-    corners = _host(detections.corners)
+    ids = host(detections.ids)
+    valid = host(detections.valid)
+    corners = host(detections.corners)
     return [
         {
             "id": int(ids[k]),
@@ -132,10 +130,10 @@ def draw_detections(img, detections, value: int = 255) -> np.ndarray:
     """Annotated frame (the ``getMarkedImg`` equivalent): marker outlines,
     a cross on corner 0 (the pattern's top-left) and the marker id stamped
     right of each outline, as ``cv::aruco::drawDetectedMarkers`` does."""
-    out = np.array(_host(img), copy=True)
-    ids = _host(detections.ids)
-    valid = _host(detections.valid)
-    corners = _host(detections.corners)
+    out = np.array(host(img), copy=True)
+    ids = host(detections.ids)
+    valid = host(detections.valid)
+    corners = host(detections.corners)
     for k in range(len(ids)):
         if not valid[k]:
             continue
@@ -149,3 +147,38 @@ def draw_detections(img, detections, value: int = 255) -> np.ndarray:
         y = quad[:, 1].mean() - 5
         _stamp_text(out, str(int(ids[k])), (x, y), value)
     return out
+
+
+def plot_run(result, seq, path: str) -> bool:
+    """Offline trajectory/map plot of a single-stream replay (replaces the
+    rviz session). Returns False when matplotlib is unavailable."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return False
+    traj = host(result.trajectory)
+    fig, ax = plt.subplots(figsize=(7, 6))
+    if seq.true_pose_frames is not None:
+        ax.plot(seq.true_pose_frames[:, 0], seq.true_pose_frames[:, 1],
+                "k--", lw=1, label="ground truth")
+    ax.plot(traj[:, 0], traj[:, 1], "b-", lw=1, label="EKF estimate")
+    if seq.true_landmarks is not None:
+        ax.scatter(seq.true_landmarks[:, 0], seq.true_landmarks[:, 1],
+                   marker="s", c="k", s=24, label="true markers")
+    mu = host(result.final_state.mu[0])
+    n = int(host(result.final_state.n_landmarks)[0])
+    lms = mu[3:3 + 3 * n].reshape(-1, 3)
+    if len(lms):
+        ax.scatter(lms[:, 0], lms[:, 1], marker="x", c="m", s=30,
+                   label="estimated markers")
+    ax.set_aspect("equal")
+    ax.legend(loc="best", fontsize=8)
+    ax.set_xlabel("x [m]")
+    ax.set_ylabel("y [m]")
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return True

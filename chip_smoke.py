@@ -8,9 +8,11 @@ image-level replay (32 lanes
 x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
 detection of rendered 1920x1080 frames (K3-K5s in their block body),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
-cluster variant; 512 landmarks, its grid variant) and the streaming
-SlamSystem (60 rendered frames, K3 + K6) — and checks each against its plain
-path and the ground truth.
+cluster variant; 512 landmarks, its grid variant), the streaming
+SlamSystem (60 rendered frames, K3 + K6) and the smoothing back-end (config
+2 through the filter -> smoother pipelines, K6 in their EKF pass; the BA
+solver alone on configs 4 and 5) — and checks each against its plain path
+and the ground truth.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -99,6 +101,25 @@ Phases (each raises on failure; the script then exits non-zero):
      10 add_encoder calls and one add_image of a 640x480 frame rendered on
      the card, against the same calls through the plain versions (pose, map
      and every frame's detections); median ms per add_image / add_encoder.
+  9. the smoothing back-end (torch ops; no Pallas kernel in the reference).
+     BASELINE config 2 (as phase 7) through pipeline.ekf_then_ba (20 GN x
+     200 CG, adaptive, gauge-deflated, keyframe_stride 1: K = 2,100) and
+     pipeline.ekf_then_pose_graph (12 GN x 100 CG), each from the entry
+     point with its own EKF pass: K6 (cluster variant) launches once per
+     frame in each; the EKF pass's and the solve's seconds (CUDA events
+     after a synchronize), GN/s, the solve's device-busy share and device
+     events per GN (torch.profiler over a 2-GN solve of the same problem),
+     the cost before and after, and the mean landmark error against the
+     truth before (the EKF map) and after. Gate: the cost falls; the map
+     error after is at most MAP_GAIN_TOL x before and below MAP_ERR_MAX.
+     Then ba.solve alone on configs 4 (synthetic 1,000 keyframes / 500
+     landmarks) and 5 (10,000 / 5,000), 10 GN x 50 CG, damping 1e-4,
+     packed (benchmarks/run_all.py:243-300), each solved twice: GN/s, ms
+     per GN, the cost reduction, the mean pose and landmark error against
+     the truth (gate: below TRUTH_ERR_MAX, landmarks with a factor) and the
+     run-to-run difference. Config 4 also on the host CPU in float32 (gate:
+     within CARD_CPU_TOL m / rad of the card) and under torch's sync debug
+     mode (gate: as many host syncs in a 10-GN solve as in a 2-GN one).
 Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s (the H100 SXM data sheet), from this run's inputs.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -1159,15 +1180,11 @@ def phase6_k6(dev):
     return worst, timings
 
 
-def phase7_single_stream(dev):
-    """BASELINE config 2 through runner.replay_sequence (K6) against the
-    plain replay; then the fused update against the same reference."""
-    import dataclasses
-
-    from aruco_slam_tpu_torch import runner
-    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+def _config2():
+    """BASELINE config 2 as benchmarks/run_all.py:77-89 builds it: the
+    100-marker 20 x 16 m arena, a 210 s tour (2,100 frames at obs level),
+    EkfConfig(max_landmarks=128, max_observations_per_frame=16)."""
     from aruco_slam_tpu_torch.sim import synthetic
-    from aruco_slam_tpu_torch.utils import metrics
     from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=128, max_observations_per_frame=16))
@@ -1177,6 +1194,19 @@ def phase7_single_stream(dev):
                             max_view_angle_deg=85.0, seed=11),
         marker_map=synthetic.make_arena(n_markers=100, width=20.0, height=16.0),
     )
+    return cfg, seq
+
+
+def phase7_single_stream(dev):
+    """BASELINE config 2 through runner.replay_sequence (K6) against the
+    plain replay; then the fused update against the same reference."""
+    import dataclasses
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.utils import metrics
+
+    cfg, seq = _config2()
     F = seq.num_frames
     _require(F == 2100 and seq.max_obs == M, f"config 2 has {F} frames of {seq.max_obs}")
     torch.cuda.synchronize()
@@ -1330,6 +1360,190 @@ def phase8_system(dev):
           f"{1e3 * statistics.median(lat_enc):.3f} ms")
 
 
+# Phase 9's gates. Config 2 (tests/test_loop_closure.py:51-100): the map
+# error after the solve is at most MAP_GAIN_TOL x the EKF-initialised error
+# and below MAP_ERR_MAX. Configs 4 and 5 (tests/test_ba.py
+# test_ba_converges_to_ground_truth): mean pose and landmark error below
+# TRUTH_ERR_MAX, the landmarks taken over those with a factor (a landmark
+# no keyframe observes keeps its initial value: 283 of config 4's 500 do).
+# Card against the host CPU on config 4: CARD_CPU_TOL in m and rad.
+MAP_GAIN_TOL = 1.05
+MAP_ERR_MAX = 0.6
+TRUTH_ERR_MAX = 0.03
+CARD_CPU_TOL = 1e-3
+# the JAX package's config-2 BA map error on a TPU v5e (BASELINE.md:44): an
+# accuracy figure of the algorithm, printed beside the port's
+JAX_CONFIG2_BA_MAP_ERR = 0.131
+
+
+def _map_err(lms, ids, seq):
+    """Mean planar distance of landmarks [L, 3] (ids [L]) to the truth."""
+    true = {int(i): seq.true_landmarks[k] for k, i in enumerate(seq.true_landmark_ids)}
+    return float(np.mean([np.linalg.norm(lms[s, :2] - true[int(a)][:2])
+                          for s, a in enumerate(ids)]))
+
+
+@contextlib.contextmanager
+def _spied(module, name, log):
+    """``module.name`` wrapped while the block runs: each call appends
+    (seconds by CUDA events after a synchronize, args, kwargs, result)."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out = {}
+        sec = _timed(lambda: out.update(r=real(*a, **k)))
+        log.append((sec, a, k, out["r"]))
+        return out["r"]
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _solve_profile(problem, kw, gn=2):
+    """(device-busy share, device events per GN iteration) of a ``gn``-GN
+    solve of ``problem`` with the solver options ``kw``: the same shapes and
+    per-iteration work as the full solve, in a window the profiler keeps."""
+    from aruco_slam_tpu_torch.models import ba
+
+    kw = {**kw, "iters": gn}
+    ba.solve(problem, **kw)
+    with _profiled(PROFILE_PADS_S[-1]) as prof:
+        t0 = time.perf_counter()
+        ba.solve(problem, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, by_name = _device_busy(prof)
+    return busy / 1e6 / wall, sum(c for c, _ in by_name.values()) / gn
+
+
+def _syncs(fn):
+    """Host syncs that ``fn`` makes (torch's sync debug mode, warnings)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _truth_errors(poses, lms, problem, true_poses, true_lms):
+    """(mean pose error m, mean |angle| error rad, mean landmark error m
+    over the landmarks with a factor and over all, the landmarks with a
+    factor)."""
+    p, l = poses.cpu().numpy(), lms.cpu().numpy()
+    seen = np.bincount(np.asarray(problem.obs_lm), minlength=len(true_lms)) > 0
+    dth = np.arctan2(np.sin(p[:, 2] - true_poses[:, 2]), np.cos(p[:, 2] - true_poses[:, 2]))
+    lerr = np.linalg.norm(l[:, :2] - true_lms[:, :2], axis=1)
+    return (float(np.linalg.norm(p[:, :2] - true_poses[:, :2], axis=1).mean()),
+            float(np.abs(dth).mean()), float(lerr[seen].mean()), float(lerr.mean()), int(seen.sum()))
+
+
+def _pose_gap(a, b):
+    """(max |xy| difference m, max |angle| difference rad) of two [K, 3]."""
+    a, b = a.cpu().double(), b.cpu().double()
+    dth = torch.atan2(torch.sin(a[:, 2] - b[:, 2]), torch.cos(a[:, 2] - b[:, 2]))
+    return float((a[:, :2] - b[:, :2]).abs().max()), float(dth.abs().max())
+
+
+def phase9_backend(dev):
+    """The smoothing back-end: config 2 through pipeline.ekf_then_ba and
+    ekf_then_pose_graph (the EKF pass through K6), then the solver alone on
+    configs 4 and 5."""
+    from aruco_slam_tpu_torch import convert, pipeline, runner
+    from aruco_slam_tpu_torch.models import ba, ekf, graph_builder
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+
+    cfg, seq = _config2()
+    F = seq.num_frames
+    for name, run in (("ekf_then_ba", pipeline.ekf_then_ba),
+                      ("ekf_then_pose_graph", pipeline.ekf_then_pose_graph)):
+        for k in k6.LAUNCHES:
+            k6.LAUNCHES[k] = 0
+        replays, solves = [], []
+        with _spied(runner, "replay", replays), _spied(ba, "solve", solves):
+            out = run(seq, cfg, device=dev)
+        launches = dict(k6.LAUNCHES)
+        _require(launches == {"cluster": F, "grid": 0},
+                 f"{name}: expected {F} launches of K6's cluster variant, got {launches}")
+        _require(len(replays) == 1 and len(solves) == 1, f"{name}: {len(replays)} EKF passes, "
+                 f"{len(solves)} solves")
+        ekf_s, solve_s = replays[0][0], solves[0][0]
+        problem, kw = solves[0][1][0], solves[0][2]
+        stats = out["stats"]
+        c0, c1 = float(stats.initial_cost), float(stats.final_cost)
+        _require(bool(torch.isfinite(out["poses"]).all()), f"{name}: non-finite poses")
+        _require(c1 < c0, f"{name}: final cost {c1} not below the initial {c0}")
+        lms = out["landmarks"]
+        after = _map_err(lms.cpu().numpy() if isinstance(lms, torch.Tensor) else lms,
+                         out["landmark_ids"], seq)
+        e_lms, e_ids, e_act = (t[0].cpu().numpy() for t in
+                               ekf.get_map(out["ekf_result"].final_state, cfg))
+        if name == "ekf_then_ba":  # the BA problem starts from the EKF map
+            before = _map_err(out["problem"].landmarks, out["landmark_ids"], seq)
+        else:
+            before = _map_err(e_lms[e_act], e_ids[e_act], seq)
+        _require(after <= MAP_GAIN_TOL * before and after < MAP_ERR_MAX,
+                 f"{name}: map error {after} m after the solve, {before} m before")
+        busy, per_gn = _solve_profile(problem, kw)
+        extra = f", {out['n_closures']} closures" if "n_closures" in out else ""
+        print(f"phase 9: {name} on config 2 (K = {problem.poses.shape[0]} keyframes, "
+              f"{problem.landmarks.shape[0]} landmark rows, {problem.odo_i.shape[0]} odometry "
+              f"factors{extra}; {kw['iters']} GN x {kw['cg_iters']} CG): EKF pass {ekf_s:.3f} s "
+              f"({launches['cluster']} K6 launches), solve {solve_s:.3f} s, "
+              f"{kw['iters'] / solve_s:.2f} GN/s")
+        print(f"phase 9: {name}: cost {c0:.6g} -> {c1:.6g}; map error {before:.4f} m (EKF) -> "
+              f"{after:.4f} m (the JAX package's BA on a TPU v5e: {JAX_CONFIG2_BA_MAP_ERR} m); "
+              f"solve device busy {100 * busy:.1f}% with {per_gn:.0f} device events per GN "
+              f"(profile of 2 GN)")
+
+    for what, (n_kf, n_lm) in (("config 4", (1000, 500)), ("config 5", (10000, 5000))):
+        prob_np, true_poses, true_lms = graph_builder.synthetic_ba_problem(
+            n_kf, n_lm, obs_per_kf=8, seed=0)
+        packed, static = ba.prepare(prob_np)
+        kw = dict(iters=10, cg_iters=50, damping=1e-4, **static)
+        problem = convert.ba_problem_from_numpy(packed, dev)
+        runs = []
+        for _ in range(2):
+            res = {}
+            sec = _timed(lambda: res.update(out=ba.solve(problem, **kw)))
+            runs.append((sec, res["out"]))
+        sec, (poses, lms, stats) = runs[1]
+        gap = max(_max_err(runs[0][1][0], poses), _max_err(runs[0][1][1], lms))
+        c0, c1 = float(stats.initial_cost), float(stats.final_cost)
+        pe, ae, le, le_all, n_seen = _truth_errors(poses, lms, prob_np, true_poses, true_lms)
+        _require(c1 < c0 and pe < TRUTH_ERR_MAX and le < TRUTH_ERR_MAX,
+                 f"{what}: cost {c0} -> {c1}, pose error {pe} m, landmark error {le} m")
+        print(f"phase 9: {what} ({n_kf} keyframes / {n_lm} landmarks, 8 observations a keyframe; "
+              f"10 GN x 50 CG): {10 / sec:.2f} GN/s, {1e3 * sec / 10:.3f} ms per GN (the second "
+              f"of 2 solves; the first {10 / runs[0][0]:.2f} GN/s); cost reduction {c0 / c1:.2f}x "
+              f"({c0:.6g} -> {c1:.6g}); mean error to the truth: poses {pe:.5f} m / {ae:.5f} rad, "
+              f"landmarks {le:.5f} m over the {n_seen} with a factor ({le_all:.5f} m over all "
+              f"{n_lm}); run-to-run max |difference| {gap:.3e}")
+        if what == "config 4":
+            # the first solve under the debug mode counted one sync that the
+            # later ones did not: the 2-GN and 10-GN solves are counted after it
+            first, n2, n10 = (_syncs(lambda n=n: ba.solve(problem, **{**kw, "iters": n}))
+                              for n in (2, 2, 10))
+            _require(n2 == n10, f"host syncs: {n2} in a 2-GN solve, {n10} in a 10-GN one")
+            cpu = ba.solve(convert.ba_problem_from_numpy(packed, "cpu"), **kw)
+            dp, dth = _pose_gap(poses, cpu[0])
+            dl, dlth = _pose_gap(lms, cpu[1])
+            print(f"phase 9: config 4 card against the host CPU (float32): poses max |dxy| "
+                  f"{dp:.3e} m, |dtheta| {dth:.3e} rad; landmarks {dl:.3e} m, {dlth:.3e} rad "
+                  f"(tolerance {CARD_CPU_TOL}); host syncs in a solve: {n2} at 2 GN, {n10} at "
+                  f"10 GN ({first} in the first solve under the debug mode)")
+            _require(max(dp, dth, dl, dlth) <= CARD_CPU_TOL,
+                     f"config 4: card and CPU solves differ by {(dp, dth, dl, dlth)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1362,6 +1576,7 @@ def main() -> int:
     k6_err, k6_times = phase(6, phase6_k6, dev)
     k6_launches = phase(7, phase7_single_stream, dev)
     phase(8, phase8_system, dev)
+    phase(9, phase9_backend, dev)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, n, err, ms, plain_ms, bound, **extra):

@@ -17,8 +17,8 @@ import torch
 import numpy as np
 
 import aruco_slam_tpu_torch
-from aruco_slam_tpu_torch import convert, runner
-from aruco_slam_tpu_torch.models import ekf
+from aruco_slam_tpu_torch import convert, pipeline, runner
+from aruco_slam_tpu_torch.models import ekf, graph_builder, pose_graph
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.kernels import (
     _build, ccl, ekf_update, ekf_update_batched, pnp_frontend,
@@ -42,7 +42,11 @@ def test_port_imports_no_jax_and_no_yaml():
         "aruco_slam_tpu_torch.ops.detector, aruco_slam_tpu_torch.ops.dictionary, "
         "aruco_slam_tpu_torch.ops.kernels.ccl, aruco_slam_tpu_torch.sim.renderer, "
         "aruco_slam_tpu_torch.system, aruco_slam_tpu_torch.viz, "
-        "aruco_slam_tpu_torch.ops.kernels.ekf_update, aruco_slam_tpu_torch.utils.device\n"
+        "aruco_slam_tpu_torch.ops.kernels.ekf_update, aruco_slam_tpu_torch.utils.device, "
+        "aruco_slam_tpu_torch.models.ba, aruco_slam_tpu_torch.models.graph_builder, "
+        "aruco_slam_tpu_torch.models.pose_graph, aruco_slam_tpu_torch.pipeline, "
+        "aruco_slam_tpu_torch.io.checkpoint, aruco_slam_tpu_torch.utils.logging, "
+        "aruco_slam_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yaml', 'aruco_slam_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'aruco_slam_tpu.'))]\n"
         "print(bad)\n"
@@ -406,6 +410,13 @@ ENTRY_POINTS = {
         np.zeros((1, 3)), synthetic.make_arena(4), CAM, height=8, width=8),
     "ekf_state_from_numpy": lambda: convert.ekf_state_from_numpy(ekf.init_state(CFG, 1, "cpu")),
     "SlamSystem": lambda: SlamSystem(CFG).state,
+    "ekf_then_ba": lambda: pipeline.ekf_then_ba(_seq(), CFG, ba_iters=1, cg_iters=1)["poses"],
+    "ekf_then_pose_graph": lambda: pipeline.ekf_then_pose_graph(
+        _seq(), CFG, iters=1, cg_iters=1)["poses"],
+    "pose_graph.solve": lambda: pose_graph.solve(
+        pose_graph.build(np.zeros((3, 3)), np.zeros((2, 3))), iters=1, cg_iters=1),
+    "ba_problem_from_numpy": lambda: convert.ba_problem_from_numpy(
+        graph_builder.synthetic_ba_problem(4, 2, obs_per_kf=1)[0]).poses,
 }
 
 

@@ -8,7 +8,8 @@ versions for CPU tensors).
   covariance to 1e-4; ids exact; detections' corners to 1e-3 px.
 - ``replay`` / ``replay_sequence`` / ``evaluate_sequence`` at the
   measurement and corner levels against the JAX functions: trajectory to
-  1e-4; landmarks, slots and drops exact."""
+  1e-4; landmarks, slots and drops exact.
+- ``replay`` keeps no frame's state alive: its rows are written in place."""
 
 import dataclasses
 
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from aruco_slam_tpu import runner as jrunner
 from aruco_slam_tpu.ops.camera import CameraIntrinsics as JCamera
@@ -25,6 +27,7 @@ from aruco_slam_tpu.system import SlamSystem as JSlamSystem
 from aruco_slam_tpu.utils import config as jconfig
 from aruco_slam_tpu_torch import convert, runner
 from aruco_slam_tpu_torch.io.sequence import Sequence
+from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.system import SlamSystem
 
 torch.set_num_threads(1)
@@ -153,3 +156,40 @@ def test_replay_sequence_refuses_asq(seqs):
     asq = dataclasses.replace(seq, meta={**seq.meta, "images_asq_path": "frames.asq"})
     with pytest.raises(NotImplementedError, match="asq"):
         runner.replay_sequence(asq, _cfg(JCFG), level="images", device="cpu")
+
+
+def test_replay_single_holds_no_per_frame_state(monkeypatch):
+    """The rows are written into outputs allocated once, so while a 20-frame
+    replay runs no earlier frame's sigma stays alive: at each frame's update
+    only the state it starts from is (storage weak references taken by spies
+    on the sequential update and on the masked correction chain inside it).
+    After it no output shares storage with the final state, and each
+    output's storage is exactly its own size."""
+    seq = jsyn.generate_sequence(jsyn.SimParams(duration=2.0, seed=5, max_obs=6))
+    data = runner.replay_data_from_sequence(seq, "obs", "cpu")
+    born, updated, alive = [], [], []
+    real_sorted, real_update = ekf.apply_sorted, ekf.update
+
+    def spy_sorted(*a, **k):
+        out = real_sorted(*a, **k)
+        born.append(StorageWeakRef(out.sigma.untyped_storage()))
+        return out
+
+    def spy_update(*a, **k):
+        alive.append(sum(not r.expired() for r in born + updated[:-1]))
+        out = real_update(*a, **k)
+        updated.append(StorageWeakRef(out.sigma.untyped_storage()))
+        return out
+
+    monkeypatch.setattr(ekf, "apply_sorted", spy_sorted)
+    monkeypatch.setattr(ekf, "update", spy_update)
+    res = runner.replay(data, _cfg(JCFG))
+    assert len(born) == len(updated) == 20
+    assert alive == [0] * 20
+    assert all(r.expired() for r in born + updated[:-1]) and not updated[-1].expired()
+    final = res.final_state
+    finals = {t.untyped_storage().data_ptr() for t in final}
+    for out in (res.trajectory, res.pose_cov, res.n_landmarks):
+        assert out.untyped_storage().data_ptr() not in finals
+        assert out.untyped_storage().nbytes() == out.numel() * out.element_size()
+    np.testing.assert_array_equal(res.pose_cov[-1].numpy(), final.sigma[0, :3, :3].numpy())
