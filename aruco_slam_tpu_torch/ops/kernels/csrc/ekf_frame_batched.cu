@@ -1,6 +1,6 @@
 // K2: the whole EKF frame step of B replay lanes, one launch per frame, in
-// three variants chosen by the state's size N alone
-// (ops/kernels/ekf_update_batched.py: variant).
+// three variants whose kind is chosen by the state's size N and whose CTAs a
+// lane by N and the batch B (ops/kernels/ekf_update_batched.py: variant).
 //
 // Replaces the Pallas kernel aruco_slam_tpu/ops/kernels/ekf_update_batched.py
 // (_frame_kernel, launched by frame_step_batched) together with the XLA
@@ -25,8 +25,8 @@
 // rows of sigma that the previous one wrote, so a lane's observations run
 // one after the other; the bytes bound (sigma read and written once) is a
 // few microseconds at the main path's shape. The design keeps each lane's
-// sigma next to the SM that works on it and spends as few barriers per
-// observation as the data needs:
+// active block next to the SMs that work on it, spends as few barriers per
+// observation as the data needs, and spreads the B lanes over the card:
 //
 // "smem" (one CTA per lane, N <= 234): the lane's sigma lives in the CTA's
 //   shared memory for the frame; warp 0 composes the ticks while the other
@@ -41,11 +41,19 @@
 //   and one barrier. Rows and columns past the active landmarks are exactly
 //   zero and stay so, so every pass stops at 3 + 3 n_landmarks. Two or more
 //   lanes share an SM where shared memory allows.
-// "device" (N > the cluster's reach): the same program with sigma in device
-//   memory (the output buffer, mostly in the 50 MB L2), one CTA per lane.
-// "cluster" (234 < N <= 927): K6's 16-CTA cluster body
-//   (ekf_frame_common.cuh: cluster_frame) over a grid of B clusters, with
-//   K2's compose and predict around it.
+// "cluster" (234 < N <= 927) and "device" (any larger N): one program, the
+//   cluster body of ekf_frame_common.cuh (cluster_frame, shared with K6) on
+//   a grid of B clusters of G CTAs, with K2's compose and predict around
+//   it. The body works on the frame's active square only and copies the
+//   rest of sigma in 16-byte vectors. The two kinds differ in the plan: the
+//   cluster kind's stripe area holds N x ceil(N / G) (every frame runs on
+//   chip), the device kind's is all the shared memory a CTA has, and a
+//   lane whose square's stripes do not fit runs in place in the output
+//   sigma in device memory (in L2), decided per lane inside the kernel. G
+//   is the most CTAs a lane can have while the B clusters still fit the
+//   card at once (the wrapper's rule, from cudaOccupancyMaxActiveClusters).
+
+#include <algorithm>
 
 #include "ekf_frame_common.cuh"
 
@@ -54,7 +62,6 @@ namespace {
 using namespace ekf;
 
 constexpr int kSThreads = 256;  // the smem variant
-constexpr int kDThreads = 512;  // the device variant
 constexpr int kMaxWarps = 32;
 constexpr int kColChunks = 8;   // columns of B a lane holds in registers: 8 x 32 per pass
 
@@ -93,18 +100,23 @@ struct BatchIo {
   int T, F, f;
 };
 
-// The smem / device variants' shared memory in 4-byte words: sigma N*N (smem
-// variant only) | mu N | mu0 N | B double buffer 2 x 3N | Gram partials 2 x
-// 6 x kMaxWarps | pose, A, Q 21 | frozen last_obs 3L | slots M | order M |
-// frozen seen L bytes.
-__host__ __device__ inline long long lane_words(int N, int L, int M, bool shared) {
-  return (shared ? (long long)N * N : 0LL) + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L +
-         2LL * M + (L + 3) / 4;
+// The smem variant's shared memory in 4-byte words: sigma N*N | mu N | mu0 N |
+// B double buffer 2 x 3N | Gram partials 2 x 6 x kMaxWarps | pose, A, Q 21 |
+// frozen last_obs 3L | slots M | order M | frozen seen L bytes.
+__host__ __device__ inline long long lane_words(int N, int L, int M) {
+  return (long long)N * N + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L + 2LL * M + (L + 3) / 4;
 }
 
-// The cluster variant's: the body's layout, then pose, A, Q.
-__host__ __device__ inline long long batched_cluster_words(int N, int W, int M) {
-  return cluster_words(N, W, M) + 21;
+// The cluster and device variants' stripe width on G CTAs: ceil(N / G), at
+// least the pose block's 3 columns.
+inline int stripe_width(int N, int G) { return std::max(3, (N + G - 1) / G); }
+
+// Their shared memory in 4-byte words (the body's layout, then pose, A, Q):
+// the cluster kind's stripe area holds N x W; the device kind takes a
+// CTA's whole shared memory and gives the body what is left as its area.
+long long batched_cluster_words(bool device, int N, int M, int G) {
+  const int W = stripe_width(N, G);
+  return device ? kMaxSharedBytes / 4 : cluster_words((long long)N * W, N, W, M) + 21;
 }
 
 // Compose lane b's ticks (every lane of the calling warp, redundantly) and
@@ -132,11 +144,11 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 }
 
 // ===========================================================================
-// The smem (kShared) and device variants: one CTA per lane
+// The smem variant: one CTA per lane, its sigma in shared memory
 // ===========================================================================
 
-template <bool kShared, int kThreads>
-__global__ void __launch_bounds__(kThreads, kShared ? 2 : 1)
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 2)
 ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
   extern __shared__ float smem[];
   const int N = cfg.N, L = cfg.L, M = cfg.M;
@@ -145,8 +157,8 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
   constexpr int kWarps = kThreads / 32;
   const long long NN = (long long)N * N;
 
-  float* s = kShared ? smem : io.sigma_out + b * NN;
-  float* mu = smem + (kShared ? NN : 0);
+  float* s = smem;
+  float* mu = smem + NN;
   float* mu0 = mu + N;
   float* Bb = mu0 + N;                 // [2][3N]
   float* Gw = Bb + 6 * N;              // [2][kMaxWarps][6]
@@ -174,8 +186,7 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
     // the observations into L1 for the chain (lines of 128 bytes)
     for (int e = t0; 128 * e < 36 * M; e += nt) prefetch_l1(reinterpret_cast<const char*>(R9) + 128 * e);
     for (int e = t0; 128 * e < 12 * M; e += nt) prefetch_l1(reinterpret_cast<const char*>(z) + 128 * e);
-    // sigma into shared memory (the device variant: into the output
-    // buffer, where the frame then runs in place)
+    // sigma into shared memory
     for (long long e0 = t0; e0 < NN; e0 += (long long)nt * kBatch) {
       float v[kBatch];
 #pragma unroll
@@ -393,21 +404,13 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
 
   // ---- write back; symmetrize on the way out ----
   const int na = 3 + 3 * n_lm;
-  if (kShared) {
+  {
     float* sig_o = io.sigma_out + b * NN;
     for (int r = warp; r < N; r += kWarps) {
       for (int c = lane; c < N; c += 32) {
         float v = 0.0f;  // past the active block sigma is zero
         if (r < na && c < na) v = cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r]) : s[r * N + c];
         sig_o[(long long)r * N + c] = v;
-      }
-    }
-  } else if (cfg.symmetrize) {
-    for (int r = warp; r < na; r += kWarps) {
-      for (int c = r + 1 + lane; c < na; c += 32) {
-        const float v = 0.5f * (s[(long long)r * N + c] + s[(long long)c * N + r]);
-        s[(long long)r * N + c] = v;
-        s[(long long)c * N + r] = v;
       }
     }
   }
@@ -419,13 +422,11 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
     io.init_out[b] = 1;
   }
   if (io.traj) {
-    __syncthreads();  // the device variant's symmetrize is done
     const long long row = (long long)b * io.F + io.f;
     if (tid < 9) {
       const int r = tid / 3, c = tid % 3;
-      io.pose_cov[row * 9 + tid] = kShared
-          ? (cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r]) : s[r * N + c])
-          : s[r * N + c];
+      io.pose_cov[row * 9 + tid] = cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r])
+                                                  : s[r * N + c];
     }
     if (tid < 3) io.traj[row * 3 + tid] = mu[tid];
     if (tid == 0) io.nlm_rows[row] = n_lm;
@@ -433,7 +434,7 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
 }
 
 // ===========================================================================
-// The cluster variant: K6's cluster body, one cluster per lane
+// The cluster and device variants: K6's cluster body, one cluster per lane
 // ===========================================================================
 
 __global__ void __launch_bounds__(kCThreads, 1)
@@ -441,7 +442,7 @@ ekf_frame_batched_cluster_kernel(BatchIo bio, Cfg cfg, Odom od) {
   extern __shared__ float smem[];
   const int N = cfg.N, L = cfg.L, M = cfg.M;
   const int b = blockIdx.x / cfg.G;
-  float* pq = smem + cluster_words(N, cfg.W, M);
+  float* pq = smem + cluster_words(cfg.cap, N, cfg.W, M);
   if (threadIdx.x < 32) compose_lane(bio, od, b, N, pq);  // read after the body's first barrier
   const long long NN = (long long)N * N;
   const Io io{bio.mu + (long long)b * N, bio.sigma + b * NN, bio.slot_ids + (long long)b * L,
@@ -464,13 +465,11 @@ const void* kernel_of(int variant, int* threads) {
   switch (variant) {
     case 0:
       *threads = kSThreads;
-      return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<true, kSThreads>);
+      return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kSThreads>);
     case 1:
+    case 2:
       *threads = kCThreads;
       return reinterpret_cast<const void*>(ekf_frame_batched_cluster_kernel);
-    case 2:
-      *threads = kDThreads;
-      return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<false, kDThreads>);
     default:
       return nullptr;
   }
@@ -478,17 +477,19 @@ const void* kernel_of(int variant, int* threads) {
 
 }  // namespace
 
-// Shared bytes per CTA of a variant (0 smem, 1 cluster with G CTAs, 2
-// device) for an N-dim state, L slots and M observations; the wrapper's
-// plan mirrors it (ekf_update_batched.shared_bytes).
+// Shared bytes per CTA of a variant (0 smem; 1 cluster and 2 device, each
+// with G CTAs a lane) for an N-dim state, L slots and M observations; the
+// wrapper's plan mirrors it
+// (ekf_update_batched.shared_bytes).
 extern "C" long long ekf_frame_batched_smem_bytes(int variant, int N, int L, int M, int G) {
-  if (variant == 1) return batched_cluster_words(N, (N + G - 1) / G, M) * 4;
-  return lane_words(N, L, M, variant == 0) * 4;
+  if (variant == 0) return lane_words(N, L, M) * 4;
+  return batched_cluster_words(variant == 2, N, M, G) * 4;
 }
 
-// A variant's plan: shared bytes per CTA and how many CTAs (clusters for
-// the cluster variant) the current card holds at once, 0 if none; sets the
-// kernel's attributes, so that a launch needs no other call.
+// A variant's plan: shared bytes per CTA and how many CTAs (clusters of G
+// for the cluster and device variants) the current card holds at once, 0
+// if none; sets the kernel's attributes, so that a launch needs no other
+// call.
 extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, int* smem_bytes,
                                       int* resident) {
   int threads = 0;
@@ -496,12 +497,14 @@ extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, i
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long bytes = ekf_frame_batched_smem_bytes(variant, N, L, M, G);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 2 && bytes / 4 < cluster_words(0, N, stripe_width(N, G), M) + 21)
+    return static_cast<int>(cudaErrorInvalidValue);  // no room for the body's buffers
   // the most any size needs, so that plans cached for other sizes stay valid
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kMaxSharedBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int n = 0;
-  if (variant == 1) {
+  if (variant != 0) {
     if (G < 1 || G > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     if (G > 8) {
       err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -577,15 +580,16 @@ extern "C" int ekf_frame_batched_launch(int variant, void* const* ptrs, const lo
   io.T = icfg[5];
   io.F = icfg[6];
   io.f = icfg[7];
-  const Cfg cfg{N, L, M, G, (N + G - 1) / G, icfg[8], fcfg[0], icfg[9], fcfg[1], fcfg[2], icfg[10]};
+  const int W = variant == 0 ? 0 : stripe_width(N, G);
+  // the cluster body's stripe area: what the plan's shared memory leaves it
+  const int cap = variant == 0 ? 0 : smem_bytes / 4 - static_cast<int>(cluster_words(0, N, W, M) + 21);
+  const Cfg cfg{N, L, M, G, W, cap, icfg[8], fcfg[0], icfg[9], fcfg[1], fcfg[2], icfg[10]};
   const Odom od{fcfg[3], fcfg[4], fcfg[5], fcfg[6], fcfg[7], fcfg[8], fcfg[9], fcfg[10], icfg[11]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (variant == 0) {
-    ekf_frame_batched_lane_kernel<true, kSThreads><<<B, kSThreads, smem_bytes, st>>>(io, cfg, od);
-  } else if (variant == 2) {
-    ekf_frame_batched_lane_kernel<false, kDThreads><<<B, kDThreads, smem_bytes, st>>>(io, cfg, od);
-  } else if (variant == 1) {
+    ekf_frame_batched_lane_kernel<kSThreads><<<B, kSThreads, smem_bytes, st>>>(io, cfg, od);
+  } else if (variant == 1 || variant == 2) {
     cudaLaunchConfig_t lc = {};
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;

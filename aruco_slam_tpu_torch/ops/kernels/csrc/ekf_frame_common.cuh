@@ -4,25 +4,37 @@
 // terms, the encoder-tick compose, and the thread-block-cluster frame body
 // that both kernels run (K6 on one lane, K2 on a grid of B clusters).
 //
-// The cluster body: CTA r of a cluster owns a stripe of W columns of the
-// lane's sigma and the same entries of mu, in its shared memory for the whole
-// frame. Sigma is read from device memory once at the start and written once
-// at the end. Per processed observation:
+// The cluster body works on the frame's active square: the leading na x na
+// block of sigma, na = 3 + 3 min(L, landmarks + the frame's new
+// observations), which holds every entry the frame can change (past the
+// active landmarks sigma is zero, and the frame's inserts stay inside). CTA
+// r of a cluster owns a stripe of Wa = ceil(na / G) columns of the square
+// (at least 3, so that rank 0 holds the pose block) and the same entries of
+// mu. Where the square's stripes fit the plan's stripe area they live in
+// shared memory for the whole frame, read from device memory once at the
+// start and written once at the end; otherwise they stay in the output
+// sigma in device memory (mostly in the 50 MB L2), on the row stride N, and
+// the frame runs there in place. The choice is per lane and per frame, the
+// same in every CTA of the lane, and both homes run the same arithmetic.
+// The rest of sigma (and of mu) is a copy, spread over the cluster's CTAs
+// in 16-byte vectors, with no barrier against the chain. Per processed
+// observation:
 //   - phase A: B = Gp sigma[0:3, :] + Gl sigma[idx:idx+3, :] (or the
 //     insert's sigma_mx) for the own columns, into the CTA's shared memory,
 //     double-buffered;
 //   - one hardware cluster barrier;
-//   - every CTA reads the whole B (3N floats) from its peers through
+//   - every CTA reads the whole B (3 na floats) from its peers through
 //     distributed shared memory, forms S, K^T = S^-1 B and ||K||^2 in one
 //     fixed order, so every CTA takes the same gate / reject branch;
-//   - it applies the rank-3 update to its own columns in shared memory (the
-//     insert: rows idx..idx+2 of the own columns, and the owner of the new
-//     columns down them).
+//   - it applies the rank-3 update to its own columns (the insert: rows
+//     idx..idx+2 of the own columns, and the owner of the new columns down
+//     them).
 // Phase A of the next observation reads only the CTA's own columns, so one
 // barrier per processed observation is enough; the double buffer keeps a
 // CTA already in the next phase A from overwriting B while a slower one
-// still reads it. The symmetrize reads the transposed entries from the
-// peers and writes the result straight to device memory.
+// still reads it. On chip, the symmetrize reads the transposed entries from
+// the peers and writes the result straight to device memory; in device
+// memory each pair of entries is symmetrized in place by one CTA.
 //
 // K2 runs the same body with its frame prologue: the compose of the frame's
 // encoder ticks (pose, A, Q, by warp 0 of every CTA into its shared memory)
@@ -50,10 +62,13 @@ constexpr int kMaxCluster = 16;
 // distributed shared memory: the loads of one batch are issued before any
 // of its stores, so the copies are not bound by one load's latency.
 constexpr int kBatch = 8;
+// The same for the cluster body's rank-3 update and in-place symmetrize.
+constexpr int kUpd = 4;
 
 struct Cfg {
   int N, L, M;              // state dim, landmark slots, observations/frame
-  int G, W;                 // CTAs, columns per CTA (the cluster body)
+  int G, W;                 // CTAs, the widest stripe a CTA may own (the cluster body)
+  int cap;                  // the cluster body's stripe area, in 4-byte words of shared memory
   int stationary_gate;      // CompatConfig.stationary_gate
   float gate_eps2;          // stationary_gate_eps^2
   int reject_divergent;     // CompatConfig.reject_divergent
@@ -108,11 +123,11 @@ struct Lane {
   unsigned char* init_out;   // [1] the latch, set
 };
 
-// The cluster body's shared memory in 4-byte words: own sigma columns N x W |
-// own mu W | B double buffer 2 x 3W | K^T (first B) 3N | the pose block 9 |
-// reduction 2 x 32 | slots M | order M.
-__host__ __device__ inline long long cluster_words(int N, int W, int M) {
-  return (long long)N * W + 7LL * W + 3LL * N + 9 + 64 + 2LL * M;
+// The cluster body's shared memory in 4-byte words: the stripe area cap (own
+// sigma columns; N x W holds any frame's) | own mu W | B double buffer 2 x 3W |
+// K^T (first B) 3N | the pose block 9 | reduction 2 x 32 | slots M | order M.
+__host__ __device__ inline long long cluster_words(long long cap, int N, int W, int M) {
+  return cap + 7LL * W + 3LL * N + 9 + 64 + 2LL * M;
 }
 
 __device__ __forceinline__ float wrap_angle(float a) {
@@ -368,16 +383,60 @@ __device__ void compose_ticks(const Odom& od, bool init, const float* wl, long l
   }
 }
 
+// dst[e] = src[e] for e in [lo, hi), by participants part, part + parts, ...:
+// 16-byte vectors (streaming: the copy is not read again in the launch) where
+// src and dst share their alignment, else single floats.
+__device__ __forceinline__ void copy_span(const float* __restrict__ src, float* __restrict__ dst,
+                                          long long lo, long long hi, long long part,
+                                          long long parts) {
+  if (lo >= hi) return;
+  const unsigned long long s = reinterpret_cast<unsigned long long>(src + lo);
+  const unsigned long long d = reinterpret_cast<unsigned long long>(dst + lo);
+  if (((s ^ d) & 15ULL) != 0) {
+    for (long long e = lo + part; e < hi; e += parts) dst[e] = src[e];
+    return;
+  }
+  const long long head = min(hi - lo, static_cast<long long>(((16 - (s & 15ULL)) & 15ULL) >> 2));
+  const long long a = lo + head;  // 16-byte aligned in both
+  const long long nv = (hi - a) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src + a);
+  float4* d4 = reinterpret_cast<float4*>(dst + a);
+  for (long long v0 = part; v0 < nv; v0 += parts * 4) {
+    float4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (v0 + u * parts < nv) x[u] = __ldcs(s4 + v0 + u * parts);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (v0 + u * parts < nv) __stcs(d4 + v0 + u * parts, x[u]);
+  }
+  const long long tail = a + 4 * nv;  // at most 3 elements at each end
+  if (part < head) dst[lo + part] = src[lo + part];
+  if (part < hi - tail) dst[tail + part] = src[tail + part];
+}
+
+// The part of an N x N sigma outside its leading na x na square, copied by
+// the cluster's G CTAs: rows 0..na-2 past column na (a warp a row), then
+// one span from row na-1's column na to the end (every thread).
+__device__ void copy_outside(const float* src, float* dst, int N, int na, int rank, int G) {
+  if (na >= N) return;
+  const int nt = blockDim.x, tid = threadIdx.x, warps = nt >> 5;
+  for (int r = rank * warps + (tid >> 5); r < na - 1; r += G * warps)
+    copy_span(src, dst, (long long)r * N + na, (long long)(r + 1) * N, tid & 31, 32);
+  copy_span(src, dst, (long long)(na - 1) * N + na, (long long)N * N,
+            (long long)rank * nt + tid, (long long)G * nt);
+}
+
 // The frame body on a thread-block cluster (see the head of this file). K6
 // passes an empty Lane; K2 passes its compose (in shared memory, written
 // before the body's first barrier) and its replay rows.
 __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int N = cfg.N, L = cfg.L, M = cfg.M, W = cfg.W;
+  const int N = cfg.N, L = cfg.L, M = cfg.M, G = cfg.G, W = cfg.W;
   extern __shared__ float smem[];
-  float* sig = smem;                          // [N, W] own columns
-  float* muo = sig + (long long)N * W;        // [W]
+  float* stripe = smem;                       // [cap] own columns, when they fit
+  float* muo = stripe + cfg.cap;              // [W] own mu
   float* Bbuf = muo + W;                      // [2, 3, W] B / sigma_mx, own columns
   float* KT = Bbuf + 6 * W;                   // [3, N]
   float* Bsc = KT + 3 * N;                    // [9] the pose block (inserts)
@@ -387,20 +446,42 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int c0 = rank * W;
-  const int Wb = max(0, min(W, N - c0));
   const bool lead = rank == 0;  // rank 0 keeps the bookkeeping
   // K2 always runs the frame (its compose spent the latch); K6 skips it
   // before the first encoder tick
   const bool init = ln.pq != nullptr || io.init_in[0] != 0;
 
-  // ---- the working state: own columns of sigma and mu ----
-  for (int e0 = tid; e0 < N * Wb; e0 += nt * kBatch) {
+  if (lead) copy_bookkeeping(io, L, init);
+  lookup_and_sort(io.slot_ids_in, io.ids, io.valid, L, M, s_slot, s_order);  // ends in a barrier
+  int n_lm = io.n_lm_in[0];
+  int diverged = io.div_in[0];
+  int dropped = io.drop_in[0];
+  float x0 = io.mu_in[0], y0 = io.mu_in[1], th0 = io.mu_in[2];
+
+  // ---- the frame's active square: the landmarks at its start and every
+  // insert it may make. The chain reads and writes nothing outside it.
+  int n_new = 0;
+  for (int i = 0; i < M; ++i) n_new += (io.valid[i] && s_slot[i] < 0) ? 1 : 0;
+  const int na = 3 + 3 * min(L, n_lm + n_new);
+  const int Wa = max(3, (na + G - 1) / G);  // this frame's stripe width (the pose block in rank 0)
+  const int c0 = rank * Wa;
+  const int Wb = max(0, min(Wa, na - c0));
+  // The stripes' home, the same in every CTA of the lane: shared memory where
+  // the square's stripes fit the plan's stripe area, else the output sigma in
+  // device memory (in place, mostly in L2), on another stride.
+  const bool on_chip = (long long)na * Wa <= cfg.cap;
+  const int ld = on_chip ? Wa : N;
+  float* sig = on_chip ? stripe : io.sigma + c0;
+
+  // ---- the rest of sigma and mu, copied; the own stripe of the square
+  copy_outside(io.sigma_in, io.sigma, N, na, rank, G);
+  for (int j = na + rank * nt + tid; j < N; j += G * nt) io.mu[j] = io.mu_in[j];
+  for (int e0 = tid; e0 < na * Wb; e0 += nt * kBatch) {
     float v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * nt;
-      if (e < N * Wb) {
+      if (e < na * Wb) {
         const int r = e / Wb, t = e - r * Wb;
         v[u] = io.sigma_in[(long long)r * N + c0 + t];
       }
@@ -408,19 +489,14 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * nt;
-      if (e < N * Wb) {
+      if (e < na * Wb) {
         const int r = e / Wb, t = e - r * Wb;
-        sig[r * W + t] = v[u];
+        sig[r * ld + t] = v[u];
       }
     }
   }
   for (int t = tid; t < Wb; t += nt) muo[t] = io.mu_in[c0 + t];
-  if (lead) copy_bookkeeping(io, L, init);
-  lookup_and_sort(io.slot_ids_in, io.ids, io.valid, L, M, s_slot, s_order);  // ends in a barrier
-  int n_lm = io.n_lm_in[0];
-  int diverged = io.div_in[0];
-  int dropped = io.drop_in[0];
-  float x0 = io.mu_in[0], y0 = io.mu_in[1], th0 = io.mu_in[2];
+  __syncthreads();
 
   if (ln.pq) {
     // ---- the covariance predict with the frame's (A, Q); mu[0:3] <- pose
@@ -430,14 +506,14 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
     y0 = ln.pq[1];
     th0 = ln.pq[2];
     for (int t = tid; t < Wb; t += nt) {  // rows 0..2 of the own columns
-      const float s0 = sig[t], s1 = sig[W + t], s2 = sig[2 * W + t];
+      const float s0 = sig[t], s1 = sig[ld + t], s2 = sig[2 * ld + t];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) sig[i * W + t] = A[3 * i] * s0 + A[3 * i + 1] * s1 + A[3 * i + 2] * s2;
+      for (int i = 0; i < 3; ++i) sig[i * ld + t] = A[3 * i] * s0 + A[3 * i + 1] * s1 + A[3 * i + 2] * s2;
     }
     __syncthreads();
     if (lead) {  // columns 0..2 (+ Q), all in rank 0
-      for (int j = tid; j < N; j += nt) {
-        float* row = sig + j * W;
+      for (int j = tid; j < na; j += nt) {
+        float* row = sig + j * ld;
         const float t0 = row[0], t1 = row[1], t2 = row[2];
 #pragma unroll
         for (int c = 0; c < 3; ++c)
@@ -472,9 +548,9 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
         known_terms(io.mu_in, o, x0, y0, th0, cth, sth, ze, Gp);
         // phase A: B at the own columns
         for (int t = tid; t < Wb; t += nt) {
-          const float sp0 = sig[t], sp1 = sig[W + t], sp2 = sig[2 * W + t];
-          const float sl0 = sig[idx * W + t], sl1 = sig[(idx + 1) * W + t];
-          const float sl2 = sig[(idx + 2) * W + t];
+          const float sp0 = sig[t], sp1 = sig[ld + t], sp2 = sig[2 * ld + t];
+          const float sl0 = sig[idx * ld + t], sl1 = sig[(idx + 1) * ld + t];
+          const float sl2 = sig[(idx + 2) * ld + t];
 #pragma unroll
           for (int a = 0; a < 3; ++a)
             Bown[a * W + t] = Gp[3 * a] * sp0 + Gp[3 * a + 1] * sp1 + Gp[3 * a + 2] * sp2 +
@@ -483,10 +559,10 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
         cluster.sync();
 
         // the whole B from its owners, into KT's place
-        for (int r = tid; r < N; r += nt) {
-          const int owner = r / W;
+        for (int r = tid; r < na; r += nt) {
+          const int owner = r / Wa;
           const float* pb = cluster.map_shared_rank(Bbuf + par * 3 * W, owner);
-          const int lt = r - owner * W;
+          const int lt = r - owner * Wa;
           const float b0 = pb[lt], b1 = pb[W + lt], b2 = pb[2 * W + lt];
           KT[r] = b0;
           KT[N + r] = b1;
@@ -507,9 +583,9 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
           }
         inv3(S, invS);
         __syncthreads();  // every thread has read S's columns of B
-        // K^T = S^-1 B over all N rows, in place; ||K||^2 in one fixed order
+        // K^T = S^-1 B over the square's rows, in place; ||K||^2 in one fixed order
         float part = 0.0f;
-        for (int r = tid; r < N; r += nt) {
+        for (int r = tid; r < na; r += nt) {
           const float b0 = KT[r], b1 = KT[N + r], b2 = KT[2 * N + r];
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
@@ -531,22 +607,36 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
               dm += ze[a] * (invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2);
             muo[t] = muo[t] + dm;
           }
-          // sigma <- sigma - K B on the own columns
+          // sigma <- sigma - K B on the own columns, kUpd entries a thread
+          // in flight (device memory's latency in the other home)
           if (Wb > 0) {
             const int dr = nt / Wb, dt = nt - dr * Wb;
             int r = tid / Wb, t = tid - r * Wb;
-            while (r < N) {
-              float* q = sig + r * W + t;
-              float v = *q;
-              v = v - KT[r] * Bown[t];
-              v = v - KT[N + r] * Bown[W + t];
-              v = v - KT[2 * N + r] * Bown[2 * W + t];
-              *q = v;
-              t += dt;
-              r += dr;
-              if (t >= Wb) {
-                t -= Wb;
-                r += 1;
+            while (r < na) {
+              int rs[kUpd], ts[kUpd];
+              float v[kUpd];
+#pragma unroll
+              for (int u = 0; u < kUpd; ++u) {
+                rs[u] = r;
+                ts[u] = t;
+                if (r < na) v[u] = sig[r * ld + t];
+                t += dt;
+                r += dr;
+                if (t >= Wb) {
+                  t -= Wb;
+                  r += 1;
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < kUpd; ++u) {
+                if (rs[u] < na) {
+                  const int rr = rs[u], tt = ts[u];
+                  float x = v[u];
+                  x = x - KT[rr] * Bown[tt];
+                  x = x - KT[N + rr] * Bown[W + tt];
+                  x = x - KT[2 * N + rr] * Bown[2 * W + tt];
+                  sig[rr * ld + tt] = x;
+                }
               }
             }
           }
@@ -565,17 +655,18 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
         insert_terms(o, x0, y0, th0, cth, sth, Gl, map_r, Gsk, GG);
         // phase A: sigma_mx = -(Gmi Gsk) sigma[0:3, :] at the own columns
         for (int t = tid; t < Wb; t += nt) {
-          const float sp0 = sig[t], sp1 = sig[W + t], sp2 = sig[2 * W + t];
+          const float sp0 = sig[t], sp1 = sig[ld + t], sp2 = sig[2 * ld + t];
 #pragma unroll
           for (int r = 0; r < 3; ++r)
             Bown[r * W + t] = -(GG[3 * r] * sp0 + GG[3 * r + 1] * sp1 + GG[3 * r + 2] * sp2);
         }
         cluster.sync();
 
-        // the pose block, rank 0's (this insert does not write it)
+        // the pose block, rank 0's (this insert does not write it): from its
+        // shared memory, or at L2 from the output in device memory
         if (tid < 9) {
-          const float* s0 = cluster.map_shared_rank(sig, 0);
-          Bsc[tid] = s0[(tid / 3) * W + tid % 3];
+          Bsc[tid] = on_chip ? cluster.map_shared_rank(stripe, 0)[(tid / 3) * ld + tid % 3]
+                             : __ldcg(io.sigma + (tid / 3) * N + tid % 3);
         }
         __syncthreads();
         float smm[9];
@@ -583,7 +674,7 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
         // rows idx..idx+2 of the own columns += sigma_mx
         for (int e = tid; e < 3 * Wb; e += nt) {
           const int r = e / Wb, t = e - r * Wb;
-          sig[(idx + r) * W + t] += Bown[r * W + t];
+          sig[(idx + r) * ld + t] += Bown[r * W + t];
         }
         __syncthreads();
         // the owner of columns idx..idx+2: += sigma_mx^T down them (from
@@ -591,11 +682,11 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
         for (int c = 0; c < 3; ++c) {
           const int col = idx + c;
           if (col < c0 || col >= c0 + Wb) continue;  // uniform in the CTA
-          for (int j = tid; j < N; j += nt) {
-            const int owner = j / W;
+          for (int j = tid; j < na; j += nt) {
+            const int owner = j / Wa;
             const float* pb = cluster.map_shared_rank(Bbuf + par * 3 * W, owner);
-            float* q = sig + j * W + (col - c0);
-            float v = *q + pb[c * W + (j - owner * W)];
+            float* q = sig + j * ld + (col - c0);
+            float v = *q + pb[c * W + (j - owner * Wa)];
             const int rb = j - idx;
             if (rb >= 0 && rb < 3) v += smm[3 * rb + c];
             *q = v;
@@ -614,35 +705,58 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
     }
   }
 
-  // ---- the result. Symmetrized, each CTA writes whole rows: row j of its
-  // own columns' indices, 0.5 (sigma[j, r] + sigma[r, j]), the first term
-  // from the owner of column r (contiguous in its shared memory), the
-  // second from its own column j. Otherwise its own columns as they are.
+  // ---- the square's result. On chip, symmetrized, each CTA writes whole
+  // rows: row j of its own columns' indices, 0.5 (sigma[j, r] + sigma[r, j]),
+  // the first term from the owner of column r (contiguous in its shared
+  // memory), the second from its own column j; otherwise its own columns as
+  // they are. In device memory the square is already in the output, and the
+  // symmetrize pairs (r, c), r < c, by the owner of column c, the (c, r)
+  // entry read at L2.
   cluster.sync();  // every CTA's last update is done
-  if (init && cfg.symmetrize) {
-    for (int e0 = tid; e0 < Wb * N; e0 += nt * kBatch) {
+  if (on_chip && init && cfg.symmetrize) {
+    for (int e0 = tid; e0 < Wb * na; e0 += nt * kBatch) {
       float tr[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int e = e0 + u * nt;
-        if (e < Wb * N) {
-          const int t = e / N, r = e - t * N, owner = r / W;
-          tr[u] = cluster.map_shared_rank(sig, owner)[(c0 + t) * W + (r - owner * W)];
+        if (e < Wb * na) {
+          const int t = e / na, r = e - t * na, owner = r / Wa;
+          tr[u] = cluster.map_shared_rank(stripe, owner)[(c0 + t) * Wa + (r - owner * Wa)];
         }
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int e = e0 + u * nt;
-        if (e < Wb * N) {
-          const int t = e / N, r = e - t * N;
-          io.sigma[(long long)(c0 + t) * N + r] = 0.5f * (tr[u] + sig[r * W + t]);
+        if (e < Wb * na) {
+          const int t = e / na, r = e - t * na;
+          io.sigma[(long long)(c0 + t) * N + r] = 0.5f * (tr[u] + sig[r * ld + t]);
         }
       }
     }
-  } else {
-    for (int e = tid; e < N * Wb; e += nt) {
+  } else if (on_chip) {
+    for (int e = tid; e < na * Wb; e += nt) {
       const int r = e / Wb, t = e - r * Wb;
-      io.sigma[(long long)r * N + c0 + t] = sig[r * W + t];
+      io.sigma[(long long)r * N + c0 + t] = sig[r * ld + t];
+    }
+  } else if (init && cfg.symmetrize) {
+    for (int e0 = tid; e0 < Wb * na; e0 += nt * kUpd) {
+      float v[kUpd];
+#pragma unroll
+      for (int u = 0; u < kUpd; ++u) {
+        const int e = e0 + u * nt;
+        const int t = e / na, r = e - t * na, c = c0 + t;
+        if (e < Wb * na && r < c)
+          v[u] = 0.5f * (io.sigma[(long long)r * N + c] + __ldcg(io.sigma + (long long)c * N + r));
+      }
+#pragma unroll
+      for (int u = 0; u < kUpd; ++u) {
+        const int e = e0 + u * nt;
+        const int t = e / na, r = e - t * na, c = c0 + t;
+        if (e < Wb * na && r < c) {
+          io.sigma[(long long)r * N + c] = v[u];
+          io.sigma[(long long)c * N + r] = v[u];
+        }
+      }
     }
   }
   for (int t = tid; t < Wb; t += nt) io.mu[c0 + t] = muo[t];
@@ -653,7 +767,7 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
     if (ln.init_out) ln.init_out[0] = 1;
   }
   if (lead && ln.traj) {
-    __syncthreads();  // rank 0's writes of sigma[0:3, 0:3] are visible to it
+    __syncthreads();  // rank 0 wrote sigma[0:3, 0:3] in every branch
     if (tid < 9) ln.cov[tid] = io.sigma[(tid / 3) * N + tid % 3];
     if (tid < 3) ln.traj[tid] = muo[tid];
     if (tid == 0) ln.nlm[0] = n_lm;

@@ -27,8 +27,9 @@
 //
 // Variant 1, a thread-block cluster (every N whose sigma fits the shared
 // memory of 8, or 16 with the non-portable size, CTAs): CTA r owns a
-// stripe of W columns of sigma in its own shared memory for the whole
-// frame, with one hardware cluster barrier per processed observation. Its
+// stripe of the columns of the frame's active square in its own shared
+// memory for the whole frame, with one hardware cluster barrier per
+// processed observation; the rest of sigma is copied. Its
 // body, ekf::cluster_frame in ekf_frame_common.cuh (which describes it), is
 // shared with K2's cluster variant (ekf_frame_batched.cu), as are the
 // prologue's lookup and sort and the 3x3 algebra.
@@ -347,9 +348,10 @@ Io make_io(void* const* p) {
             static_cast<int*>(p[19]), static_cast<int*>(p[20])};
 }
 
+// The cluster variant's stripe area holds N x W, any frame's square.
 Cfg make_cfg(int N, int L, int M, int G, int W, int stationary_gate, float gate_eps2,
              int reject_divergent, float div_ze2, float div_k2, int symmetrize) {
-  return Cfg{N, L, M, G, W, stationary_gate, gate_eps2, reject_divergent,
+  return Cfg{N, L, M, G, W, N * W, stationary_gate, gate_eps2, reject_divergent,
              div_ze2, div_k2, symmetrize};
 }
 
@@ -362,7 +364,7 @@ extern "C" int ekf_frame_update_cluster_plan(int N, int M, int G, int* W, int* s
                                              int* max_clusters) {
   if (G < 1 || G > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
   const int w = (N + G - 1) / G;
-  const long long bytes = cluster_words(N, w, M) * 4;
+  const long long bytes = cluster_words((long long)N * w, N, w, M) * 4;
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   // the most any N needs, so that plans cached for other sizes stay valid
   cudaError_t err = cudaFuncSetAttribute(ekf_frame_update_cluster_kernel,

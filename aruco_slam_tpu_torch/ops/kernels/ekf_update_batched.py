@@ -7,15 +7,22 @@ pose covariance and landmark count written.
 
 Counterpart of ``aruco_slam_tpu.ops.kernels.ekf_update_batched`` together
 with the glue that ``aruco_slam_tpu.runner._replay_batch_kernel`` runs
-around it every frame. Three variants, chosen by the state's size alone
+around it every frame. Three variants, whose kind is chosen by the state's
+size alone and whose CTAs a lane by the size and the batch
 (:func:`variant`), so that no ``max_landmarks`` is refused:
 
 - ``"smem"``: one CTA per lane, its sigma in shared memory (max_landmarks
   up to :data:`MAX_SMEM_LANDMARKS`);
-- ``"cluster"``: K6's 16-CTA cluster body, one cluster per lane (up to
+- ``"cluster"``: K6's cluster body on a cluster of G CTAs per lane, each
+  CTA holding a stripe of the frame's active block in shared memory (up to
   :data:`MAX_CLUSTER_LANDMARKS`);
-- ``"device"``: one CTA per lane, its sigma in device memory (any larger
-  state).
+- ``"device"``: the same program with each CTA's whole shared memory as its
+  stripe area; a lane whose frame's active block does not fit the
+  cluster's shared memory runs in place in the output sigma in device
+  memory (any larger state). The choice is the kernel's, per lane.
+
+Both cluster kinds copy the rest of sigma, past the frame's active block,
+from input to output.
 
 The plain version is :func:`frame_step_reference`: the torch glue
 (:func:`frame_step_inputs`), ``ekf.apply_predict`` and ``ekf.apply_sorted``.
@@ -55,7 +62,8 @@ _MAX_WARPS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_plans: dict = {}  # (device index, variant, N, M) -> (shared bytes, CTAs a lane)
+_plans: dict = {}  # (device index, variant, N, M, CTAs) -> (shared bytes, resident)
+_choices: dict = {}  # (device index, N, M, B) -> (variant, CTAs, shared bytes)
 _stream = ekf_update._stream
 
 
@@ -68,32 +76,86 @@ class Rows(NamedTuple):
     f: int
 
 
-def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_OBS) -> int:
+def stripe_width(n_dim: int, ctas: int) -> int:
+    """Columns of sigma a CTA of the cluster and device variants may own:
+    ceil(N / CTAs), at least the pose block's 3."""
+    return max(3, -(-n_dim // ctas))
+
+
+def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_OBS,
+                 ctas: int = 1) -> int:
     """Shared bytes per CTA of a variant (csrc: ``lane_words``,
-    ``batched_cluster_words``). The smem and device variants: sigma (smem
-    only), mu and mu0, the double-buffered B, the Gram partials, pose / A /
-    Q, the frozen last_obs and seen, the slots and the order. The cluster
-    variant: K6's layout over 16 CTAs, then pose / A / Q."""
+    ``batched_cluster_words``). The smem variant: sigma, mu and mu0, the
+    double-buffered B, the Gram partials, pose / A / Q, the frozen last_obs
+    and seen, the slots and the order. The cluster variant on ``ctas`` CTAs
+    a lane: K6's layout with a stripe of N x W (W = :func:`stripe_width`),
+    then pose / A / Q. The device variant: all of a CTA's shared memory."""
+    if kind == "device":
+        return MAX_SHARED_BYTES
     if kind == "cluster":
-        w = -(-n_dim // ekf_update.MAX_CLUSTER)
+        w = stripe_width(n_dim, ctas)
         return 4 * (n_dim * w + 7 * w + 3 * n_dim + 73 + 2 * n_obs + 21)
-    words = (8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm + 2 * n_obs + (max_lm + 3) // 4)
-    if kind == "smem":
-        words += n_dim * n_dim
-    return 4 * words
+    return 4 * (n_dim * n_dim + 8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm + 2 * n_obs
+                + (max_lm + 3) // 4)
 
 
-def variant(n_dim: int) -> tuple[str, int]:
-    """The variant for an ``n_dim`` state, by its size alone, and its CTAs
-    per lane: ``("smem", 1)`` where a lane's sigma fits one CTA's shared
-    memory, else ``("cluster", 16)`` where it fits a cluster's, else
-    ``("device", 1)``."""
+def on_chip_rows(kind: str, n_dim: int, n_obs: int, ctas: int) -> int:
+    """The largest active block na (3 + 3 x landmarks, at most N) whose
+    stripes of the cluster and device variants fit their plan's stripe
+    area (csrc: ``cluster_frame``'s ``on_chip``): a frame of a lane whose
+    block is larger runs in device memory."""
+    w = stripe_width(n_dim, ctas)
+    area = shared_bytes(kind, n_dim, 0, n_obs, ctas) // 4 - (7 * w + 3 * n_dim + 73 + 2 * n_obs
+                                                             + 21)
+    return max((na for na in range(3, n_dim + 1, 3) if na * stripe_width(na, ctas) <= area),
+               default=0)
+
+
+def min_ctas(kind: str, n_dim: int) -> int:
+    """The fewest CTAs a lane of a variant can have: 1 for smem and device;
+    for cluster the fewest whose N x W stripe fits a CTA (0 if none of
+    1..16 does)."""
+    if kind != "cluster":
+        return 1
+    max_lm = (n_dim - 3) // 3
+    return next((g for g in range(1, ekf_update.MAX_CLUSTER + 1)
+                 if shared_bytes("cluster", n_dim, max_lm, ctas=g) <= MAX_SHARED_BYTES), 0)
+
+
+# Clusters of G CTAs (G = 1..16, one CTA an SM, 512 threads) that an NVIDIA
+# H100 80GB HBM3 holds at once: cudaOccupancyMaxActiveClusters for the
+# cluster and device variants' kernel (chip_smoke.py phase 2 prints it). The
+# rule's answer on a host without a card; on the card the wrapper asks the
+# card.
+H100_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+
+
+def _h100_clusters(kind: str, ctas: int) -> int:
+    return H100_CLUSTERS[ctas - 1]
+
+
+def variant(n_dim: int, lanes: int = 1, clusters=_h100_clusters) -> tuple[str, int]:
+    """The variant for ``lanes`` lanes of an ``n_dim`` state and its CTAs a
+    lane G. The kind by the size alone: ``"smem"`` where a lane's sigma
+    fits one CTA's shared memory, else ``"cluster"`` where its N x W stripe
+    fits a CTA of some cluster of at most 16, else ``"device"``. Then
+
+        G(N, B) = max{G : G_min(N) <= G <= 16, B <= C(G)}, or G_min(N) if
+                  no G has B <= C(G),
+
+    with G_min the fewest CTAs a lane can have (:func:`min_ctas`; 1 for the
+    device kind) and C(G) = ``clusters(kind, G)`` the clusters of G CTAs the
+    card holds at once: the most CTAs a lane can have while the B lanes
+    still run in one wave. One lane gets 16, K6's timed choice; a batch
+    larger than one wave at G_min gets G_min. The smem variant has one CTA a
+    lane."""
     max_lm = (n_dim - 3) // 3
     if shared_bytes("smem", n_dim, max_lm) <= MAX_SHARED_BYTES:
         return "smem", 1
-    if shared_bytes("cluster", n_dim, max_lm) <= MAX_SHARED_BYTES:
-        return "cluster", ekf_update.MAX_CLUSTER
-    return "device", 1
+    kind = "cluster" if min_ctas("cluster", n_dim) else "device"
+    lo = min_ctas(kind, n_dim)
+    fits = [g for g in range(lo, ekf_update.MAX_CLUSTER + 1) if lanes <= clusters(kind, g)]
+    return kind, max(fits, default=lo)
 
 
 # The largest maps of the two shared-memory variants (N = 3 + 3 * max_landmarks).
@@ -262,7 +324,7 @@ def frame_step_prechecked(state, frame, controls, config, out=None, rows=None) -
         return frame_step_reference(state, frame, controls, config, out, rows)
     if state.mu.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.mu.device}")
-    return _launch(state, frame, controls, config, out, rows, variant(state.mu.shape[1]))
+    return _launch(state, frame, controls, config, out, rows)
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -272,24 +334,38 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 def _plan(lib, dev_index: int, kind: str, N: int, L: int, M: int, ctas: int):
-    key = (dev_index, kind, N, M)
+    """(shared bytes a CTA, CTAs or clusters the card holds at once) of a
+    variant on ``ctas`` CTAs a lane, cached per (device, variant, N, M,
+    CTAs)."""
+    key = (dev_index, kind, N, M, ctas)
     plan = _plans.get(key)
     if plan is None:
         smem, resident = ctypes.c_int(), ctypes.c_int()
         err = lib.ekf_frame_batched_plan(VARIANTS.index(kind), N, L, M, ctas,
                                          ctypes.byref(smem), ctypes.byref(resident))
-        _raise_on(err, lib, f"{kind} plan (N={N}, M={M})")
-        if smem.value != shared_bytes(kind, N, L, M):
+        _raise_on(err, lib, f"{kind} plan (N={N}, M={M}, {ctas} CTAs)")
+        if smem.value != shared_bytes(kind, N, L, M, ctas):
             raise RuntimeError("shared_bytes() disagrees with the kernel's layout")
-        if resident.value < 1:
-            raise RuntimeError(f"ekf_frame_batched: the {kind} variant with {smem.value} shared "
-                               f"bytes a CTA cannot be resident")
-        plan = _plans[key] = (smem.value, ctas)
+        plan = _plans[key] = (smem.value, resident.value)
     return plan
 
 
+def _choose(lib, dev_index: int, N: int, L: int, M: int, B: int):
+    """:func:`variant`'s answer for B lanes with the card's own cluster
+    occupancy, and its shared bytes, cached per (device, N, M, B)."""
+    kind, ctas = variant(N, B, lambda k, g: _plan(lib, dev_index, k, N, L, M, g)[1])
+    smem, resident = _plan(lib, dev_index, kind, N, L, M, ctas)
+    if resident < 1:
+        raise RuntimeError(f"ekf_frame_batched: the {kind} variant with {smem} shared bytes a "
+                           f"CTA on {ctas} CTAs a lane cannot be resident")
+    choice = _choices[(dev_index, N, M, B)] = (kind, ctas, smem)
+    return choice
+
+
 def _outputs(state: ekf.EkfState) -> ekf.EkfState:
-    """A new state as views of one float32 allocation."""
+    """A new state as views of one float32 allocation, sigma first (so that
+    it shares the input's 16-byte alignment, which the kernel's vector copy
+    of the rest of sigma wants)."""
     B, N = state.mu.shape
     L = state.slot_ids.shape[1]
     byte_words = (B * L + B + 3) // 4  # seen_prev, then initialized
@@ -303,8 +379,8 @@ def _outputs(state: ekf.EkfState) -> ekf.EkfState:
         return buf[at - n: at]
 
     i32, u8 = torch.int32, torch.uint8
-    mu = take(B * N).view(B, N)
     sigma = take(B * N * N).view(B, N, N)
+    mu = take(B * N).view(B, N)
     slot_ids = take(B * L).view(i32).view(B, L)
     n_lm = take(B).view(i32)
     last_obs = take(B * 3 * L).view(B, L, 3)
@@ -319,9 +395,9 @@ def _outputs(state: ekf.EkfState) -> ekf.EkfState:
     )
 
 
-def _launch(state, frame, controls, config, out, rows, choice):
-    """One launch of the variant ``choice`` (``variant``'s answer)."""
-    kind, ctas = choice
+def _launch(state, frame, controls, config, out, rows, choice=None):
+    """One launch of the variant ``choice`` = (kind, CTAs a lane), by
+    default :func:`variant`'s answer for this batch on this card."""
     B, N = state.mu.shape
     L = config.ekf.max_landmarks
     M = frame.ids.shape[1]
@@ -329,7 +405,13 @@ def _launch(state, frame, controls, config, out, rows, choice):
     dev = state.mu.device
     lib = _lib()
     with torch.cuda.device(dev):
-        plan = _plan(lib, torch.cuda.current_device(), kind, N, L, M, ctas)
+        dev_index = torch.cuda.current_device()
+        if choice is None:
+            kind, ctas, smem = (_choices.get((dev_index, N, M, B))
+                                or _choose(lib, dev_index, N, L, M, B))
+        else:
+            kind, ctas = choice
+            smem = _plan(lib, dev_index, kind, N, L, M, ctas)[0]
         stream = _stream(dev)
         if out is None:
             out = _outputs(state)
@@ -357,7 +439,7 @@ def _launch(state, frame, controls, config, out, rows, choice):
             int(config.ekf.symmetrize_sigma), int(cc.process_noise_uses_kl_for_both_wheels),
         )
         err = lib.ekf_frame_batched_launch(VARIANTS.index(kind), ptrs, strides, fcfg, icfg,
-                                           plan[0], stream)
+                                           smem, stream)
     _raise_on(err, lib, f"{kind} launch (N={N})")
     LAUNCHES[kind] += 1
     return out

@@ -211,12 +211,19 @@ def replay_batch(
     runs the PnP front-end on ``corners_px`` with ``camera``, "images"
     detects markers in ``images`` first (``det_chunk`` frames per detector
     call). The kernels run for CUDA tensors, their plain versions for CPU
-    tensors."""
+    tensors.
+
+    Under ``EkfConfig.fused_update`` each lane replays on its own with the
+    update that ``frame_update_for(config, batched=True)`` selects
+    (``ekf.update_fused``), as the JAX package's vmap of its single-stream
+    scan does; every other configuration runs K1 and K2."""
     if level == "images":
         data = _corner_data_from_detections(
             data, *detect_frames(data.images, det_cfg, det_chunk)
         )
         level = "corners"
+    if config.ekf.fused_update:
+        return _replay_lanes(data, config, camera, level, frame_update_for(config, batched=True))
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_batch, ekf_update_batched.frame_step_batched,
@@ -234,12 +241,15 @@ def replay_batch_reference(
 ) -> ReplayResult:
     """:func:`replay_batch` through the plain versions of every kernel
     (detector CCL, K1, K2) on any device: what a GPU run of the kernels is
-    held against."""
+    held against. Under ``fused_update`` it replays the lanes as
+    :func:`replay_batch` does (``ekf.update_fused`` has no kernel)."""
     if level == "images":
         data = _corner_data_from_detections(
             data, *detect_frames(data.images, det_cfg, det_chunk, reference=True)
         )
         level = "corners"
+    if config.ekf.fused_update:
+        return _replay_lanes(data, config, camera, level, frame_update_for(config, batched=True))
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_reference, ekf_update_batched.frame_step_reference,
@@ -288,6 +298,18 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn,
         state, spare = step(state, frame, controls, config, spare,
                             ekf_update_batched.Rows(**rows, f=f)), state
     return ReplayResult(**rows, final_state=state)
+
+
+def _replay_lanes(data, config, camera, level, update_fn) -> ReplayResult:
+    """A batch replayed lane by lane through the single-stream loop with
+    ``update_fn``; the rows and final states stacked along the batch."""
+    lanes = [_replay_single(ReplayData(*(None if x is None else x[b] for x in data)),
+                            config, camera, level, update_fn)
+             for b in range(data.obs_ids.shape[0])]
+    return ReplayResult(
+        *(torch.stack(rows) for rows in zip(*(r[:3] for r in lanes))),
+        final_state=ekf.EkfState(*(torch.cat(x) for x in zip(*(r.final_state for r in lanes)))),
+    )
 
 
 def frame_update_for(config: SlamConfig, batched: bool):

@@ -29,11 +29,18 @@ Phases (each raises on failure; the script then exits non-zero):
   2. K2 (the whole EKF frame step from the raw frame) vs its plain version
      (frame_step_inputs + the plain step) in each variant over 20
      consecutive frames of real inputs with 10 encoder ticks a frame, one
-     frame without ticks and one lane not yet initialized: smem at B=256,
-     N=99 (and 4 slots, where landmarks drop), cluster at B=32, 128 slots,
-     device at B=4, 512 slots (K2_CASES). Integer state exact; mu, sigma
-     and the rows to atol 5e-5 / rtol 5e-3. Each variant timed as K1 is
-     (exactly one device event a call) beside its plain version and bound.
+     frame without ticks and one lane not yet initialized (K2_CASES): smem
+     at B=256, N=99 (and 4 slots, where landmarks drop); cluster at 128
+     slots with B=32, 1 and 128 (CTAs a lane from the wrapper's rule);
+     device at 512 slots on phase 3b's lanes, B=4, frames 80-99. Then the
+     device variant on 4 synthetic lanes of 512 slots whose active blocks
+     straddle what a cluster holds on chip (L2_LANDMARKS: two lanes run in
+     device memory) over 6 frames. Integer state exact; mu, sigma and the
+     rows to atol 5e-5 / rtol 5e-3. Each variant timed as K1 is (exactly
+     one device event a call) beside its plain version and bound. The card's
+     cluster occupancy for G = 1..16, and the G sweep: the cluster program
+     alone at N=387 (100 landmarks a lane) for G in SWEEP_CTAS x B in
+     SWEEP_LANES, beside the rule's G.
   3. the main path: runner.replay_batch over 8 synthetic sequences (seeds
      0-7, 60 s) tiled to 256 lanes, EkfConfig(max_landmarks=32,
      max_observations_per_frame=16), the sequences' own camera. K1 and K2
@@ -251,14 +258,15 @@ def _profiled(pad=PROFILE_PADS_S[0]):
         time.sleep(pad)
 
 
-def _kernel_ms(call, part, reps=20):
+def _kernel_ms(call, part, reps=20, pads=PROFILE_PADS_S):
     """(device ms per launch of the kernels whose names hold ``part``,
     device events per call) over ``reps`` calls under torch.profiler,
     after a warm-up call: the kernel's own time, without the host time
     that separates back-to-back calls. A profile that saw fewer than
-    ``reps`` device events dropped some, and runs again in a wider window."""
+    ``reps`` device events dropped some, and runs again in a wider window
+    (the next of ``pads``; one pad: the time over the events it kept)."""
     call()
-    for pad in PROFILE_PADS_S:
+    for pad in pads:
         with _profiled(pad) as prof:
             for _ in range(reps):
                 call()
@@ -395,21 +403,75 @@ def _k2_frame(f, data, cfg, cam, ticks=True):
     return frame, ekf.Control(ew[..., 0], ew[..., 1], edt)
 
 
-# K2's cases: (what, lanes, max_landmarks). Each runs 20 consecutive frames
-# of real inputs (K1 on rendered corners, 10 encoder ticks a frame) after a
-# 20-frame warm replay; frame 25 runs with no ticks (T = 0) and lane 1 is
-# not yet initialized at frame 20.
+# K2's cases: (variant, lanes, max_landmarks, sequences, first frame). Each
+# runs 20 consecutive frames of real inputs (K1 on rendered corners, 10
+# encoder ticks a frame) after a warm replay up to its first frame; the
+# fifth frame runs with no ticks (T = 0) and lane 1 (lane 0 of one) is not
+# yet initialized at the first. "short": 32 distinct 5 s sequences;
+# "config2": phase 3b's lanes, 100 frames into config 2's tour.
 K2_CASES = (
-    ("smem", B, 32),  # the main path's shape, N = 99
-    ("smem", B, 4),  # capacity drops
-    ("cluster", 32, 128),  # BASELINE config 2's map, N = 387
-    ("device", 4, 512),  # N = 1,539
+    ("smem", B, 32, "short", 20),  # the main path's shape, N = 99
+    ("smem", B, 4, "short", 20),  # capacity drops
+    ("cluster", 32, 128, "short", 20),  # BASELINE config 2's map, N = 387
+    ("cluster", 1, 128, "short", 20),  # one lane: K6's 16 CTAs
+    ("cluster", 128, 128, "short", 20),  # more lanes than one wave of any G holds
+    ("device", DEVICE_LANES, 512, "config2", 80),  # phase 3b's lanes, N = 1,539
 )
+# The device variant's frames in device memory: 4 lanes of 512 slots whose
+# active blocks straddle what a cluster holds on chip (lanes 0 and 2 run in
+# device memory, 1 and 3 on chip), 6 frames of 9 known and 4 new markers.
+L2_LANDMARKS = (400, 60, 505, 100)
+# The G sweep: K2's cluster program at N = 387 (128 slots, 100 landmarks a
+# lane, config 2's late tour), kernel alone, at these batches and CTAs a lane.
+SWEEP_LANES, SWEEP_CTAS = (1, 4, 32, 128), (2, 3, 4, 6, 8, 16)
+
+
+def _k2_check(out, ref, what):
+    """K2's output against the plain version's: the integer state exact, mu,
+    sigma and last_obs to atol 5e-5 / rtol 5e-3; returns the max error."""
+    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged", "dropped"):
+        _require(torch.equal(getattr(out, name), getattr(ref, name)), f"K2 {what}: {name} differs")
+    err = 0.0
+    for name in ("mu", "sigma", "last_obs"):
+        a, r = getattr(out, name), getattr(ref, name)
+        _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
+                 f"K2 {what}: {name} differs by {_max_err(a, r):.3e}")
+        err = max(err, _max_err(a, r))
+    return err
+
+
+def _k2_choice(kb, n_dim, lanes):
+    """(variant, CTAs a lane) that the wrapper chose for this card."""
+    return kb._choices[(torch.cuda.current_device(), n_dim, M, lanes)][:2]
+
+
+def _k2_lanes(dev, cfg, n_lms, rng, ticks=10):
+    """Lanes of ``_k6_case`` states (n_lms[b] landmarks) with a frame of
+    ``_k6_frame`` each and ``ticks`` encoder ticks a lane."""
+    from aruco_slam_tpu_torch.models import ekf
+
+    lanes = [_k6_case(dev, cfg, n, rng) for n in n_lms]
+    state = ekf.EkfState(*(torch.cat(x) for x in zip(*lanes)))
+    frame, controls = _k2_next(state, rng, ticks)
+    return state, frame, controls
+
+
+def _k2_next(state, rng, ticks=10):
+    """A frame of ``_k6_frame`` for every lane of a batched state, and its ticks."""
+    from aruco_slam_tpu_torch.models import ekf
+
+    dev, n = state.mu.device, state.mu.shape[0]
+    frames = [_k6_frame(ekf.EkfState(*(x[b:b + 1] for x in state)), rng) for b in range(n)]
+    w = torch.as_tensor(rng.uniform(-1.0, 3.0, (n, ticks, 2)).astype(np.float32), device=dev)
+    dt = torch.as_tensor(rng.uniform(0.005, 0.02, (n, ticks)).astype(np.float32), device=dev)
+    return (ekf.FrameObservations(*(torch.cat(x) for x in zip(*frames))),
+            ekf.Control(w[..., 0], w[..., 1], dt))
 
 
 def phase2_k2(dev):
     """K2 in each variant against its plain version over 20 consecutive
-    frames; returns {variant: (max err, ms, plain ms, bound)} at the
+    frames, the device variant's frames in device memory, and the G sweep;
+    returns {variant: (max err, ms, plain ms, bound, wrapper ms)} at the
     variant's first case."""
     from aruco_slam_tpu_torch import runner
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
@@ -417,38 +479,31 @@ def phase2_k2(dev):
     from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
     cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
-    seqs = _sequences(cam, range(100, 132), 5.0)  # 32 distinct sequences
+    sources = {"short": (_sequences(cam, range(100, 132), 5.0), cam),  # 32 distinct sequences
+               "config2": _config2_arena()}
     out_stats, dropped = {}, 0
-    for kind, lanes, L in K2_CASES:
+    for kind, lanes, L, source, start in K2_CASES:
+        seqs, cam = sources[source]
         c = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
         n_dim = 3 + 3 * L
         _require(kb.variant(n_dim)[0] == kind, f"K2 at {L} landmarks: {kb.variant(n_dim)}")
         data = runner.build_batch_data(seqs, lanes, "corners", dev)
         warm = runner.replay_batch(data._replace(**{
-            k: v[:, :20] for k, v in data._asdict().items() if v is not None
+            k: v[:, :start] for k, v in data._asdict().items() if v is not None
         }), c, cam, "corners")
         state = warm.final_state
-        state.initialized[1] = False
-        F = 40
+        state.initialized[min(1, lanes - 1)] = False
+        F = start + 20
         rows = [kb.Rows(torch.zeros(lanes, F, 3, device=dev),
                         torch.zeros(lanes, F, 3, 3, device=dev),
                         torch.zeros(lanes, F, dtype=torch.int32, device=dev), 0) for _ in "ab"]
         err, before = 0.0, dict(kb.LAUNCHES)
-        for f in range(20, F):
-            frame, controls = _k2_frame(f, data, c, cam, ticks=f != 25)
+        for f in range(start, F):
+            frame, controls = _k2_frame(f, data, c, cam, ticks=f != start + 5)
             out = kb.frame_step_batched(state, frame, controls, c, rows=rows[0]._replace(f=f))
             ref = kb.frame_step_reference(state, frame, controls, c, rows=rows[1]._replace(f=f))
             torch.cuda.synchronize()
-            for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
-                         "dropped"):
-                _require(torch.equal(getattr(out, name), getattr(ref, name)),
-                         f"K2 ({kind}) {name} differs at frame {f} (N={n_dim})")
-            for name in ("mu", "sigma", "last_obs"):
-                a, r = getattr(out, name), getattr(ref, name)
-                _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
-                         f"K2 ({kind}) {name} differs at frame {f} (N={n_dim}): "
-                         f"{_max_err(a, r):.3e}")
-                err = max(err, _max_err(a, r))
+            err = max(err, _k2_check(out, ref, f"({kind}, B={lanes}, N={n_dim}) frame {f}"))
             if kind not in out_stats and f == F - 1:
                 call = lambda: kb.frame_step_batched(state, frame, controls, c)  # noqa: E731
                 ms, events = _kernel_ms(call, "ekf_frame_batched")
@@ -462,7 +517,8 @@ def phase2_k2(dev):
                 rank3 = float((6 * known * active * active).sum())
                 bound = _ekf_bound(lanes, n_dim, L, M, rank3, controls.dt.shape[1])
                 out_stats[kind] = [0.0, ms, plain, bound, wrap_ms]
-                print(f"phase 2: K2 ({kind}) B={lanes} N={n_dim} M={M} T={controls.dt.shape[1]}: "
+                print(f"phase 2: K2 ({kind}, G={_k2_choice(kb, n_dim, lanes)[1]}) B={lanes} "
+                      f"N={n_dim} M={M} T={controls.dt.shape[1]}: "
                       f"{ms:.4f} ms/launch on the device ({wrap_ms:.4f} ms/call through the "
                       f"wrapper), one device event a call, plain {plain:.4f} ms/call, bound "
                       f"{bound[0]:.5f} ms ({bound[1]}; {int(known.sum())} known observations)")
@@ -472,12 +528,89 @@ def phase2_k2(dev):
             _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3), f"K2 ({kind}) rows differ")
         out_stats[kind][0] = max(out_stats[kind][0], err)
         dropped += int(state.dropped.sum()) if L == 4 else 0
-        print(f"phase 2: K2 ({kind}) B={lanes} N={n_dim} frames 20-39 (frame 25 without ticks, "
-              f"lane 1 uninitialized at 20): landmarks {int(state.n_landmarks.min())}-"
+        print(f"phase 2: K2 ({kind}, G={_k2_choice(kb, n_dim, lanes)[1]}) B={lanes} N={n_dim} "
+              f"frames {start}-{F - 1} (frame {start + 5} without ticks, a lane uninitialized at "
+              f"{start}): landmarks {int(state.n_landmarks.min())}-"
               f"{int(state.n_landmarks.max())}, dropped {int(state.dropped.sum())}, "
               f"max |err| {err:.3e}")
     _require(dropped > 0, "the small-capacity run never dropped a landmark")
+    out_stats["device"][0] = max(out_stats["device"][0], _k2_device_memory(dev, kb))
+    _k2_sweep(dev, kb)
     return {k: tuple(v) for k, v in out_stats.items()}
+
+
+def _k2_device_memory(dev, kb):
+    """The device variant with lanes whose frame's active block runs in
+    device memory beside lanes on chip, against the plain version over 6
+    frames; returns the max error."""
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    L = 512
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+    n_dim, lanes = 3 + 3 * L, len(L2_LANDMARKS)
+    rng = np.random.default_rng(L)
+    state, frame, controls = _k2_lanes(dev, cfg, L2_LANDMARKS, rng)
+    err, before = 0.0, kb.LAUNCHES["device"]
+    for f in range(6):
+        out = kb.frame_step_batched(state, frame, controls, cfg)
+        ref = kb.frame_step_reference(state, frame, controls, cfg)
+        torch.cuda.synchronize()
+        if f == 0:
+            rows = kb.on_chip_rows("device", n_dim, M, _k2_choice(kb, n_dim, lanes)[1])
+            n_new = (frame.valid & (kb.frame_step_inputs(state, frame, controls, cfg)[7] < 0)).sum(1)
+            na = 3 + 3 * torch.clamp(state.n_landmarks + n_new, max=L)
+            in_l2 = (na > rows).tolist()
+            _require(any(in_l2) and not all(in_l2),
+                     f"expected lanes both on chip and in device memory: blocks {na.tolist()}, "
+                     f"{rows} rows on chip")
+            ms, events = _kernel_ms(lambda: kb.frame_step_batched(state, frame, controls, cfg),
+                                    "ekf_frame_batched", pads=PROFILE_PADS_S[:1])
+        err = max(err, _k2_check(out, ref, f"(device memory) frame {f}"))
+        state = out
+        frame, controls = _k2_next(state, rng)
+    _require(kb.LAUNCHES["device"] - before >= 6, "the device variant did not launch")
+    print(f"phase 2: K2 (device, G={_k2_choice(kb, n_dim, lanes)[1]}) B={lanes} N={n_dim}, "
+          f"landmarks {L2_LANDMARKS} (active blocks {na.tolist()}; {rows} rows fit on chip, lanes "
+          f"in device memory {in_l2}): 6 frames equal to the plain version, max |err| {err:.3e}; "
+          f"{ms:.4f} ms/launch on the device at the first frame; landmarks now "
+          f"{state.n_landmarks.tolist()}, dropped {state.dropped.tolist()}")
+    return err
+
+
+def _k2_sweep(dev, kb):
+    """Kernel-alone ms of K2's cluster program at N = 387 over SWEEP_CTAS x
+    SWEEP_LANES (where the stripe fits a CTA), beside the G of the wrapper's
+    rule and the card's cluster occupancy."""
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    L = 128
+    n_dim = 3 + 3 * L
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+    lib = kb._lib()
+    for kind, n in (("cluster", n_dim), ("device", 3 + 3 * 512)):
+        occ = [kb._plan(lib, torch.cuda.current_device(), kind, n, (n - 3) // 3, M, g)[1]
+               if g >= kb.min_ctas(kind, n) else None for g in range(1, 17)]
+        print(f"phase 2: K2 ({kind}, N={n}) clusters of G = 1..16 CTAs the card holds at once: "
+              f"{occ} (the wrapper's table for a host without a card: {kb.H100_CLUSTERS})")
+    rng = np.random.default_rng(387)
+    for lanes in SWEEP_LANES:
+        state, frame, controls = _k2_lanes(dev, cfg, (100,) * lanes, rng)
+        ref = kb.frame_step_reference(state, frame, controls, cfg)
+        kb.frame_step_batched(state, frame, controls, cfg)  # the rule's choice, cached
+        rule = _k2_choice(kb, n_dim, lanes)[1]
+        times = {}
+        for g in sorted(set(SWEEP_CTAS) | {rule}):
+            if kb.shared_bytes("cluster", n_dim, L, M, ctas=g) > kb.MAX_SHARED_BYTES:
+                continue
+            call = functools.partial(kb._launch, state, frame, controls, cfg, None, None,
+                                     ("cluster", g))
+            _k2_check(call(), ref, f"(cluster, B={lanes}, G={g}, sweep)")
+            times[g] = _kernel_ms(call, "ekf_frame_batched", pads=PROFILE_PADS_S[:1])[0]
+        best = min(times, key=times.get)
+        print(f"phase 2: K2 G sweep, N={n_dim}, B={lanes}, kernel alone (ms) by G: "
+              + ", ".join(f"{g}: {t:.4f}" for g, t in times.items())
+              + f"; the rule's G={rule} takes {times[rule] / times[best]:.3f}x the fastest "
+              f"(G={best})")
 
 
 def phase3_main_path(cfg, dev):
@@ -588,16 +721,12 @@ def _profile_replay(what, replay, frames):
     return n_dev / frames
 
 
-def phase3b_config2_batched(dev):
-    """The batched user with a large map: BASELINE config 2's arena at corner
-    level through runner.replay_batch, K2's cluster variant (128 slots) and
-    its device variant (512 slots), against the plain replay."""
-    from aruco_slam_tpu_torch import runner
+@functools.lru_cache(maxsize=1)
+def _config2_arena():
+    """Phase 3b's lanes: BASELINE config 2's arena (100 markers, 20 x 16 m,
+    a 210 s tour) at corner level, seeds 0-7, and their camera."""
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
-    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
-    from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
     from aruco_slam_tpu_torch.sim import synthetic
-    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
     arena = synthetic.make_arena(n_markers=100, width=20.0, height=16.0)
     seqs = [
@@ -610,7 +739,19 @@ def phase3b_config2_batched(dev):
         )
         for s in range(8)
     ]
-    cam = seqs[0].camera()
+    return seqs, seqs[0].camera()
+
+
+def phase3b_config2_batched(dev):
+    """The batched user with a large map: BASELINE config 2's arena at corner
+    level through runner.replay_batch, K2's cluster variant (128 slots) and
+    its device variant (512 slots), against the plain replay."""
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
+    from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    seqs, cam = _config2_arena()
     full = runner.build_batch_data(seqs, C2_LANES, "corners", dev)
     launches = {}
     for kind, lanes, L, frames in (("cluster", C2_LANES, 128, C2_FRAMES),

@@ -284,11 +284,13 @@ def test_frame_update_kernel_matches_plain(dev, max_lm, reject):
         assert torch.equal(getattr(still, name), getattr(state, name)), name
 
 
-def _k2_case(dev, max_lm, B=3, T=10, seed=0):
-    """B lanes of ``_k6_case`` (``max_lm - 2`` landmarks, so inserts drop),
-    lane 1 not yet initialized, with T encoder ticks each (as strided views
-    of one [B, T, 2] tensor, as the replay hands them over)."""
-    lanes = [_k6_case(dev, max_lm, max_lm - 2, seed + b) for b in range(B)]
+def _k2_case(dev, max_lm, B=3, T=10, seed=0, n_lms=None):
+    """B lanes of ``_k6_case`` (``max_lm - 2`` landmarks, so inserts drop,
+    or lane b's ``n_lms[b]``), lane 1 not yet initialized, with T encoder
+    ticks each (as strided views of one [B, T, 2] tensor, as the replay
+    hands them over)."""
+    n_lms = n_lms or (max_lm - 2,) * B
+    lanes = [_k6_case(dev, max_lm, n_lms[b], seed + b) for b in range(B)]
     cfg = lanes[0][0]
     state = ekf.EkfState(*(torch.cat(x) for x in zip(*(st for _, st, _ in lanes))))
     state = state._replace(initialized=torch.arange(B, device=dev) != 1)
@@ -299,39 +301,62 @@ def _k2_case(dev, max_lm, B=3, T=10, seed=0):
     return cfg, state, frame, ekf.Control(w[..., 0], w[..., 1], dt)
 
 
+# Lanes of different active sizes: each lane's landmarks (mixed cases only).
+# At 512 slots the first and last lanes' active blocks (1,215 and 1,539
+# rows) pass what a 16-CTA cluster holds on chip (912 rows), so they run in
+# device memory (the L2 branch) beside a lane on chip.
+_MIXED = {128: (100, 20, 126), 512: (400, 60, 510)}
+
+
 @pytest.mark.parametrize("max_lm,kind", [(8, "smem"), (kb.MAX_SMEM_LANDMARKS, "smem"),
-                                         (100, "cluster"), (kb.MAX_CLUSTER_LANDMARKS + 1, "device")])
+                                         (100, "cluster"), (kb.MAX_CLUSTER_LANDMARKS + 1, "device"),
+                                         (128, "cluster"), (512, "device")])
 @pytest.mark.parametrize("ticks", [10, 0])
 def test_frame_step_variants_match_plain(dev, max_lm, kind, ticks):
     """K2 in each variant against its plain version on one frame of known,
     new, gated, dropped and invalid observations, with and without encoder
     ticks, one lane uninitialized; the replay rows it writes; exactly one
-    device event per call."""
+    device event per call. The cluster and device variants also at the
+    fewest CTAs a lane, and with lanes of different active sizes, the
+    device variant's largest in device memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, state, frame, controls = _k2_case(dev, max_lm, T=ticks)
-    assert kb.variant(3 + 3 * max_lm)[0] == kind
+    cfg, state, frame, controls = _k2_case(dev, max_lm, T=ticks, n_lms=_MIXED.get(max_lm))
+    n = 3 + 3 * max_lm
+    assert kb.variant(n)[0] == kind
     B, F = state.mu.shape[0], 4
+    if max_lm == 512:
+        na = 3 + 3 * torch.clamp(state.n_landmarks + 4, max=max_lm)
+        rows_on_chip = kb.on_chip_rows(kind, n, frame.ids.shape[1], kb.variant(n, B)[1])
+        assert (na > rows_on_chip).tolist() == [True, False, True]
 
     def rows():
         return kb.Rows(torch.zeros(B, F, 3, device=dev), torch.zeros(B, F, 3, 3, device=dev),
                        torch.zeros(B, F, dtype=torch.int32, device=dev), 2)
 
-    got_rows, ref_rows = rows(), rows()
-    before = dict(kb.LAUNCHES)
-    out = kb.frame_step_batched(state, frame, controls, cfg, rows=got_rows)
+    ref_rows = rows()
     ref = kb.frame_step_reference(state, frame, controls, cfg, rows=ref_rows)
-    torch.cuda.synchronize()
-    assert kb.LAUNCHES == {**before, kind: before[kind] + 1}
-    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged", "dropped"):
-        assert torch.equal(getattr(out, name), getattr(ref, name)), name
-    assert int(out.dropped.sum()) > 0 and bool(out.initialized.all())
-    for name in ("mu", "sigma", "last_obs"):
-        torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5, rtol=5e-3)
-    assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
-    for a, b in zip(got_rows[:2], ref_rows[:2]):
-        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-3)
+    choices = [None] if kind == "smem" else [None, (kind, kb.min_ctas(kind, n))]
+    for choice in choices:
+        got_rows = rows()
+        before = dict(kb.LAUNCHES)
+        if choice is None:
+            out = kb.frame_step_batched(state, frame, controls, cfg, rows=got_rows)
+        else:
+            out = kb._launch(state, frame, controls, cfg, None, got_rows, choice)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES == {**before, kind: before[kind] + 1}
+        for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
+                     "dropped"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), (name, choice)
+        assert int(out.dropped.sum()) > 0 and bool(out.initialized.all())
+        for name in ("mu", "sigma", "last_obs"):
+            torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5,
+                                       rtol=5e-3)
+        assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
+        for a, b in zip(got_rows[:2], ref_rows[:2]):
+            torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         kb.frame_step_batched(state, frame, controls, cfg)
         torch.cuda.synchronize()

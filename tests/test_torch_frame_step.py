@@ -11,8 +11,8 @@
   77-landmark ceiling of K2, against JAX's ``replay_batch``.
 - The variant choice for every map size, and that a replay keeps no view
   of any per-frame state.
-- The known difference from JAX: under ``fused_update=True`` JAX's
-  ``replay_batch`` vmaps ``update_fused`` where the port runs K2.
+- ``runner.replay_batch`` under ``fused_update=True`` (each lane through
+  ``update_fused``) and ``update_backend="xla"`` against JAX's.
 """
 
 import dataclasses
@@ -141,6 +141,12 @@ def test_replay_batch_large_maps_match_jax(max_lm, level):
         convert.camera_from_numpy(cam.fx, cam.fy, cam.cx, cam.cy, cam.dist), level)
     ref = jrunner.replay_batch(jrunner.build_batch_data(seqs, 2, level), jcfg,
                                cam if level == "corners" else None, level)
+    _assert_replays_match(ours, ref)
+
+
+def _assert_replays_match(ours, ref):
+    """A port replay against JAX's: the trajectory within 1e-4, pose_cov
+    within 1e-5, landmark counts and slots exact."""
     np.testing.assert_allclose(ours.trajectory.numpy(), np.asarray(ref.trajectory), atol=1e-4)
     np.testing.assert_allclose(ours.pose_cov.numpy(), np.asarray(ref.pose_cov), atol=1e-5)
     np.testing.assert_array_equal(ours.n_landmarks.numpy(), np.asarray(ref.n_landmarks))
@@ -150,29 +156,80 @@ def test_replay_batch_large_maps_match_jax(max_lm, level):
 
 
 def test_variant_covers_every_map_size():
-    """Every max_landmarks from 1 to 1,024 has a variant, chosen by size
-    alone, whose shared-memory plan fits a CTA: smem up to 77, K6's
-    16-CTA cluster layout (plus pose, A, Q) up to 308, the device variant
-    beyond."""
+    """Every max_landmarks from 1 to 1,024 has a variant whose kind is
+    chosen by size alone and whose shared-memory plan fits a CTA at every
+    batch: smem up to 77, the cluster layout (an N x W stripe, then pose, A,
+    Q) up to 308, the device variant beyond."""
     seen = []
     for lm in range(1, 1025):
         n = 3 + 3 * lm
-        kind, ctas = kb.variant(n)
-        assert kb.shared_bytes(kind, n, lm) <= kb.MAX_SHARED_BYTES
-        if kind == "smem":
-            assert ctas == 1 and lm <= 77
-        elif kind == "cluster":
-            assert ctas == 16 and 77 < lm <= 308 and n // ctas >= 3
-            assert kb.shared_bytes(kind, n, lm) == ekf_update.cluster_shared_bytes(n, 16) + 4 * 21
-            assert kb.shared_bytes("smem", n, lm) > kb.MAX_SHARED_BYTES
-        else:
-            assert ctas == 1 and lm > 308
-            assert kb.shared_bytes("cluster", n, lm) > kb.MAX_SHARED_BYTES
+        kinds = set()
+        for lanes in (1, 4, 32, 256):
+            kind, ctas = kb.variant(n, lanes)
+            kinds.add(kind)
+            assert 1 <= ctas <= ekf_update.MAX_CLUSTER
+            assert kb.shared_bytes(kind, n, lm, ctas=ctas) <= kb.MAX_SHARED_BYTES
+            if kind == "smem":
+                assert ctas == 1 and lm <= 77
+            elif kind == "cluster":
+                assert 77 < lm <= 308 and ctas >= kb.min_ctas("cluster", n) >= 2
+                assert kb.stripe_width(n, ctas) == -(-n // ctas) >= 3
+                assert kb.on_chip_rows("cluster", n, kb.MAX_OBS, ctas) == n
+                assert kb.shared_bytes("smem", n, lm) > kb.MAX_SHARED_BYTES
+            else:
+                assert lm > 308 and kb.on_chip_rows("device", n, kb.MAX_OBS, ctas) < n
+                assert kb.shared_bytes("cluster", n, lm, ctas=16) > kb.MAX_SHARED_BYTES
+        assert len(kinds) == 1  # the kind does not depend on the batch
         if not seen or seen[-1] != kind:
             seen.append(kind)
     assert seen == ["smem", "cluster", "device"]
+    assert (kb.MAX_SMEM_LANDMARKS, kb.MAX_CLUSTER_LANDMARKS) == (77, 308)
     # the smem plan of the main path's lane, and its smallest parts
     assert kb.shared_bytes("smem", 99, 32, 16) == 4 * (99 * 99 + 8 * 99 + 384 + 21 + 96 + 32 + 8)
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 32, 256])
+@pytest.mark.parametrize("max_lm", [32, 128, 308, 512])
+def test_variant_ctas_follow_size_and_batch(max_lm, lanes):
+    """G, the CTAs a lane, at N = 99, 387, 927 and 1,539: the most CTAs
+    (up to 16) with which the B lanes' clusters still fit the card at once
+    (the H100's occupancy table), never fewer than the fewest whose stripe
+    fits a CTA; one lane keeps K6's 16. The shared bytes of each G are the
+    kernel's layout: sigma N x W (W = max(3, ceil(N / G))), mu W, B 6 W,
+    K^T 3 N, the pose block 9, the reduction 64, slots and order 2 M, then
+    pose, A, Q 21; the device variant takes all 227 KB, and the frame's
+    active block runs on chip while its stripes fit what is left."""
+    n = 3 + 3 * max_lm
+    kind, ctas = kb.variant(n, lanes)
+    assert kind == {32: "smem", 128: "cluster", 308: "cluster", 512: "device"}[max_lm]
+    if kind == "smem":
+        assert ctas == 1
+        return
+    lo = kb.min_ctas(kind, n)
+    assert lo == {128: 3, 308: 16, 512: 1}[max_lm]
+    resident = kb.H100_CLUSTERS
+    if lanes == 1:
+        assert ctas == 16
+    if resident[lo - 1] < lanes:
+        assert ctas == lo  # more than one wave whatever G: the fewest CTAs
+    else:
+        assert resident[ctas - 1] >= lanes
+        assert ctas == 16 or resident[ctas] < lanes  # one more CTA a lane: two waves
+    # a hypothetical card with room for every cluster gives 16
+    assert kb.variant(n, lanes, lambda k, g: 10**6) == (kind, 16)
+    for g in range(lo, 17):
+        w = max(3, -(-n // g))
+        want = 4 * (n * w + 7 * w + 3 * n + 9 + 64 + 2 * 16 + 21)
+        if kind == "cluster":
+            assert kb.shared_bytes(kind, n, max_lm, 16, ctas=g) == want <= kb.MAX_SHARED_BYTES
+            assert kb.on_chip_rows(kind, n, 16, g) == n
+        else:
+            assert kb.shared_bytes(kind, n, max_lm, 16, ctas=g) == kb.MAX_SHARED_BYTES < want
+            area = kb.MAX_SHARED_BYTES // 4 - (want // 4 - n * w)
+            rows = kb.on_chip_rows(kind, n, 16, g)
+            assert rows * max(3, -(-rows // g)) <= area < (rows + 3) * max(3, -(-(rows + 3) // g))
+    if kind == "device":
+        assert kb.on_chip_rows(kind, n, 16, 16) == 912  # about 300 landmarks on chip
 
 
 def test_replay_holds_no_per_frame_state(monkeypatch):
@@ -235,16 +292,24 @@ def test_replay_checks_its_first_frame_only(monkeypatch):
         runner.replay_batch(data._replace(obs_z=data.obs_z.double()), cfg)
 
 
-def test_fused_update_is_a_known_difference():
-    """Under fused_update=True JAX's replay_batch vmaps update_fused; the
-    port's replay_batch runs K2's sequential update all the same. The two
-    agree to 1e-3 (the block-LDL form is exact algebra in another order)."""
-    jcfg, cfg = _configs(8)
-    jcfg = dataclasses.replace(jcfg, ekf=dataclasses.replace(jcfg.ekf, fused_update=True))
-    cfg = dataclasses.replace(cfg, ekf=dataclasses.replace(cfg.ekf, fused_update=True))
-    seqs = [jsyn.generate_sequence(jsyn.SimParams(duration=3.0, seed=s, max_obs=6))
-            for s in range(2)]
-    ours = runner.replay_batch(runner.build_batch_data(seqs, 2, "obs", "cpu"), cfg)
-    ref = jrunner.replay_batch(jrunner.build_batch_data(seqs, 2, "obs"), jcfg)
-    np.testing.assert_allclose(ours.trajectory.numpy(), np.asarray(ref.trajectory), atol=1e-3)
-    np.testing.assert_array_equal(ours.n_landmarks.numpy(), np.asarray(ref.n_landmarks))
+def _with_ekf(configs, **ekf):
+    return tuple(dataclasses.replace(c, ekf=dataclasses.replace(c.ekf, **ekf)) for c in configs)
+
+
+@pytest.mark.parametrize("level", ["obs", "corners"])
+@pytest.mark.parametrize("ekf_options", [{"fused_update": True}, {"update_backend": "xla"}],
+                         ids=["fused_update", "xla"])
+def test_replay_batch_fused_update_matches_jax(level, ekf_options):
+    """Under fused_update=True JAX's replay_batch vmaps its single-stream
+    scan with update_fused, and the port replays each lane with
+    update_fused; under update_backend="xla" JAX vmaps ekf.update, the
+    sequential algebra of the port's K2. Both as the large-map parity test
+    holds them: 2 lanes, 30 frames, 8 slots."""
+    jcfg, cfg = _with_ekf(_configs(8), **ekf_options)
+    seqs, cam = _large_map_data(level)
+    ours = runner.replay_batch(
+        runner.build_batch_data(seqs, 2, level, "cpu"), cfg,
+        convert.camera_from_numpy(cam.fx, cam.fy, cam.cx, cam.cy, cam.dist), level)
+    ref = jrunner.replay_batch(jrunner.build_batch_data(seqs, 2, level), jcfg,
+                               cam if level == "corners" else None, level)
+    _assert_replays_match(ours, ref)

@@ -297,7 +297,7 @@ class _RefusingK2:
 
     def ekf_frame_batched_plan(self, variant, N, L, M, G, smem, resident):
         kind = ekf_update_batched.VARIANTS[variant]
-        smem._obj.value = ekf_update_batched.shared_bytes(kind, N, L, M)
+        smem._obj.value = ekf_update_batched.shared_bytes(kind, N, L, M, G)
         resident._obj.value = 1
         return 0
 
@@ -352,11 +352,12 @@ def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, k
 def test_shared_memory_budget():
     """K2's smem variant holds the main path's lane (N = 99) in 46,456
     bytes and every map up to 77 landmarks; its cluster variant reaches as
-    far as K6's; beyond that the device variant takes every size."""
+    far as K6's; beyond that the device variant takes every size, on 16
+    CTAs for one lane."""
     assert ekf_update_batched.shared_bytes("smem", 99, 32) == 46_456  # main path: N = 99
     assert ekf_update_batched.MAX_SMEM_LANDMARKS == 77
     assert ekf_update_batched.MAX_CLUSTER_LANDMARKS == ekf_update.MAX_CLUSTER_LANDMARKS == 308
-    assert ekf_update_batched.variant(3 + 3 * 309) == ("device", 1)
+    assert ekf_update_batched.variant(3 + 3 * 309) == ("device", 16)
 
 
 def test_lookup_slots_never_argmaxes_bool(monkeypatch):

@@ -26,14 +26,33 @@ max_observations_per_frame=16):
     state and the rows, and their aliasing);
   - ``check_per_frame_us``: what the checks cost the replay per frame (the
     parent checks every frame; later versions check the first frame only).
+With ``--k2`` it measures instead, from the same inputs in both checkouts
+(chip_smoke.py's helpers, from this tree):
+  - ``k2_cluster_ms``: K2 alone (torch.profiler, 20 launches) at B = 32,
+    N = 387 on frame 39 of phase 2's 32 short sequences; ``k2_cluster_dense_ms``
+    on 32 synthetic lanes of 100 landmarks (config 2's late tour);
+  - ``k2_device_ms``: K2 alone at B = 4, N = 1,539 on frame 99 of phase 3b's
+    lanes; ``k2_device_l2_ms`` on 4 synthetic lanes of 400, 60, 505 and 100
+    landmarks (the first and third run in device memory);
+  - ``c2_fps_128`` / ``c2_fps_512``: phase 3b's replays, 32 lanes x 300
+    frames at 128 slots and 4 lanes x 100 frames at 512 (frames/s, median
+    of 3, CUDA events);
+  - ``k6_ms_195`` / ``k6_ms_387`` / ``k6_ms_1539``: K6 alone on phase 6's
+    synthetic states (40, 100 and 300 landmarks at 64, 128 and 512 slots).
+
+    python3 tools/port_ab.py [--k2] PATH_A PATH_B
+
 Then a table of the medians per checkout. Needs one CUDA card.
 """
 
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
 
 
 def _profile(torch, fn):
@@ -117,6 +136,76 @@ def measure(root):
     return out
 
 
+def _smoke():
+    """chip_smoke.py of this tree, as a module (its helpers import the port
+    from sys.path, so they run the checkout under measure)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure_k2(root):
+    """One ``--k2`` run's numbers for the checkout at ``root``."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    cs = _smoke()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    M = cs.M
+
+    def config(L):
+        return SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+
+    def k2_ms(state, frame, controls, cfg):
+        return cs._kernel_ms(lambda: kb.frame_step_batched(state, frame, controls, cfg),
+                             "ekf_frame_batched")[0]
+
+    def replayed(seqs, cam, lanes, L, f):
+        """The state after frames 0..f-1 of the lanes and frame f's inputs."""
+        cfg = config(L)
+        data = runner.build_batch_data(seqs, lanes, "corners", dev)
+        head = data._replace(**{k: v[:, :f] for k, v in data._asdict().items() if v is not None})
+        state = runner.replay_batch(head, cfg, cam, "corners").final_state
+        return (state, *cs._k2_frame(f, data, cfg, cam), cfg)
+
+    out = {}
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    out["k2_cluster_ms"] = k2_ms(*replayed(cs._sequences(cam, range(100, 132), 5.0), cam, 32,
+                                           128, 39))
+    rng = np.random.default_rng(387)
+    out["k2_cluster_dense_ms"] = k2_ms(*cs._k2_lanes(dev, config(128), (100,) * 32, rng),
+                                       config(128))
+    seqs, cam = cs._config2_arena()
+    out["k2_device_ms"] = k2_ms(*replayed(seqs, cam, 4, 512, 99))
+    rng = np.random.default_rng(512)
+    out["k2_device_l2_ms"] = k2_ms(*cs._k2_lanes(dev, config(512), (400, 60, 505, 100), rng),
+                                   config(512))
+    full = runner.build_batch_data(seqs, 32, "corners", dev)
+    for key, lanes, L, frames in (("c2_fps_128", 32, 128, 300), ("c2_fps_512", 4, 512, 100)):
+        data = full._replace(**{k: v[:lanes, :frames] for k, v in full._asdict().items()
+                                if v is not None})
+        times = [cs._timed(lambda: runner.replay_batch(data, config(L), cam, "corners"))
+                 for _ in range(4)][1:]  # the first builds the plans
+        out[key] = lanes * frames / statistics.median(times)
+    for L, n_lm in ((64, 40), (128, 100), (512, 300)):
+        cfg = config(L)
+        rng = np.random.default_rng(L)
+        state = cs._k6_case(dev, cfg, n_lm, rng)
+        frame = cs._k6_frame(state, rng)
+        out[f"k6_ms_{3 + 3 * L}"] = cs._kernel_ms(lambda: k6.frame_update(state, frame, cfg),
+                                                  "ekf_frame_update")[0]
+    return out
+
+
 def _check_costs(torch, runner, data, cfg, res):
     """Host microseconds of K2's input checks on the replay's last frame."""
     import time
@@ -157,19 +246,24 @@ def _check_costs(torch, runner, data, cfg, res):
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(Path(sys.argv[2]).resolve())))
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] in ("--measure", "--measure-k2"):
+        fn = measure if args[0] == "--measure" else measure_k2
+        print(json.dumps(fn(Path(args[1]).resolve())))
         return 0
-    if len(sys.argv) != 3:
+    mode = "--measure"
+    if args[:1] == ["--k2"]:
+        mode, args = "--measure-k2", args[1:]
+    if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    roots = {"A": Path(sys.argv[1]).resolve(), "B": Path(sys.argv[2]).resolve()}
+    roots = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())
     runs = {"A": [], "B": []}
     for which in "ABBA":
-        proc = subprocess.run([sys.executable, __file__, "--measure", str(roots[which])],
+        proc = subprocess.run([sys.executable, __file__, mode, str(roots[which])],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
