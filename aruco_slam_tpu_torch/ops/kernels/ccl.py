@@ -5,8 +5,12 @@ frames, in two bodies chosen by the frame's shape alone (:func:`body`):
 - ``"cluster"``: one frame per cluster of 8 CTAs, each owning a band of
   rows whose labels and masks stay in its shared memory (every frame whose
   band fits 227 KB: the detector's 480x640 bucket);
-- ``"block"``: one thread block per frame, the working images in device
-  memory (every other frame, 1920x1080 included).
+- ``"block"``: every other frame (1280x720, 1920x1080, any H and W), cut
+  into tiles of at most 64 rows by 2048 pixels, a CTA a tile, the tiles of
+  a frame a team of CTAs that meets at a barrier in device memory, in one
+  cooperative launch that holds as many teams as fit the card
+  (:func:`block_plan`). A tile's labels and masks stay in its CTA's shared
+  memory where the frame's team fits the card's SMs, else in device memory.
 
 Counterpart of ``aruco_slam_tpu.ops.kernels.ccl``:
 
@@ -33,6 +37,7 @@ the plain threshold and close around K5 / K5s, as the JAX detector does.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -59,26 +64,44 @@ CLUSTER_CTAS = 8
 MAX_BAND_ROWS, MAX_ROW_PIXELS = 64, 1024
 MAX_SHARED_BYTES = 232_448
 
+# The block body's geometry (csrc/ccl.cu: tile_layout): the tallest and
+# widest tile (a tile column's and a lane's share of a tile row's mask bits
+# in one 64-bit register), and the SMs of an H100 SXM, which stand in for
+# the card's own count where there is no card.
+MAX_TILE_ROWS, MAX_TILE_WIDTH = 64, 2048
+H100_SMS = 132
+# The plan's cost of a team barrier, in tile pixels: about 3 us against
+# about 6.5 ns a tile pixel for a whole K3 (the cluster body's 0.26 ms for
+# a band of 38,400 pixels), at about 20 barriers a frame.
+BARRIER_PIXELS = 9_000
+
 _VARIANTS = {name: i for i, name in enumerate(NAMES)}  # csrc ccl_cluster_plan
 _plans: set = set()  # (device index, entry point, h, w, stride) planned
+_block_sms: dict = {}  # (device index, entry point): SMs the block body may use
+_barriers: dict = {}  # (device index, stream): the block body's team barrier words
+MAX_TEAMS = 4096  # teams a barrier buffer serves
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _lib():
     lib = _build.load("ccl")
     if lib.ccl_threshold_union_launch.argtypes is None:
-        thr = [_P, _I] + [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P]
+        block = [_I] * 4 + [_P, _L, _P, _L, _P, _I, _P]  # tile geometry .. body, stream
+        thr = [_P, _I] + [_P] * 4 + [_I] * 5 + [_F, _I, _I] + block
         lib.ccl_threshold_union_launch.argtypes = thr
         lib.ccl_threshold_launch.argtypes = thr
-        lab = [_P, _P, _P, _P] + [_I] * 5 + [_P]
+        lab = [_P, _P, _P] + [_I] * 4 + block
         lib.ccl_label_launch.argtypes = lab
         lib.ccl_label_seeded_launch.argtypes = lab
         lib.ccl_cluster_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
+        lib.ccl_block_plan.argtypes = [_I, ctypes.POINTER(_I)]
         for fn in (lib.ccl_threshold_union_launch, lib.ccl_threshold_launch,
-                   lib.ccl_label_launch, lib.ccl_label_seeded_launch, lib.ccl_cluster_plan):
+                   lib.ccl_label_launch, lib.ccl_label_seeded_launch, lib.ccl_cluster_plan,
+                   lib.ccl_block_plan):
             fn.restype = _I
         lib.ccl_error_string.argtypes = [_I]
         lib.ccl_error_string.restype = ctypes.c_char_p
@@ -121,6 +144,75 @@ def body(h: int, w: int, stride: int | None = None) -> str:
     """The kernel body for ``h x w`` frames, by shape alone: ``"cluster"``
     where :func:`cluster_shared_bytes` takes the frame, else ``"block"``."""
     return "cluster" if cluster_shared_bytes(h, w, stride) is not None else "block"
+
+
+class BlockPlan(NamedTuple):
+    """The block body's launch for a chunk of ``n`` h x w frames."""
+
+    tile_rows: int
+    tile_width: int  # a multiple of 32; the last tile across may hold fewer pixels
+    tiles_x: int
+    tiles_y: int
+    teams: int  # frames in flight, a team of CTAs each
+    ctas: int  # CTAs a team: its tiles, or every SM where the tiles spill
+    spilled: bool  # the tiles' workspaces in device memory (more tiles than SMs)
+    smem_bytes: int  # a CTA's shared memory (0 where spilled)
+    work_words: int  # the spilled workspaces (0 where resident)
+
+
+def block_tile_words(rows: int, width: int, shared: bool = True) -> int | None:
+    """4-byte words of a ``rows x width`` tile's workspace in the block
+    body, or None where the tile does not take it: at most 64 rows, a width
+    that is a multiple of 32 and at most 2048 and, in shared memory, within
+    227 KB. The tile's labels, the halo rows and columns, three bit masks
+    with a ring of the neighbours' bits, and each 32-pixel word's first and
+    last pre-step label (the Jacobi step's). Mirrors csrc ``tile_layout``."""
+    if not (1 <= rows <= MAX_TILE_ROWS and 32 <= width <= MAX_TILE_WIDTH and width % 32 == 0):
+        return None
+    wq = width // 32
+    words = rows * width + 2 * (width + 2) + 2 * rows + (3 * rows + 8) * (wq + 2) + 2 * rows * wq
+    return None if shared and words > MAX_SHARED_BYTES // 4 else words
+
+
+def block_scratch_words(h: int, w: int, plan: BlockPlan, stride: int | None = None) -> int:
+    """A team's exchange scratch in 4-byte words: the threshold's two cell
+    grids (``stride``: the fused threshold's, None for K5 / K5s), each tile
+    row's edge rows and run summaries, each tile column's edge columns and
+    run summaries. Mirrors csrc ``team_words``."""
+    cells = (h // stride) * (w // stride) if stride else 0
+    return 2 * cells + 4 * plan.tiles_y * w + 4 * plan.tiles_x * h
+
+
+def block_plan(h: int, w: int, n: int, sms: int = H100_SMS) -> BlockPlan:
+    """The block body's geometry for ``n`` h x w frames on a card of
+    ``sms`` SMs, a CTA on each at most. Tiles as wide as the frame up to
+    2048 pixels (wider frames in equal tiles, a multiple of 32 wide); the
+    tile height that fills the card best: the fewest waves of frames times
+    a wave's cost, a tile's pixels plus ``BARRIER_PIXELS``. Where no tile
+    height lets a frame's tiles fit the SMs at once, 64-row tiles whose
+    workspaces spill to device memory, one team on every SM."""
+    tiles_x = -(-w // MAX_TILE_WIDTH)
+    width = 32 * -(-(-(-w // tiles_x)) // 32)  # ceil(w / tiles_x) up to whole words
+    best = None
+    for rows in range(1, min(MAX_TILE_ROWS, h) + 1):
+        words = block_tile_words(rows, width)
+        if words is None:
+            break
+        tiles_y = -(-h // rows)
+        tiles = tiles_x * tiles_y
+        if tiles > sms:
+            continue
+        teams = min(n, sms // tiles)
+        cost = -(-n // teams) * (rows * width + BARRIER_PIXELS)
+        if best is None or cost < best[0]:
+            best = (cost, BlockPlan(rows, width, tiles_x, tiles_y, teams, tiles, False,
+                                    4 * words, 0))
+    if best is not None:
+        return best[1]
+    rows = min(MAX_TILE_ROWS, h)
+    tiles_y = -(-h // rows)
+    return BlockPlan(rows, width, tiles_x, tiles_y, 1, sms, True, 0,
+                     tiles_x * tiles_y * block_tile_words(rows, width, shared=False))
 
 
 def fused_threshold_ok(h: int, w: int, stride: int) -> bool:
@@ -274,17 +366,59 @@ def _plan_cluster(lib, name: str, h: int, w: int, stride: int | None) -> None:
     _plans.add(key)
 
 
+def _barrier(dev: torch.device) -> Tensor:
+    """The block body's team barrier words for the device and its current
+    stream: cleared once; every launch leaves each team's arrivals at 0."""
+    key = (dev.index, _stream(dev))
+    bar = _barriers.get(key)
+    if bar is None:
+        bar = _barriers[key] = torch.zeros(2 * MAX_TEAMS, dtype=torch.int32, device=dev)
+    return bar
+
+
+def _block_args(lib, name: str, img: Tensor, stride: int | None):
+    """The block body's launch arguments for the chunk ``img [N, H, W]``
+    (tile geometry, team scratch, spilled workspaces, barrier words), from
+    its plan on this card: the SMs found once per device and entry point
+    (which also sets the kernel's shared-memory attribute). Also returns
+    the buffers the arguments point into, to be held until the launch is
+    queued."""
+    N, h, w = img.shape
+    key = (torch.cuda.current_device(), name)
+    sms = _block_sms.get(key)
+    if sms is None:
+        count = ctypes.c_int()
+        _raise_on(lib.ccl_block_plan(_VARIANTS[name], ctypes.byref(count)), lib,
+                  f"{name} block plan")
+        if not 1 <= count.value <= MAX_TEAMS:
+            raise RuntimeError(f"{name}: the block body's CTA cannot be resident "
+                               f"({count.value} SMs hold one)")
+        sms = _block_sms[key] = count.value
+    plan = block_plan(h, w, N, sms)
+    words = block_scratch_words(h, w, plan, stride)
+    scratch = torch.empty(plan.teams * words, dtype=torch.int32, device=img.device)
+    work = (torch.empty(plan.work_words, dtype=torch.int32, device=img.device)
+            if plan.spilled else None)
+    return (plan.tile_rows, plan.tile_width, plan.teams, plan.ctas, scratch.data_ptr(), words,
+            _ptr(work), plan.work_words, _barrier(img.device).data_ptr()), (scratch, work)
+
+
+_NO_BLOCK_ARGS = (0, 0, 0, 0, None, 0, None, 0, None)
+
+
 def _launch_label(fg, rounds, init, kind):
     N, h, w = fg.shape
     name = "label_components" if init is None else "label_components_seeded"
     lab = torch.empty(N, h * w, dtype=torch.int32, device=fg.device)
-    tmp = torch.empty_like(lab) if kind == "block" else None
     lib = _lib()
     with torch.cuda.device(fg.device):
         if kind == "cluster":
             _plan_cluster(lib, name, h, w, None)
+            block = _NO_BLOCK_ARGS
+        else:
+            block, _buffers = _block_args(lib, name, fg, None)
         fn = lib.ccl_label_launch if init is None else lib.ccl_label_seeded_launch
-        err = fn(fg.data_ptr(), _ptr(init), lab.data_ptr(), _ptr(tmp), N, h, w, rounds,
+        err = fn(fg.data_ptr(), _ptr(init), lab.data_ptr(), N, h, w, rounds, *block,
                  int(kind == "cluster"), _stream(fg.device))
     _raise_on(err, lib, f"{name} ({kind} body)")
     LAUNCHES[f"{name}.{kind}"] += 1
@@ -300,21 +434,18 @@ def _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union, kind
     lab = torch.empty(N, h * w, dtype=torch.int32, device=dev)
     fg_c = torch.empty_like(fg) if union else None
     lab_c = torch.empty_like(lab) if union else None
-    tmp = grid = dil = None
-    if kind == "block":  # the block body's working images
-        tmp = torch.empty_like(lab)
-        grid = torch.empty(N, 2, (h // stride) * (w // stride), dtype=torch.float32, device=dev)
-        dil = torch.empty_like(fg) if union else None
     lib = _lib()
     with torch.cuda.device(dev):
         if kind == "cluster":
             _plan_cluster(lib, name, h, w, stride)
+            block = _NO_BLOCK_ARGS
+        else:
+            block, _buffers = _block_args(lib, name, img, stride)
         fn = lib.ccl_threshold_union_launch if union else lib.ccl_threshold_launch
         err = fn(
             img.data_ptr(), int(img.dtype == torch.uint8), fg.data_ptr(), lab.data_ptr(),
-            _ptr(fg_c), _ptr(lab_c), _ptr(dil), _ptr(tmp), _ptr(grid),
-            N, h, w, stride, r_ds, float(C), rounds, closed_rounds,
-            int(kind == "cluster"), _stream(dev),
+            _ptr(fg_c), _ptr(lab_c), N, h, w, stride, r_ds, float(C), rounds, closed_rounds,
+            *block, int(kind == "cluster"), _stream(dev),
         )
     _raise_on(err, lib, f"{name} ({kind} body)")
     LAUNCHES[f"{name}.{kind}"] += 1

@@ -43,6 +43,7 @@
 // by another block is read with __ldcg (at L2). No -rdc build is needed.
 
 #include "ekf_frame_common.cuh"
+#include "grid_barrier.cuh"
 
 namespace {
 
@@ -71,27 +72,6 @@ ekf_frame_update_cluster_kernel(Io io, Cfg cfg) {
 // ===========================================================================
 // Variant 2: a cooperative grid, sigma in device memory
 // ===========================================================================
-
-// Barrier across the whole grid. bar[0] counts arrivals and is left at 0 by
-// the last arrival; bar[1] is a generation that only grows. Cleared once
-// when the buffer is made; valid only under a cooperative launch.
-__device__ void grid_barrier(unsigned int* bar, unsigned int nblocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;  // cannot move before this block arrives
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads)
 ekf_frame_update_grid_kernel(Io io, float* scratch,  // [2, 3, N] B / sigma_mx

@@ -6,7 +6,8 @@ replay (256 lanes x 600 frames, K1 + K2's smem variant; BASELINE config 2's
 arena at 128 and 512 landmarks, K2's cluster and device variants), batched
 image-level replay (32 lanes
 x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
-detection of rendered 1920x1080 frames (K3-K5s in their block body),
+detection of rendered 1920x1080 frames (K3-K5s in their block body: a frame
+in tiles over many SMs),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
 cluster variant; 512 landmarks, its grid variant), the streaming
 SlamSystem (60 rendered frames, K3 + K6) and the smoothing back-end (config
@@ -61,12 +62,18 @@ Phases (each raises on failure; the script then exits non-zero):
      rendered 640x480 frames at varied poses, 8 uniform-noise frames and 2
      frames drawn across its band edges (a serpentine through all 8 bands
      that the bounded rounds leave unconverged; components on every band
-     edge), and K5 / K5s on that mask itself; the block body (a block per
-     frame) on 2 rendered 1920x1080 frames. Each launch's body is the one
-     its shape selects. K3 timed in both bodies at 1, 16 and 128 640x480
-     frames; each variant and body at its path's chunk (128 640x480 frames,
-     HD_CHUNK 1920x1080 frames) beside the plain version's, and the cluster
-     body at 16 640x480 frames too.
+     edge), and K5 / K5s on that mask itself; the block body (a frame in
+     tiles, a CTA a tile, ccl.block_plan) on rendered 1280x720 and
+     1920x1080 frames at 1 and HD_CHUNK frames, uint8 and float32, on one
+     1084x1920 frame (its height no multiple of the tiles'), and K5 / K5s
+     on a 1920x1080 mask drawn across the tiles of the 1- and HD_CHUNK-frame
+     plans (a serpentine through every tile, components on the tile edges,
+     runs across the row splits; unconverged). Each launch's body is the
+     one its shape selects. K3 timed in both bodies at 1, 16 and 128
+     640x480 frames; each variant and body at its path's chunk (128 640x480
+     frames, HD_CHUNK 1920x1080 frames) beside the plain version's, the
+     cluster body at 16 640x480 frames and the block body at 1 1920x1080
+     frame and HD_CHUNK 1280x720 frames too, each beside its bound.
   5. the image-level path at bench.py's shape (BASELINE.md config 3b):
      runner.replay_batch(..., "images") over 2 rendered sequences (seeds 0
      and 1, 6 s at 10 Hz) tiled to 32 lanes, EkfConfig(max_landmarks=32,
@@ -159,7 +166,8 @@ IMG_B, IMG_SECONDS = 32, 6.0
 # 0.15 ms/frame at 128, with a peak of 1.8 GiB (PERF.md, section 5).
 IMG_CHUNK = 128
 # 1920x1080 frames per detector call on the block body's path (the frames a
-# 1080p camera's user detects in one call; 16 blocks of the 132 SMs).
+# 1080p camera's user detects in one call; two frames at a time in flight,
+# each in 64 tiles on its own SMs).
 HD_CHUNK = 16
 # Phase 3b: BASELINE config 2's arena at corner level, batched: lanes and
 # frames at 128 slots (K2's cluster variant), and at 512 slots (its device
@@ -799,14 +807,16 @@ def _poses(n, seed=4):
     return poses
 
 
-def _render_hd(n, dev):
-    """n 1920x1080 frames of the 20-marker arena at varied poses."""
+def _render_hd(n, dev, h=1080, w=1920):
+    """n h x w frames (1920x1080 by default) of the 20-marker arena at
+    varied poses, the camera's focal length in proportion to the width."""
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
     from aruco_slam_tpu_torch.sim import renderer, synthetic
 
+    f = 1800.0 * w / 1920
     return renderer.render_poses(_poses(n, 5), synthetic.make_arena(n_markers=20),
-                                 CameraIntrinsics.create(1800.0, 1800.0, 960.0, 540.0),
-                                 height=1080, width=1920, device=dev)
+                                 CameraIntrinsics.create(f, f, w / 2, h / 2),
+                                 height=h, width=w, device=dev)
 
 
 def _band_crossing_mask(h=480, w=640, bands=8):
@@ -827,10 +837,37 @@ def _band_crossing_mask(h=480, w=640, bands=8):
     return fg
 
 
+def _tile_crossing_mask(h, w, band_rows, seg):
+    """A serpentine that winds down through every band of ``band_rows``
+    rows (the block body's tiles; the bounded rounds do not converge on
+    it), components that end on, start on and straddle band edges, and
+    short runs that end on, start on and cross the row splits every ``seg``
+    pixels (tests/torch_ccl_masks.py)."""
+    fg = np.zeros((h, w), bool)
+    for y in range(2, h - 2, 4):
+        fg[y, 4:w - 4] = True
+        fg[y + 1: y + 4, w - 5 if (y // 4) % 2 == 0 else 4] = True
+    fg[:, w // 2 - 20: w // 2 - 18] = False  # two windings
+    span = max(1, w - 100)
+    for i, y in enumerate(range(band_rows, h, band_rows * max(1, 8 // band_rows))):
+        x = 40 + (60 * i) % span
+        fg[max(0, y - 3): y, x: x + 20] = True  # ends on the edge
+        fg[y: y + 3, x + 10: x + 30] = True  # starts on it
+        fg[y - 1: y + 1, 10: 20] = True  # straddles it
+    rows = list(range(4, h - 4, 4))
+    for k, x in enumerate(range(seg, w - 8, seg)):
+        y = rows[k % len(rows)]
+        fg[y, x - 6: x + 6] = True  # across the split
+        fg[rows[(k + len(rows) // 2) % len(rows)], x - 5: x] = True  # ends on it
+    return fg
+
+
 def _frames_for_ccl(dev):
     """Phase 4's inputs: 32 rendered 640x480 frames (the 20-marker arena at
     varied poses), 8 uniform-noise frames, 2 frames drawn across the
-    cluster body's band edges, 2 rendered 1920x1080 frames."""
+    cluster body's band edges; HD_CHUNK rendered 1280x720 and 1920x1080
+    frames, and one 1084x1920 frame (the block body's tiles do not divide
+    its height)."""
     from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
     from aruco_slam_tpu_torch.sim import renderer, synthetic
 
@@ -851,7 +888,9 @@ def _frames_for_ccl(dev):
     edges = np.where(_band_crossing_mask(), 20, 200).astype(np.uint8)
     bands = torch.as_tensor(np.stack([snake, edges]), device=dev)
     return {"rendered 640x480": vga, "noise 640x480": noise, "band-crossing 640x480": bands,
-            "rendered 1920x1080": _render_hd(2, dev)}
+            "rendered 1280x720": _render_hd(HD_CHUNK, dev, 720, 1280),
+            "rendered 1920x1080": _render_hd(HD_CHUNK, dev),
+            "rendered 1084x1920": _render_hd(1, dev, 1084, 1920)}
 
 
 # bytes per pixel in + out, and operations per pixel, of each CCL variant
@@ -884,35 +923,70 @@ def phase4_ccl(dev):
             key = f"{name}.{kind}"
             err[key] = max(err[key], _max_err(a.to(torch.int64), b.to(torch.int64)))
 
+    def check_all(img, what, kind):
+        before = dict(ccl.LAUNCHES)
+        ref = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+        check("threshold_label_union", ccl.threshold_label_union(img, r, C, s, r1, r2),
+              ref, what, kind)
+        check("threshold_label", ccl.threshold_label(img, r, C, s, r1),
+              ccl.threshold_label_reference(img, r, C, s, r1), what, kind)
+        fg, lab, fg_c, _ = ref
+        for mask in (fg, fg_c):
+            check("label_components", (ccl.label_components(mask, r1),),
+                  (ccl.label_components_reference(mask, r1),), what, kind)
+        seed = lab.reshape(fg.shape)
+        check("label_components_seeded", (ccl.label_components(fg_c, r2, init=seed),),
+              (ccl.label_components_reference(fg_c, r2, init=seed),), what, kind)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in ccl.LAUNCHES.items() if v != before[k]}
+        _require(used == {f"threshold_label_union.{kind}": 1, f"threshold_label.{kind}": 1,
+                          f"label_components.{kind}": 2,
+                          f"label_components_seeded.{kind}": 1},
+                 f"{what}: launches {used}, expected the {kind} body")
+        return float(fg.float().mean())
+
     inputs = _frames_for_ccl(dev)
     for what, frames in inputs.items():
         h, w = frames.shape[1:]
         kind = ccl.body(h, w, s)
         _require(kind == ccl.body(h, w) == ("block" if w > 1024 else "cluster"),
                  f"{what}: body {kind}")
-        for i in range(0, frames.shape[0], 16):
-            img = frames[i: i + 16].contiguous()
-            before = dict(ccl.LAUNCHES)
-            ref = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
-            check("threshold_label_union", ccl.threshold_label_union(img, r, C, s, r1, r2),
-                  ref, what, kind)
-            check("threshold_label", ccl.threshold_label(img, r, C, s, r1),
-                  ccl.threshold_label_reference(img, r, C, s, r1), what, kind)
-            fg, lab, fg_c, _ = ref
-            for mask in (fg, fg_c):
-                check("label_components", (ccl.label_components(mask, r1),),
-                      (ccl.label_components_reference(mask, r1),), what, kind)
-            seed = lab.reshape(fg.shape)
-            check("label_components_seeded", (ccl.label_components(fg_c, r2, init=seed),),
-                  (ccl.label_components_reference(fg_c, r2, init=seed),), what, kind)
-            torch.cuda.synchronize()
-            used = {k: v - before[k] for k, v in ccl.LAUNCHES.items() if v != before[k]}
-            _require(used == {f"threshold_label_union.{kind}": 1, f"threshold_label.{kind}": 1,
-                              f"label_components.{kind}": 2,
-                              f"label_components_seeded.{kind}": 1},
-                     f"{what}: launches {used}, expected the {kind} body")
-        print(f"phase 4: K3 K4 K5 K5s ({kind} body) bit-identical to plain on "
-              f"{frames.shape[0]} {what} frames (foreground {float(fg.float().mean()):.3f})")
+        if kind == "cluster":  # the cluster body's path: chunks of 16
+            for i in range(0, frames.shape[0], 16):
+                dens = check_all(frames[i: i + 16].contiguous(), what, kind)
+            print(f"phase 4: K3 K4 K5 K5s ({kind} body) bit-identical to plain on "
+                  f"{frames.shape[0]} {what} frames (foreground {dens:.3f})")
+            continue
+        # the block body: one frame (spread over the card) and the chunk
+        # (frames in flight side by side), uint8 and float32
+        for n in sorted({1, frames.shape[0]}):
+            for dtype in (torch.uint8, torch.float32):
+                img = frames[:n].to(dtype).contiguous()
+                dens = check_all(img, what, kind)
+                plan = ccl.block_plan(h, w, n)
+                print(f"phase 4: K3 K4 K5 K5s ({kind} body) bit-identical to plain on {n} {what} "
+                      f"{str(dtype)[6:]} frames (foreground {dens:.3f}; tiles of "
+                      f"{plan.tile_rows}x{plan.tile_width}, {plan.tiles_x * plan.tiles_y} a "
+                      f"frame, {plan.teams} frames in flight)")
+
+    # K5 and K5s at 1920x1080 on a mask drawn across the block body's tiles
+    # for one frame and for the chunk
+    for n in (1, HD_CHUNK):
+        plan = ccl.block_plan(1080, 1920, n)
+        mask = _tile_crossing_mask(1080, 1920, plan.tile_rows, plan.tile_width // 32)
+        fg = torch.as_tensor(mask, device=dev)[None].repeat(n, 1, 1).contiguous()
+        ref = ccl.label_components_reference(fg, r1)
+        check("label_components", (ccl.label_components(fg, r1),), (ref,),
+              f"the {n}-frame tile-crossing mask", "block")
+        seed = ref.reshape(fg.shape)
+        check("label_components_seeded", (ccl.label_components(fg, r2, init=seed),),
+              (ccl.label_components_reference(fg, r2, init=seed),),
+              f"the {n}-frame tile-crossing mask", "block")
+        parts = int(torch.unique(ref[0][fg[0].reshape(-1)]).numel())
+        _require(parts > 16, f"the 1920x1080 tile-crossing mask converged ({parts} labels)")
+        print(f"phase 4: K5, K5s (block body) bit-identical to plain on {n} 1920x1080 "
+              f"tile-crossing masks (tiles of {plan.tile_rows} rows; {parts} labels left on its "
+              f"foreground by {r1} rounds: unconverged)")
 
     # K5 and K5s on the band-crossing mask itself
     mask = torch.as_tensor(_band_crossing_mask(), device=dev)[None].contiguous()
@@ -941,11 +1015,15 @@ def phase4_ccl(dev):
         print(f"phase 4: K3 at {n} frames 640x480: cluster body {t['cluster']:.4f} ms, block "
               f"body {t['block']:.4f} ms")
 
+    # each variant at its body's path chunk (the kernels line's row: 128
+    # 640x480 frames, HD_CHUNK 1920x1080 frames), then at the other sizes
     out = {}
-    hd = _render_hd(HD_CHUNK, dev)
+    hd = inputs["rendered 1920x1080"]
     for kind, img, what in (("cluster", vga128, "128 frames 640x480"),
                             ("cluster", vga128[:16].contiguous(), "16 frames 640x480"),
-                            ("block", hd, f"{HD_CHUNK} frames 1920x1080")):
+                            ("block", hd, f"{HD_CHUNK} frames 1920x1080"),
+                            ("block", hd[:1].contiguous(), "1 frame 1920x1080"),
+                            ("block", inputs["rendered 1280x720"], f"{HD_CHUNK} frames 1280x720")):
         fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
         seed = lab.reshape(fg.shape)
         runs = {
@@ -964,12 +1042,13 @@ def phase4_ccl(dev):
         for name, (kern, plain) in runs.items():
             key = f"{name}.{kind}"
             ms = _cuda_time(kern, 10)
-            if key in out:  # the body at a second chunk size: its time beside
-                print(f"phase 4: {key} {ms:.4f} ms/launch ({what})")
-                continue
-            plain_ms = _cuda_time(plain, 2)
             n_bytes, n_ops = _ccl_work(name, r1, r2)
             bound = _bound(px * n_bytes, px * n_ops)
+            if key in out:  # the body at another chunk: its time beside its bound
+                print(f"phase 4: {key} {ms:.4f} ms/launch ({what}), bound {bound[0]:.5f} ms "
+                      f"({bound[1]})")
+                continue
+            plain_ms = _cuda_time(plain, 2)
             out[key] = (err[key], ms, plain_ms, bound)
             print(f"phase 4: {key} {ms:.4f} ms/launch ({what}), plain {plain_ms:.4f} ms/call, "
                   f"bound {bound[0]:.5f} ms ({bound[1]})")

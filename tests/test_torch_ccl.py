@@ -3,11 +3,13 @@ package: its XLA stage functions and its Pallas kernels in interpret mode,
 on the shapes, strides and radii of ``tests/test_pallas_kernels.py`` and on
 one rendered 480x640 frame under ``DetectorConfig()``, and on a 480x640
 mask whose components cross the bands of the cluster body (a serpentine
-through all eight, components on every band edge). Every comparison is
-exact: the threshold is integer arithmetic in float32 until its divisions
-and the labelling is integer min-propagation. On CPU tensors the kernel
-wrappers take these plain versions and launch nothing. Also the wrappers'
-choice between the kernel's two bodies, by frame shape alone."""
+through all eight, components on every band edge), and on a 96x1280 mask
+(rows wider than the cluster body takes) drawn across the block body's
+tiles and row splits. Every comparison is exact: the threshold is integer
+arithmetic in float32 until its divisions and the labelling is integer
+min-propagation. On CPU tensors the kernel wrappers take these plain
+versions and launch nothing. Also the wrappers' choice between the
+kernel's two bodies, by frame shape alone, and the block body's plan."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from aruco_slam_tpu.sim import renderer as jrenderer
 from aruco_slam_tpu.sim import synthetic as jsyn
 from aruco_slam_tpu_torch.ops import detector
 from aruco_slam_tpu_torch.ops.kernels import ccl
+from torch_ccl_masks import tile_crossing_mask
 
 torch.set_num_threads(1)
 
@@ -199,3 +202,73 @@ def test_body_is_chosen_by_shape_alone():
     assert ccl.cluster_shared_bytes(480, 768, 4) is None
     assert ccl.cluster_shared_bytes(480, 768) == 229_440
     assert ccl.MAX_SHARED_BYTES == 232_448
+
+
+def test_tile_crossing_mask_matches_xla_and_pallas():
+    """K5 and K5s at 96x1280 (the block body's frame: rows wider than 1,024
+    pixels) on a serpentine through every tile of the block body's plan,
+    components on its tile edges and runs across its row splits: the plain
+    version against the JAX XLA CCL and the Pallas kernel in interpret
+    mode, bit for bit, unconverged after the bounded rounds."""
+    h, w = 96, 1280
+    assert ccl.body(h, w) == "block"
+    plan = ccl.block_plan(h, w, 1)
+    fg = tile_crossing_mask(h, w, plan.tile_rows, plan.tile_width // 32)
+    ours = ccl.label_components(torch.as_tensor(fg)[None], 3)[0]
+    fgj = jnp.asarray(fg)
+    _eq(ours, jax.jit(lambda m: jdet.label_components(m, 3))(fgj))
+    _eq(ours, jccl.label_components_tpu(fgj, 3, interpret=True))
+    assert len(np.unique(ours.numpy()[fg.reshape(-1)])) > 16  # bounded rounds: unconverged
+    seed = ours.reshape(1, h, w)
+    seeded = ccl.label_components(torch.as_tensor(fg)[None], 2, init=seed)[0]
+    _eq(seeded, jccl.label_components_tpu(fgj, 2, interpret=True,
+                                          init=jnp.asarray(seed[0].numpy())))
+
+
+@pytest.mark.parametrize("h,w,n,rows,width,teams,ctas,smem", [
+    (720, 1280, 1, 6, 1280, 1, 120, 47_312),
+    (720, 1280, 16, 22, 1280, 4, 33, 142_544),
+    (1080, 1920, 1, 9, 1920, 1, 120, 97_568),
+    (1080, 1920, 16, 17, 1920, 2, 64, 168_864),
+    (1083, 1920, 16, 17, 1920, 2, 64, 168_864),  # odd H: a last tile of 12 rows
+    (7, 5, 3, 1, 32, 3, 7, 548),  # a tiny frame: one padded word a row
+])
+def test_block_plan_on_an_h100(h, w, n, rows, width, teams, ctas, smem):
+    """The block body's plan at the detector's HD buckets, an odd height
+    and a tiny frame on an H100's 132 SMs: a CTA a tile on at most one CTA
+    an SM, the tiles' workspaces in shared memory (csrc tile_layout), and
+    the frames in flight."""
+    plan = ccl.block_plan(h, w, n)
+    tiles_y = -(-h // rows)
+    assert plan == ccl.BlockPlan(rows, width, 1, tiles_y, teams, ctas, False, smem, 0)
+    assert ctas == tiles_y and teams * ctas <= ccl.H100_SMS and teams <= n
+    assert smem == 4 * ccl.block_tile_words(rows, width) <= ccl.MAX_SHARED_BYTES
+    cells = (h // 4) * (w // 4) if h % 4 == 0 and w % 4 == 0 else 0
+    assert ccl.block_scratch_words(h, w, plan, 4 if cells else None) == (
+        2 * cells + 4 * tiles_y * w + 4 * h)
+
+
+def test_block_tile_layout():
+    """A tile's workspace (csrc tile_layout): labels, the halo rows and
+    columns, three bit masks with their rings, and the Jacobi step's saved
+    first and last label of every 32-pixel word."""
+    # 9 x 1920: 17,280 labels, 2 x 1,922 + 2 x 9 halo, (3 x 9 + 8) x 62 mask
+    # words, 2 x 9 x 60 word ends
+    assert ccl.block_tile_words(9, 1920) == 17_280 + 3_862 + 2_170 + 1_080
+    assert ccl.block_tile_words(24, 1920) == 57_812  # the tallest 1920-wide tile
+    assert ccl.block_tile_words(25, 1920) is None  # past 227 KB
+    assert ccl.block_tile_words(64, 2048) is None
+    assert ccl.block_tile_words(64, 2048, shared=False) == 156_692  # in device memory
+    assert ccl.block_tile_words(65, 32) is None  # a column's bits in one 64-bit register
+    assert ccl.block_tile_words(4, 2080) is None  # a lane's share of a row likewise
+    assert ccl.block_tile_words(4, 48) is None  # whole 32-pixel words
+
+
+def test_block_plan_spills_frames_larger_than_the_card():
+    """A 2160x3840 frame needs more tiles than an H100 has SMs at any tile
+    height: 64-row tiles, two across, their workspaces in device memory,
+    one team on every SM."""
+    plan = ccl.block_plan(2160, 3840, 1)
+    assert plan == ccl.BlockPlan(64, 1920, 2, 34, 1, ccl.H100_SMS, True, 0,
+                                 68 * ccl.block_tile_words(64, 1920, shared=False))
+    assert ccl.body(2160, 3840) == "block"

@@ -23,6 +23,7 @@ from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
 from aruco_slam_tpu_torch.sim import renderer, synthetic
 from aruco_slam_tpu_torch.system import SlamSystem
 from aruco_slam_tpu_torch.utils.config import CompatConfig, EkfConfig, SlamConfig
+from torch_ccl_masks import tile_crossing_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -196,6 +197,74 @@ def test_ccl_kernel_at_1080p(dev):
         assert torch.equal(a, b)
     assert torch.equal(k5, ccl.label_components_reference(fg, 3))
     assert ccl.LAUNCHES["threshold_label_union.block"] == before + 1
+
+
+def _hd_frames(dev, h, w, n):
+    """n frames of the 20-marker arena at h x w (an HD camera of the
+    detector's buckets), at varied poses."""
+    rng = np.random.default_rng(h + n)
+    poses = np.stack([rng.uniform(0.8, 4.3, n), rng.uniform(-3.9, -0.8, n),
+                      rng.uniform(-np.pi, np.pi, n)], axis=1)
+    poses[0] = (2.55, -2.0, 1.2)
+    f = 1800.0 * w / 1920
+    cam = CameraIntrinsics.create(f, f, w / 2, h / 2)
+    return renderer.render_poses(poses, synthetic.make_arena(n_markers=20), cam, height=h,
+                                 width=w, device=dev)
+
+
+@pytest.mark.parametrize("h,w", [(720, 1280), (1080, 1920)])
+@pytest.mark.parametrize("frames", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_ccl_block_body_at_hd(dev, h, w, frames, dtype):
+    """K3, K4, K5 and K5s in the block body on rendered HD frames, one
+    frame (spread over the card) and a 16-frame chunk (several frames in
+    flight), against their plain versions, bit for bit."""
+    img = _hd_frames(dev, h, w, frames).to(dtype).contiguous()
+    assert ccl.body(h, w, 4) == ccl.body(h, w) == "block"
+    before = dict(ccl.LAUNCHES)
+    out = ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
+    ref = ccl.threshold_label_union_reference(img, 7, 7.0, 4, 3, 2)
+    fg4, lab4 = ccl.threshold_label(img, 7, 7.0, 4, 3)
+    fg, lab, fg_c = ref[0], ref[1], ref[2]
+    k5 = ccl.label_components(fg_c, 3)
+    k5s = ccl.label_components(fg_c, 2, init=lab.reshape(fg.shape))
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(fg4, fg) and torch.equal(lab4, ccl.label_components_reference(fg, 3))
+    assert torch.equal(k5, ccl.label_components_reference(fg_c, 3))
+    assert torch.equal(k5s, ccl.label_components_reference(fg_c, 2, init=lab.reshape(fg.shape)))
+    assert bool(fg.any()) and not bool(fg.all())
+    assert {k: ccl.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k.endswith("block")) for k in before}
+
+
+@pytest.mark.parametrize("frames", [1, 16])
+def test_ccl_block_body_on_tile_crossing_mask(dev, frames):
+    """K5 and K5s at 1920x1080 on a serpentine through every tile of the
+    block body's plan for the chunk, components on its tile edges and runs
+    across its row splits; unconverged after the bounded rounds."""
+    plan = ccl.block_plan(1080, 1920, frames)
+    mask = tile_crossing_mask(1080, 1920, plan.tile_rows, plan.tile_width // 32)
+    fg = torch.as_tensor(mask, device=dev)[None].repeat(frames, 1, 1).contiguous()
+    lab = ccl.label_components(fg, 3)
+    ref = ccl.label_components_reference(fg, 3)
+    seed = ref.reshape(fg.shape)
+    seeded = ccl.label_components(fg, 2, init=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(lab, ref)
+    assert torch.equal(seeded, ccl.label_components_reference(fg, 2, init=seed))
+    assert int(torch.unique(ref[0][fg[0].reshape(-1)]).numel()) > 16  # unconverged
+
+
+def test_ccl_block_body_spills_frames_larger_than_the_card(dev):
+    """A 2160x3840 mask: more tiles than SMs, their workspaces in device
+    memory, one team on every SM."""
+    fg = torch.as_tensor(np.random.default_rng(5).random((1, 2160, 3840)) < 0.6, device=dev)
+    assert ccl.block_plan(2160, 3840, 1).spilled
+    lab = ccl.label_components(fg, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(lab, ccl.label_components_reference(fg, 3))
 
 
 def test_image_replay_kernels_match_plain(dev):

@@ -253,6 +253,10 @@ class _RefusingCcl:
         smem._obj.value, count._obj.value = 1024, 4
         return 0
 
+    def ccl_block_plan(self, variant, sms):
+        sms._obj.value = ccl.H100_SMS
+        return 0
+
     def _launch(self, *args):
         self.bodies.append(args[-2])  # ..., body, stream
         return 2
@@ -332,6 +336,8 @@ def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, k
     lib = _RefusingCcl()
     _as_if_on_the_card(monkeypatch, ccl, lib)
     monkeypatch.setattr(ccl, "_route", lambda t: True)
+    monkeypatch.setattr(ccl, "_block_sms", {})
+    monkeypatch.setattr(ccl, "_barriers", {})
     img = torch.zeros(2, *shape, dtype=torch.uint8)
     fg = torch.zeros(2, *shape, dtype=torch.bool)
     assert ccl.body(*shape, 4) == ccl.body(*shape) == kind

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Same-card comparison of two checkouts of the PyTorch port on the batched
-corner-level main path (chip_smoke.py phase 3). Host-bound rates move by up
+corner-level main path (chip_smoke.py phase 3), on K2 and K6 alone
+(``--k2``) or on the CCL family (``--ccl``). Host-bound rates move by up
 to 2x from one machine to the next, so two versions are compared only
 inside one run, in the order A, B, B, A (each in a fresh process that
 builds its own kernels).
@@ -40,7 +41,20 @@ With ``--k2`` it measures instead, from the same inputs in both checkouts
   - ``k6_ms_195`` / ``k6_ms_387`` / ``k6_ms_1539``: K6 alone on phase 6's
     synthetic states (40, 100 and 300 landmarks at 64, 128 and 512 slots).
 
-    python3 tools/port_ab.py [--k2] PATH_A PATH_B
+With ``--ccl`` it measures the CCL family instead (chip_smoke.py's
+renderer, from this tree; DetectorConfig()'s threshold and rounds):
+  - ``k3_1080p16_ms`` ... ``k5s_720p16_ms``: K3, K4, K5 and K5s alone
+    (torch.profiler over 20 launches: device ms a launch of the kernels
+    whose names hold ``ccl_``) at 16 and 1 rendered 1920x1080 frames and
+    at 16 rendered 1280x720 frames (the block body), K5 on the raw mask and
+    K5s on the closed one seeded with the raw labels; ``..._call_ms`` the
+    same through the wrapper (CUDA events over 10 calls);
+  - ``det_1080p_ms_per_frame``: ``runner.detect_frames`` over the 16
+    1920x1080 frames in one call, ms a frame (CUDA events, median of 3);
+  - ``k3_vga128_ms`` / ``k3_vga16_ms``: K3 alone in the cluster body at
+    128 and 16 rendered 640x480 frames.
+
+    python3 tools/port_ab.py [--k2 | --ccl] PATH_A PATH_B
 
 Then a table of the medians per checkout. Needs one CUDA card.
 """
@@ -206,6 +220,49 @@ def measure_k2(root):
     return out
 
 
+def measure_ccl(root):
+    """One ``--ccl`` run's numbers for the checkout at ``root``."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.ops.detector import DetectorConfig
+    from aruco_slam_tpu_torch.ops.kernels import ccl
+    from aruco_slam_tpu_torch.sim import renderer, synthetic
+
+    cs = _smoke()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = DetectorConfig()
+    r, C, s, r1, r2 = (cfg.adaptive_radius, cfg.adaptive_C, cfg.mean_stride, cfg.ccl_rounds,
+                       cfg.closed_ccl_rounds)
+    hd = cs._render_hd(16, dev)
+    out = {}
+    for tag, img in (("1080p16", hd), ("1080p1", hd[:1].contiguous()),
+                     ("720p16", cs._render_hd(16, dev, 720, 1280))):
+        fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+        seed = lab.reshape(fg.shape)
+        calls = {"k3": lambda: ccl.threshold_label_union(img, r, C, s, r1, r2),
+                 "k4": lambda: ccl.threshold_label(img, r, C, s, r1),
+                 "k5": lambda: ccl.label_components(fg, r1),
+                 "k5s": lambda: ccl.label_components(fg_c, r2, init=seed)}
+        for key, call in calls.items():
+            out[f"{key}_{tag}_ms"] = cs._kernel_ms(call, "ccl_")[0]
+            out[f"{key}_{tag}_call_ms"] = cs._cuda_time(call, 10)
+    runner.detect_frames(hd, cfg, 16)  # warm
+    times = [cs._timed(lambda: runner.detect_frames(hd, cfg, 16)) for _ in range(3)]
+    out["det_1080p_ms_per_frame"] = 1e3 * statistics.median(times) / 16
+    vga = renderer.render_poses(cs._poses(32), synthetic.make_arena(n_markers=20),
+                                CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0),
+                                device=dev).repeat(4, 1, 1).contiguous()
+    for n in (128, 16):
+        img = vga[:n].contiguous()
+        out[f"k3_vga{n}_ms"] = cs._kernel_ms(
+            lambda: ccl.threshold_label_union(img, r, C, s, r1, r2), "ccl_")[0]
+    return out
+
+
 def _check_costs(torch, runner, data, cfg, res):
     """Host microseconds of K2's input checks on the replay's last frame."""
     import time
@@ -247,13 +304,13 @@ def _check_costs(torch, runner, data, cfg, res):
 
 def main():
     args = sys.argv[1:]
-    if len(args) == 2 and args[0] in ("--measure", "--measure-k2"):
-        fn = measure if args[0] == "--measure" else measure_k2
-        print(json.dumps(fn(Path(args[1]).resolve())))
+    modes = {"--measure": measure, "--measure-k2": measure_k2, "--measure-ccl": measure_ccl}
+    if len(args) == 2 and args[0] in modes:
+        print(json.dumps(modes[args[0]](Path(args[1]).resolve())))
         return 0
     mode = "--measure"
-    if args[:1] == ["--k2"]:
-        mode, args = "--measure-k2", args[1:]
+    if args[:1] in (["--k2"], ["--ccl"]):
+        mode, args = "--measure-" + args[0][2:], args[1:]
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
