@@ -9,8 +9,13 @@ keeps its module names so each counterpart is easy to find:
 - ``models``    — the EKF-SLAM core (batch-first)
 - ``sim``, ``io``, ``utils`` — numpy-only copies of the generator, the
   sequence container, map I/O and the config system; ``utils.device``
-- ``runner``    — batched and single-stream replay at every level
+- ``runner``    — batched and single-stream replay at every level, sharded
+  replay and detection, ``.asq`` streaming
+- ``parallel``  — ``torch.distributed`` groups, the rank launcher, the
+  distributed BA and the multi-rank dry run
 - ``system``, ``viz`` — the streaming ``SlamSystem`` and its output records
+- ``pipeline``, ``cli``, ``demo`` — filter -> smoother, the command line,
+  the end-to-end demo
 - ``convert``   — state and config carried across from the JAX package
 
 It imports torch and numpy, never ``jax`` and never ``aruco_slam_tpu``.

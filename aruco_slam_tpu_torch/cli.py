@@ -9,7 +9,8 @@ Subcommands:
   a plot
 - ``ba``       — build a factor graph from a sequence and optimize it
 
-``--device`` (replay, ba) names the torch device; the default is the card.
+``--device`` names the torch device (replay, ba; simulate renders its frames
+there); the default is the card.
 
 Usage: python -m aruco_slam_tpu_torch.cli <subcommand> [options]
 """
@@ -96,7 +97,7 @@ def cmd_simulate(args):
     p = synthetic.SimParams(duration=args.duration, seed=args.seed)
     seq = synthetic.generate_sequence(
         p, marker_map=marker_map, level=args.level,
-        camera=cam if args.level != "obs" else None,
+        camera=cam if args.level != "obs" else None, device=args.device,
     )
     seq.save(args.out, image_format=args.image_format)
     print(json.dumps({"frames": seq.num_frames, "out": args.out, "level": args.level}))
@@ -177,7 +178,10 @@ def main(argv=None):
     p.add_argument("--map", help="ground-truth map.txt to use as the world")
     p.add_argument("--camera", help=_CAMERA_HELP)
     p.add_argument("--image-format", choices=["npz", "asq"], default="npz",
-                   help="asq (a native mmap/CRC container) is not ported yet and raises")
+                   help="where the frames go: into the npz, or a sibling .asq "
+                        "(a native mmap/CRC container) that replay streams from")
+    p.add_argument("--device", default=None,
+                   help="torch device that renders the frames (default: the card, cuda)")
     p.set_defaults(fn=cmd_simulate)
 
     p = sub.add_parser("replay", help="run EKF-SLAM over a sequence")

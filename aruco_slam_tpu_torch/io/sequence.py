@@ -5,13 +5,14 @@ Timestamped encoder + camera-frame streams at three levels of fidelity on
 one timeline: ``obs_*`` (direct (x, y, theta) marker observations),
 ``corners_px`` (per-marker pixel corners) and ``images`` (rendered uint8
 frames for the detector). The npz format is the JAX package's, so a
-sequence saved by either package loads in the other. The ``.asq`` image
-container is not ported yet (ROADMAP Queue 1).
+sequence saved by either package loads in the other; so does one whose
+frames are in a sibling ``.asq`` container (``io.native_seqio``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -22,8 +23,6 @@ _ARRAY_FIELDS = (
     "corners_px", "images", "true_pose_frames", "true_pose_enc",
     "true_landmarks", "true_landmark_ids",
 )
-
-_NOT_PORTED = "the .asq image container is not ported yet (ROADMAP Queue 1)"
 
 
 @dataclass
@@ -80,13 +79,29 @@ class Sequence:
         return self.obs_ids.shape[1]
 
     def save(self, path: str, image_format: str = "npz") -> None:
-        """Write the sequence as a compressed npz archive."""
-        if image_format != "npz":
-            raise NotImplementedError(f"image_format={image_format!r}: {_NOT_PORTED}")
+        """Write the sequence as a compressed npz archive. ``image_format``
+        "asq" writes the frames to a sibling ``.asq`` container instead
+        (colour converted to luma, BGR, as the detector converts it), named
+        in ``meta`` so that :meth:`load` finds it."""
+        if image_format not in ("npz", "asq"):
+            raise ValueError(f"image_format must be 'npz' or 'asq', got {image_format!r}")
+        asq = image_format == "asq" and self.images is not None
+        if asq:
+            import torch
+
+            from aruco_slam_tpu_torch.io import native_seqio
+            from aruco_slam_tpu_torch.ops.detector import to_grayscale
+
+            frames = np.asarray(self.images, np.uint8)
+            if frames.ndim == 4 and frames.shape[-1] == 3:
+                frames = to_grayscale(torch.from_numpy(frames)).numpy()
+            target = os.path.splitext(path)[0] + ".asq"
+            native_seqio.write_frames(target, frames)
+            self.meta["images_asq"] = os.path.basename(target)
         data = {
             name: getattr(self, name)
             for name in _ARRAY_FIELDS
-            if getattr(self, name) is not None
+            if getattr(self, name) is not None and not (asq and name == "images")
         }
         data["enc_per_frame"] = np.asarray(self.enc_per_frame)
         meta_json = {}
@@ -109,7 +124,10 @@ class Sequence:
         for k in [k for k in kw if k.startswith("meta_arr_")]:
             meta[k[len("meta_arr_"):]] = kw.pop(k)
         if "images_asq" in meta:
-            raise NotImplementedError(f"{path} streams from .asq: {_NOT_PORTED}")
+            # the image-level replay streams the frames from this file
+            meta["images_asq_path"] = os.path.join(
+                os.path.dirname(os.path.abspath(path)), meta["images_asq"]
+            )
         kw["meta"] = meta
         return cls(**kw)
 

@@ -31,6 +31,10 @@ What differs from the JAX module, and why:
   read back to the host: the denominators and the LM accept/reject are
   ``torch.where``, and the cost history stays on the device until
   :func:`solve` returns.
+- The GN step takes a ``reduce`` hook, called once a linearization and
+  once a Schur matvec, through which ``parallel.dist_ba`` sums the shards
+  of a distributed solve (the JAX package's ``shard_map`` body repeats the
+  step instead).
 
 The arithmetic runs in the problem's dtype (float32 on the card; float64
 on the CPU for the dense-oracle tests). Tensors stay where the problem's
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from aruco_slam_tpu_torch.ops import geometry, linalg
+from aruco_slam_tpu_torch.utils.device import host
 
 Tensor = torch.Tensor
 
@@ -168,16 +173,22 @@ def prepare(problem: BAProblem):
         obs_w=g(problem.obs_w),
         obs_valid=(perm != N),
     )
-    oi = np.asarray(problem.odo_i)
-    oj = np.asarray(problem.odo_j)
+    return packed, {"kf_width": O, "odo_chain": odo_is_chain(problem)}
+
+
+def odo_is_chain(problem: BAProblem) -> bool:
+    """Whether the odometry factors are the chain odo_i == 0..K-2,
+    odo_j == 1..K-1, all valid (what the graph builders emit). Reads the
+    indices on the host."""
+    K = problem.poses.shape[0]
+    oi, oj, ov = (np.asarray(host(x)) for x in (problem.odo_i, problem.odo_j, problem.odo_valid))
     M = len(oi)
-    odo_chain = bool(
+    return bool(
         M == K - 1
         and np.array_equal(oi, np.arange(M))
         and np.array_equal(oj, np.arange(1, M + 1))
-        and np.asarray(problem.odo_valid).all()
+        and ov.all()
     )
-    return packed, {"kf_width": O, "odo_chain": odo_chain}
 
 
 def _matvec(A: Tensor, v: Tensor) -> Tensor:
@@ -338,18 +349,29 @@ def _linearize(problem: BAProblem, poses: Tensor, landmarks: Tensor, damping,
                plan: SumPlan, prior_pose: Optional[Tensor] = None) -> dict:
     """The blocks of the Schur-CG solve, and the entering state's cost
     (``cost_in``) from the same residuals."""
+    return _linearize_reduced(problem, poses, landmarks, damping, plan, prior_pose)[0]
+
+
+def _linearize_reduced(problem: BAProblem, poses: Tensor, landmarks: Tensor, damping,
+                       plan: SumPlan, prior_pose: Optional[Tensor] = None, reduce=None):
+    """(:func:`_linearize`'s blocks, the reduced rhs's correction
+    Hpl Hll^-1 bl keyed by keyframe). ``reduce`` (a sharded solve): sums
+    (Hpp_obs, bp_obs, the correction) over the shards in one collective;
+    ``cost_in`` is then the shard's."""
     K = poses.shape[0]
     obs_parts, odo_parts = _residuals(problem, poses, landmarks)
     Hpp_obs, Hll, Apl, bp_obs, bl = _obs_blocks(obs_parts, plan, K)
+    # LM damping on both diagonals
+    eye = torch.eye(3, dtype=poses.dtype, device=poses.device)
+    Hll_inv = linalg.inv3x3(Hll + damping * eye)
+    back = _kf_sum(_matvec(Apl, _matvec(Hll_inv, bl)[problem.obs_lm]), plan, K)
+    if reduce is not None:
+        Hpp_obs, bp_obs, back = reduce(Hpp_obs, bp_obs, back)
     Hpp_odo, Hij, bp_odo = _odo_blocks(odo_parts, plan)
     Hpp_diag = Hpp_obs + Hpp_odo
     bp = bp_obs + bp_odo
     Hpp_diag[0] += problem.prior_w  # the prior on pose 0 (gauge)
-
-    # LM damping on both diagonals
-    eye = torch.eye(3, dtype=poses.dtype, device=poses.device)
     Hpp_diag = Hpp_diag + damping * eye
-    Hll_inv = linalg.inv3x3(Hll + damping * eye)
 
     r_obs, _, _, w_obs = obs_parts
     r_odo, _, _, w_odo = odo_parts
@@ -357,7 +379,7 @@ def _linearize(problem: BAProblem, poses: Tensor, landmarks: Tensor, damping,
     if prior_pose is not None:
         c = c + _prior_cost(problem, poses, prior_pose)
     return dict(Hpp_diag=Hpp_diag, Hll_inv=Hll_inv, Apl=Apl, Hij=Hij, bp=bp, bl=bl,
-                cost_in=0.5 * c)
+                cost_in=0.5 * c), back
 
 
 def _obs_broadcast(v: Tensor, problem: BAProblem, plan: SumPlan) -> Tensor:
@@ -368,8 +390,10 @@ def _obs_broadcast(v: Tensor, problem: BAProblem, plan: SumPlan) -> Tensor:
     return v[problem.obs_kf]
 
 
-def _schur_matvec(lin: dict, problem: BAProblem, v: Tensor, plan: SumPlan) -> Tensor:
-    """S @ v with S = Hpp - Hpl Hll^-1 Hlp, matrix-free; v [K, 3]."""
+def _schur_matvec(lin: dict, problem: BAProblem, v: Tensor, plan: SumPlan,
+                  reduce=None) -> Tensor:
+    """S @ v with S = Hpp - Hpl Hll^-1 Hlp, matrix-free; v [K, 3].
+    ``reduce`` (a sharded solve): sums the landmark terms over the shards."""
     K = v.shape[0]
     out = _matvec(lin["Hpp_diag"], v)
     # odometry coupling: out_i += Hij v_j ; out_j += Hij^T v_i
@@ -383,8 +407,10 @@ def _schur_matvec(lin: dict, problem: BAProblem, v: Tensor, plan: SumPlan) -> Te
     # - Hpl Hll^-1 Hlp v
     t = _matvec(lin["Apl"].transpose(-1, -2), _obs_broadcast(v, problem, plan))
     u = _matvec(lin["Hll_inv"], seg_sum(t, plan.lm))  # [L, 3]
-    back = _matvec(lin["Apl"], u[problem.obs_lm])  # [N, 3]
-    return out - _kf_sum(back, plan, K)
+    back = _kf_sum(_matvec(lin["Apl"], u[problem.obs_lm]), plan, K)
+    if reduce is not None:
+        (back,) = reduce(back)
+    return out - back
 
 
 def gauge_rotation_mode(poses: Tensor) -> Tensor:
@@ -402,18 +428,19 @@ def _safe(d: Tensor) -> Tensor:
 
 
 def _pcg(lin: dict, problem: BAProblem, rhs: Tensor, iters: int, plan: SumPlan,
-         deflate: Optional[Tensor] = None):
+         deflate: Optional[Tensor] = None, reduce=None):
     """Preconditioned CG on the reduced system, block-Jacobi preconditioner
     from the Hpp diagonal blocks. Returns (x, res_hist [iters]).
 
     ``deflate`` (optional [K, 3]): its 1-D component of the solution is
     computed up front (alpha = v.b / v.Sv) and the Krylov space is kept
-    S-orthogonal to it, so a near-flat mode no longer throttles CG."""
+    S-orthogonal to it, so a near-flat mode no longer throttles CG.
+    ``reduce``: as in :func:`_schur_matvec`."""
     Minv = linalg.inv3x3(lin["Hpp_diag"])
 
     if deflate is not None:
         v = deflate
-        Sv = _schur_matvec(lin, problem, v, plan)
+        Sv = _schur_matvec(lin, problem, v, plan, reduce)
         safe_vSv = _safe(torch.sum(v * Sv))
         a0 = torch.sum(v * rhs) / safe_vSv
         x = v * a0
@@ -433,7 +460,7 @@ def _pcg(lin: dict, problem: BAProblem, rhs: Tensor, iters: int, plan: SumPlan,
     rz = torch.sum(r * z)
     res = []
     for _ in range(iters):
-        Sp = _schur_matvec(lin, problem, p, plan)
+        Sp = _schur_matvec(lin, problem, p, plan, reduce)
         alpha = rz / _safe(torch.sum(p * Sp))
         x = x + alpha * p
         r = r - alpha * Sp
@@ -447,19 +474,20 @@ def _pcg(lin: dict, problem: BAProblem, rhs: Tensor, iters: int, plan: SumPlan,
 
 
 def _gn_step(problem: BAProblem, poses: Tensor, landmarks: Tensor, lam: Tensor,
-             prior_pose: Tensor, plan: SumPlan, cg_iters: int, deflate_gauge: bool):
-    """One Schur-CG Gauss-Newton step: (new_poses, new_landmarks, cost_in)."""
-    lin = _linearize(problem, poses, landmarks, lam, plan, prior_pose)
-    K = poses.shape[0]
+             prior_pose: Tensor, plan: SumPlan, cg_iters: int, deflate_gauge: bool,
+             reduce=None):
+    """One Schur-CG Gauss-Newton step: (new_poses, new_landmarks, cost_in).
+    ``reduce``: as in :func:`_linearize_reduced`, and once per Schur matvec (a
+    sharded solve's collectives; ``cost_in`` is then the shard's)."""
+    lin, back = _linearize_reduced(problem, poses, landmarks, lam, plan, prior_pose, reduce)
     # the prior residual into bp[0]
     r0 = _wrap_last(prior_pose - poses[0])
     bp = lin["bp"]
     bp[0] += problem.prior_w @ r0
     # reduced rhs: bs = bp - Hpl Hll^-1 bl
-    u = _matvec(lin["Hll_inv"], lin["bl"])
-    bs = bp - _kf_sum(_matvec(lin["Apl"], u[problem.obs_lm]), plan, K)
+    bs = bp - back
     deflate = gauge_rotation_mode(poses) if deflate_gauge else None
-    dp, _ = _pcg(lin, problem, bs, cg_iters, plan, deflate)
+    dp, _ = _pcg(lin, problem, bs, cg_iters, plan, deflate, reduce)
     # back-substitute landmarks: dl = Hll^-1 (bl - Hlp dp)
     t = _matvec(lin["Apl"].transpose(-1, -2), _obs_broadcast(dp, problem, plan))
     dl = _matvec(lin["Hll_inv"], lin["bl"] - seg_sum(t, plan.lm))

@@ -1,9 +1,11 @@
 """Planar / 3-D geometry primitives (L0), batched over leading dims.
 
 Counterparts of ``aruco_slam_tpu.ops.geometry``: ``wrap_angle`` (reference
-``ArucoSlam::normAngle``, src/aruco_slam.cpp:412-421), ``rodrigues`` /
-``inv_rodrigues`` (reference ``cv::Rodrigues`` call sites) and the SE(2)
-relative pose the EKF observation model and the RPE metric use.
+``ArucoSlam::normAngle``, src/aruco_slam.cpp:412-421) and its full modular
+form, ``rodrigues`` / ``inv_rodrigues`` (reference ``cv::Rodrigues`` call
+sites), ``rot2d`` and the SE(2) compose / inverse / relative pose (the
+closed forms of the EKF, src/aruco_slam.cpp:45-52,119-134), and
+``rpy_to_matrix`` (tf2's ``setRPY`` in the reference map loader).
 """
 
 from __future__ import annotations
@@ -22,6 +24,40 @@ def wrap_angle(a: Tensor) -> Tensor:
     two_pi = 2.0 * math.pi
     a = torch.where(a >= math.pi, a - two_pi, a)
     return torch.where(a < -math.pi, a + two_pi, a)
+
+
+def wrap_angle_full(a: Tensor) -> Tensor:
+    """Full modular wrap into [-pi, pi) for angles of any size."""
+    two_pi = 2.0 * math.pi
+    return a - two_pi * torch.floor((a + math.pi) / two_pi)
+
+
+def rot2d(theta: Tensor) -> Tensor:
+    """2x2 rotation (world <- body) for heading ``theta``: ``[...]`` ->
+    ``[..., 2, 2]``."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def se2_compose(a: Tensor, b: Tensor) -> Tensor:
+    """a ⊕ b (b expressed in a's frame), ``[..., 3]``, heading wrapped."""
+    c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    return torch.stack(
+        [a[..., 0] + c * b[..., 0] - s * b[..., 1],
+         a[..., 1] + s * b[..., 0] + c * b[..., 1],
+         wrap_angle(a[..., 2] + b[..., 2])],
+        dim=-1,
+    )
+
+
+def se2_inverse(a: Tensor) -> Tensor:
+    """The inverse pose: ``se2_compose(a, se2_inverse(a))`` is the identity."""
+    c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    return torch.stack(
+        [-(c * a[..., 0] + s * a[..., 1]), -(-s * a[..., 0] + c * a[..., 1]),
+         wrap_angle(-a[..., 2])],
+        dim=-1,
+    )
 
 
 def se2_relative(a: Tensor, b: Tensor) -> Tensor:
@@ -102,6 +138,20 @@ def inv_rodrigues(R: Tensor) -> Tensor:
     flip = torch.sum(axis_pi * w, dim=-1, keepdim=True) < 0.0
     axis_pi = torch.where(flip, -axis_pi, axis_pi)
     return torch.where(near_pi[..., None], axis_pi * theta[..., None], generic)
+
+
+def rpy_to_matrix(roll: Tensor, pitch: Tensor, yaw: Tensor) -> Tensor:
+    """Fixed-axis roll, pitch, yaw -> rotation ``[..., 3, 3]``,
+    R = Rz(yaw) Ry(pitch) Rx(roll) (tf2's ``setRPY``)."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack(
+        [torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+         torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+         torch.stack([-sp, cp * sr, cp * cr], dim=-1)],
+        dim=-2,
+    )
 
 
 def homography_from_4pts(src: Tensor, dst: Tensor) -> Tensor:

@@ -26,6 +26,14 @@ def inv3x3(A: Tensor) -> Tensor:
     return torch.stack([row0, row1, row2], dim=-2) * inv_det[..., None, None]
 
 
+def solve3x3(A: Tensor, B: Tensor) -> Tensor:
+    """A^-1 B for 3x3 ``A``; ``B`` is ``[..., 3]`` or ``[..., 3, k]``."""
+    Ai = inv3x3(A)
+    if B.dim() == A.dim() - 1:
+        return (Ai @ B[..., None])[..., 0]
+    return Ai @ B
+
+
 def cholesky_unrolled(A: Tensor, n: int) -> Tensor:
     """Lower-triangular Cholesky of SPD ``A [..., n, n]``, unrolled; the
     pivot is floored at 1e-30 (NaN propagates, as ``jnp.maximum`` does)."""

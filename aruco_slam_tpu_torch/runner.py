@@ -24,10 +24,17 @@ ticks and then the update that :func:`frame_update_for` picks: K6,
 
 Nothing in either loop reads a tensor back to the host. On CPU tensors every
 kernel takes its plain version, which is how the tests run it.
+
+Across ranks of a ``torch.distributed`` group (``parallel.mesh``),
+:func:`replay_sharded` replays a block of lanes a rank and
+:func:`detect_frames` with ``group`` a block of frames a rank; both
+all-gather, so every rank returns the whole result. :func:`detect_frames_asq`
+streams the frames of an ``.asq`` container (``io.native_seqio``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -39,6 +46,7 @@ from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.detector import DetectorConfig, detect_markers_batch, to_grayscale
 from aruco_slam_tpu_torch.ops.frontend import observations_from_corners
 from aruco_slam_tpu_torch.ops.kernels import ekf_update, ekf_update_batched, pnp_frontend
+from aruco_slam_tpu_torch.parallel import mesh
 from aruco_slam_tpu_torch.utils import metrics
 from aruco_slam_tpu_torch.utils.config import SlamConfig
 from aruco_slam_tpu_torch.utils.device import resolve
@@ -167,7 +175,7 @@ def _merge_detection_chunks(outs, n: int, h: int, w: int, bh: int, bw: int):
 
 
 def detect_frames(images: Tensor, det_cfg: DetectorConfig = DetectorConfig(),
-                  chunk: int = 16, reference: bool = False):
+                  chunk: int = 16, reference: bool = False, group=None):
     """Batched detection over a stack of frames ``[..., H, W]`` (colour
     ``[..., H, W, 3]`` is converted to luma, BGR order), ``chunk`` frames
     per detector call. A frame's detections do not depend on the chunk, so
@@ -175,19 +183,65 @@ def detect_frames(images: Tensor, det_cfg: DetectorConfig = DetectorConfig(),
     edge-padded to the smallest enclosing one, and detections that touch
     the padding are dropped. ``reference`` runs the plain detector.
 
+    With ``group`` (a ``torch.distributed`` group, every rank passing the
+    same stack) each rank detects its contiguous block of ceil(n / world)
+    frames (the last block filled up with copies of the last frame) and
+    the blocks are all-gathered: every rank returns the whole result, equal
+    to the unsharded call's.
+
     Returns (ids [..., K], corners [..., K, 4, 2], valid [..., K])."""
     if images.dim() >= 3 and images.shape[-1] == 3:
         images = to_grayscale(images)
     lead = images.shape[:-2]
     h, w = images.shape[-2:]
     bh, bw = _bucket_shape(h, w, det_cfg.shape_buckets)
-    flat = _pad_to_bucket(images.reshape(-1, h, w), bh, bw)
+    flat = images.reshape(-1, h, w)
     n = flat.shape[0]
+    rank, world = mesh.rank_world(group) if group is not None else (0, 1)
+    per = -(-n // world)
+    if world > 1:
+        block = torch.clamp(torch.arange(rank * per, (rank + 1) * per), max=n - 1)
+        flat = flat.index_select(0, block.to(flat.device))
+    flat = _pad_to_bucket(flat, bh, bw)
     outs = [detect_markers_batch(flat[i: i + chunk], det_cfg, reference)
-            for i in range(0, n, chunk)]
-    ids, corners, valid = _merge_detection_chunks(outs, n, h, w, bh, bw)
+            for i in range(0, per, chunk)]
+    ids, corners, valid = _merge_detection_chunks(outs, per, h, w, bh, bw)
+    if world > 1:
+        ids, corners, valid = (mesh.all_gather(x, group=group)[:n] for x in (ids, corners, valid))
     K = ids.shape[-1]
     return ids.reshape(*lead, K), corners.reshape(*lead, K, 4, 2), valid.reshape(*lead, K)
+
+
+def detect_frames_asq(path: str, det_cfg: DetectorConfig = DetectorConfig(),
+                      chunk: int = 16, device=None):
+    """:func:`detect_frames` streamed from an ``.asq`` container
+    (``io.native_seqio``) on ``device`` (None: the card): the prefetcher's
+    threads read ahead while earlier chunks are detected, and the stack is
+    never held whole on the host. Same bucketing, edge padding and margin
+    drop as :func:`detect_frames`.
+
+    Returns (ids [F, K], corners [F, K, 4, 2], valid [F, K])."""
+    from aruco_slam_tpu_torch.io.native_seqio import NativeSequenceReader
+
+    device = resolve(device)
+    outs = []
+    with NativeSequenceReader(path) as r:
+        h, w = r.height, r.width
+        bh, bw = _bucket_shape(h, w, det_cfg.shape_buckets)
+        buf = np.empty((chunk, h, w), np.uint8)
+        count = n = 0
+        for _, frame in r.iter_prefetched(queue=2 * chunk):
+            buf[count] = frame
+            count += 1
+            n += 1
+            if count == chunk or n == r.n_frames:
+                # A copy that has finished when it returns (pageable memory,
+                # and copy=True on the CPU), so the buffer may be refilled
+                # for the next chunk at once.
+                frames = torch.from_numpy(buf[:count]).to(device, copy=True)
+                outs.append(detect_markers_batch(_pad_to_bucket(frames, bh, bw), det_cfg))
+                count = 0
+    return _merge_detection_chunks(outs, n, h, w, bh, bw)
 
 
 def _corner_data_from_detections(data: ReplayData, ids, corners, valid) -> ReplayData:
@@ -312,6 +366,33 @@ def _replay_lanes(data, config, camera, level, update_fn) -> ReplayResult:
     )
 
 
+def replay_sharded(
+    data: ReplayData,
+    config: SlamConfig,
+    camera: Optional[CameraIntrinsics] = None,
+    level: str = "obs",
+    group=None,
+    device=None,
+) -> ReplayResult:
+    """Data-parallel :func:`replay_batch` over the ranks of ``group`` (None:
+    the default group; a process in no group is a world of one). Every rank
+    passes the whole batch, replays its contiguous block of B / world lanes
+    on ``device`` (None: the card), and returns the whole result: the
+    blocks are all-gathered, with no other communication. B must be a
+    multiple of the world size."""
+    device = resolve(device)
+    rank, world = mesh.rank_world(group)
+    B = data.obs_ids.shape[0]
+    if B % world:
+        raise ValueError(f"a batch of {B} lanes does not split over {world} ranks")
+    lanes = slice(rank * (B // world), (rank + 1) * (B // world))
+    block = ReplayData(*(None if x is None else x[lanes].to(device) for x in data))
+    out = replay_batch(block, config, camera, level)
+    gather = functools.partial(mesh.all_gather, group=group)
+    return ReplayResult(*map(gather, out[:3]),
+                        final_state=ekf.EkfState(*map(gather, out.final_state)))
+
+
 def frame_update_for(config: SlamConfig, batched: bool):
     """The frame update ``(state, frame, config) -> state`` that a
     configuration selects (``EkfConfig.fused_update``, ``update_backend``):
@@ -434,14 +515,17 @@ def replay_sequence(
     device=None,
 ) -> ReplayResult:
     """:func:`replay` straight from a :class:`Sequence`, on ``device``
-    (None: the card), with the sequence's own camera unless one is given."""
+    (None: the card), with the sequence's own camera unless one is given.
+    At image level, a sequence whose frames are in an ``.asq`` container
+    streams them through :func:`detect_frames_asq`."""
     if camera is None:
         camera = seq.camera()
     if level == "images" and seq.images is None and seq.meta.get("images_asq_path"):
-        raise NotImplementedError(
-            f"{seq.meta['images_asq_path']}: the .asq image container is not ported yet "
-            "(ROADMAP Queue 1)"
+        data = _corner_data_from_detections(
+            replay_data_from_sequence(seq, "obs", device),
+            *detect_frames_asq(seq.meta["images_asq_path"], det_cfg, det_chunk, device),
         )
+        return replay(data, config, camera, "corners")
     data = replay_data_from_sequence(seq, level, device)
     return replay(data, config, camera, level, det_cfg, det_chunk)
 

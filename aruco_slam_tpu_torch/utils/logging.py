@@ -5,13 +5,15 @@
   trace, landmark count) written once per replay from the result, the JAX
   package's records for the same result;
 - :func:`trace`: a context manager around ``torch.profiler`` writing a
-  TensorBoard / Perfetto trace (the JAX package's wraps ``jax.profiler``).
+  TensorBoard / Perfetto trace (the JAX package's wraps ``jax.profiler``);
+- :class:`Timer`: wall-clock time of a block, the card's work included.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import time
 
 import numpy as np
 import torch
@@ -59,3 +61,24 @@ def trace(logdir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
+
+
+class Timer:
+    """Wall-clock seconds of a ``with`` block in ``elapsed``. Where there is
+    a card it synchronizes at entry and exit, so the time covers the device
+    work the block queued (and none queued before it)."""
+
+    def __init__(self):
+        self.t0 = None
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.elapsed = time.perf_counter() - self.t0

@@ -10,10 +10,13 @@ detection of rendered 1920x1080 frames (K3-K5s in their block body: a frame
 in tiles over many SMs),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
 cluster variant; 512 landmarks, its grid variant), the streaming
-SlamSystem (60 rendered frames, K3 + K6) and the smoothing back-end (config
+SlamSystem (60 rendered frames, K3 + K6), the smoothing back-end (config
 2 through the filter -> smoother pipelines, K6 in their EKF pass; the BA
-solver alone on configs 4 and 5) — and checks each against its plain path
-and the ground truth.
+solver alone on configs 4 and 5) and the multi-rank paths on this one card
+(config 5's distributed BA, the sharded replay and detection, over NCCL
+with one rank and gloo with four), .asq streaming and the demo — and
+checks each against its plain path, its single-process path and the
+ground truth.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -134,6 +137,34 @@ Phases (each raises on failure; the script then exits non-zero):
      run-to-run difference. Config 4 also on the host CPU in float32 (gate:
      within CARD_CPU_TOL m / rad of the card) and under torch's sync debug
      mode (gate: as many host syncs in a 10-GN solve as in a 2-GN one).
+  10. the multi-rank paths and the last modules (torch.distributed ranks
+     started by parallel.launch.run_ranks; every rank on this card). Two
+     worlds: 1 rank over NCCL, and 4 ranks over gloo sharing the card.
+     10a: config 5 (benchmarks/run_all.py:277-300, synthetic 10,000
+     keyframes / 5,000 landmarks) partitioned (dist_ba.partition_problem)
+     and solved by dist_ba.solve_dist, 10 GN x 50 CG, damping 1e-4, in each
+     world. Gate: the cost falls, the history within DIST_HISTORY_RTOL of
+     the single-device ba.solve (packed, as phase 9) on the same problem,
+     the truth errors below TRUTH_ERR_MAX, and exactly iters x (cg + 2) + 1
+     all-reduces and one all-gather per rank; printed: the largest pose
+     and landmark gap to the single-device solve, GN/s of each world
+     beside the single device's (CUDA events in each rank; the slowest
+     rank). 10b: phase 3's replay (256 lanes x 600 frames, corner level)
+     through runner.replay_sharded in each world. Gate: every lane's
+     n_landmarks and final slots equal the single-process replay's, the
+     trajectory within TRAJ_TOL; K1 and K2 launch once per frame in each
+     rank; frames/s (the slowest rank). 10c: phase 5's 32 lanes x 60
+     rendered 640x480 frames detected by runner.detect_frames sharded over
+     the 4 ranks. Gate: ids, corners and valid bit-identical to the
+     unsharded call. 10d: phase 5's two rendered sequences saved with
+     image_format="asq", loaded and replayed by runner.replay_sequence at
+     image level (frames streamed through runner.detect_frames_asq).
+     Gate: detections bit-identical to the npz sequence's, trajectories
+     equal; ms a frame of detect_frames_asq beside detect_frames. 10e:
+     aruco_slam_tpu_torch.demo at its 30 s on the card (gate: the map
+     written, ATE below 1 m), then parallel.dryrun.dryrun_multichip(1).
+     No rank compiles a kernel: the parent builds them before it starts
+     any (gate: the ranks' build reports are empty).
 Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s (the H100 SXM data sheet), from this run's inputs.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -302,12 +333,17 @@ def _max_err(a, b, mask=None):
     return float(d.max()) if d.numel() else 0.0
 
 
-def phase0_card():
+def _card():
+    """The card's name and power limit as nvidia-smi reads them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase0_card():
+    print(_card())
     from concurrent.futures import ThreadPoolExecutor
 
     from aruco_slam_tpu_torch.ops.kernels import _build
@@ -1764,6 +1800,252 @@ def phase9_backend(dev):
                      f"config 4: card and CPU solves differ by {(dp, dth, dl, dlth)}")
 
 
+# Phase 10: the worlds (ranks, backend) on this card, and the gate on the
+# distributed solve's cost history against the single-device solve's: the
+# JAX package's bound for its sharded solve (tests/test_parallel.py:46-48).
+WORLDS = ((1, "nccl"), (4, "gloo"))
+# config 5's keyframes and landmarks (benchmarks/run_all.py:277-300)
+CONFIG5 = (10000, 5000)
+DIST_HISTORY_RTOL = 2e-2
+# the demo's gate: phase 7's ATE gate for a single-stream replay
+DEMO_ATE_MAX = 1.0
+
+
+def _phase10_rank(rank, world, dev, sharded, seqs, cam, cfg, img_seqs):
+    """One rank of phase 10: 10a's solve, 10b's replay and, with
+    ``img_seqs``, 10c's detection; each after a warm-up call, timed by CUDA
+    events after an all-reduce that lines the ranks up."""
+    import torch.distributed as dist
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops import detector
+    from aruco_slam_tpu_torch.ops.kernels import _build
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
+    from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
+    from aruco_slam_tpu_torch.parallel import dist_ba, mesh
+
+    def lined_up(fn):
+        mesh.all_reduce(torch.zeros(1, device=dev))
+        for k in mesh.COUNTS:
+            mesh.COUNTS[k] = 0
+        res = {}
+        sec = _timed(lambda: res.update(out=fn()))
+        return res["out"], sec, dict(mesh.COUNTS)
+
+    out = {}
+    local = dist_ba.shard(sharded, rank, dev)
+    kw = dict(iters=10, cg_iters=50, damping=1e-4)
+    dist_ba.solve_dist(local, **{**kw, "iters": 1})
+    (poses, lms, hist), out["ba_s"], out["ba_counts"] = lined_up(
+        lambda: dist_ba.solve_dist(local, **kw))
+    out["ba"] = (poses, lms, hist) if rank == 0 else None
+
+    data = runner.build_batch_data(seqs, B, "corners", "cpu")
+    runner.replay_sharded(data, cfg, cam, "corners", device=dev)
+    _reset_counts(pk, kb)
+    rep, out["replay_s"], _ = lined_up(
+        lambda: runner.replay_sharded(data, cfg, cam, "corners", device=dev))
+    out["replay_launches"] = _counts(pk, kb)
+    if rank == 0:
+        out["replay"] = (rep.trajectory, rep.n_landmarks, rep.final_state.slot_ids)
+
+    if img_seqs is not None:
+        from aruco_slam_tpu_torch.ops.kernels import ccl
+
+        images = runner.build_batch_data(img_seqs, IMG_B, "images", dev).images
+        det_cfg = detector.DetectorConfig()
+        runner.detect_frames(images, det_cfg, IMG_CHUNK, group=dist.group.WORLD)
+        for k in ccl.LAUNCHES:
+            ccl.LAUNCHES[k] = 0
+        det, out["detect_s"], _ = lined_up(
+            lambda: runner.detect_frames(images, det_cfg, IMG_CHUNK, group=dist.group.WORLD))
+        out["detect_launches"] = {k: v for k, v in ccl.LAUNCHES.items() if v}
+        out["detect"] = det if rank == 0 else None
+    out["built"] = sorted(_build.build_reports)  # kernels this rank compiled
+    return out
+
+
+def phase10_ranks(cfg, dev):
+    """The multi-rank paths (distributed BA, sharded replay and detection)
+    in two worlds on this card, .asq streaming, the demo and the dry run."""
+    card = _card()
+    print(f"phase 10: card {card}")
+    _phase10_worlds(cfg, dev, WORLDS, card)
+    _phase10_streams(dev, card)
+
+
+def _phase10_worlds(cfg, dev, worlds, card):
+    """10a-10c in each of ``worlds`` ((ranks, backend), ...)."""
+    from aruco_slam_tpu_torch import convert, runner
+    from aruco_slam_tpu_torch.models import ba, graph_builder
+    from aruco_slam_tpu_torch.ops import detector
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.parallel import dist_ba, launch
+
+    n_kf, n_lm = CONFIG5
+    prob_np, true_poses, true_lms = graph_builder.synthetic_ba_problem(n_kf, n_lm, obs_per_kf=8,
+                                                                       seed=0)
+    kw = dict(iters=10, cg_iters=50, damping=1e-4)
+    packed, static = ba.prepare(prob_np)
+    single_problem = convert.ba_problem_from_numpy(packed, dev)
+    ba.solve(single_problem, **kw, **static)
+    single = {}
+    single_s = _timed(lambda: single.update(out=ba.solve(single_problem, **kw, **static)))
+    s_poses, s_lms, s_stats = single["out"]
+    s_hist = s_stats.cost_history.cpu().numpy()
+
+    seqs = _sequences(CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0), range(8), 60.0)
+    cam = seqs[0].camera()
+    data = runner.build_batch_data(seqs, B, "corners", dev)
+    ref = runner.replay_batch(data, cfg, cam, "corners")
+    img_seqs = _image_sequences(dev)
+    images = runner.build_batch_data(img_seqs, IMG_B, "images", dev).images
+    det_cfg = detector.DetectorConfig()
+    det_ref = runner.detect_frames(images, det_cfg, IMG_CHUNK)
+
+    expect = kw["iters"] * (kw["cg_iters"] + 2) + 1
+    for world, backend in worlds:
+        sharded, lm_perm = dist_ba.partition_problem(prob_np, world)
+        t0 = time.perf_counter()
+        ranks = launch.run_ranks(_phase10_rank, world, backend, dev.type,
+                                 args=(sharded, seqs, cam, cfg, img_seqs if world > 1 else None))
+        wall = time.perf_counter() - t0
+        cards = min(world, torch.cuda.device_count())
+        what = (f"phase 10: world {world} over {backend} on {cards} card"
+                f"{'s' if cards > 1 else ''} ({card})")
+        built = [r["built"] for r in ranks if r["built"]]
+        _require(not built, f"{what}: ranks compiled kernels: {built}")
+
+        poses, lms, hist = ranks[0]["ba"]
+        hist = hist.numpy()
+        counts = [r["ba_counts"] for r in ranks]
+        _require(all(c == {"all_reduce": expect, "all_gather": 1} for c in counts),
+                 f"{what}: collectives per rank {counts}, expected {expect} all-reduces "
+                 "and 1 all-gather")
+        _require(hist[-1] < hist[0], f"{what}: cost {hist[0]} -> {hist[-1]}")
+        h_gap = float(np.max(np.abs(hist / s_hist - 1)))
+        _require(h_gap <= DIST_HISTORY_RTOL, f"{what}: cost history differs from the single "
+                 f"device's by {h_gap} (rtol {DIST_HISTORY_RTOL})")
+        lms_g = lms[torch.as_tensor(lm_perm)]
+        pe, ae, le, _, _ = _truth_errors(poses, lms_g, prob_np, true_poses, true_lms)
+        _require(pe < TRUTH_ERR_MAX and le < TRUTH_ERR_MAX,
+                 f"{what}: pose error {pe} m, landmark error {le} m")
+        p_gap, l_gap = _pose_gap(poses, s_poses), _pose_gap(lms_g, s_lms)
+        ba_s = max(r["ba_s"] for r in ranks)
+        print(f"{what}, 10a config 5 ({n_kf} / {n_lm}, 10 GN x 50 CG): "
+              f"{kw['iters'] / ba_s:.2f} GN/s (slowest rank {ba_s:.3f} s; single device "
+              f"{kw['iters'] / single_s:.2f} GN/s, {single_s:.3f} s); cost {hist[0]:.6g} -> "
+              f"{hist[-1]:.6g} (single device {s_hist[0]:.6g} -> {s_hist[-1]:.6g}, largest "
+              f"relative gap {h_gap:.3e}); gap to the single device: poses {p_gap[0]:.3e} m / "
+              f"{p_gap[1]:.3e} rad, landmarks {l_gap[0]:.3e} m / {l_gap[1]:.3e} rad; truth "
+              f"errors poses {pe:.5f} m / {ae:.5f} rad, landmarks {le:.5f} m; collectives per "
+              f"rank {counts[0]} (iters x (cg + 2) + 1 = {expect})")
+
+        traj, n_lms, slots = ranks[0]["replay"]
+        _require(torch.equal(n_lms, ref.n_landmarks.cpu()), f"{what}: n_landmarks differ")
+        _require(torch.equal(slots, ref.final_state.slot_ids.cpu()), f"{what}: slots differ")
+        t_gap = _max_err(traj, ref.trajectory.cpu())
+        _require(t_gap <= TRAJ_TOL, f"{what}: trajectory differs by {t_gap}")
+        launches = [r["replay_launches"] for r in ranks]
+        want = {"pnp_frontend": F, "ekf_frame_batched.smem": F,
+                "ekf_frame_batched.cluster": 0, "ekf_frame_batched.device": 0}
+        _require(all(c == want for c in launches), f"{what}: launches per rank {launches}")
+        rep_s = max(r["replay_s"] for r in ranks)
+        print(f"{what}, 10b sharded replay ({B} lanes x {F} frames, {B // world} a rank): "
+              f"{B * F / rep_s:.1f} frames/s (slowest rank {rep_s:.3f} s); K1 and K2 launches "
+              f"per rank per frame {launches[0]['pnp_frontend'] / F:.0f} and "
+              f"{launches[0]['ekf_frame_batched.smem'] / F:.0f}; n_landmarks and slots equal to "
+              f"the single process's, trajectory max |difference| {t_gap:.3e}")
+
+        if world > 1:
+            det = ranks[0]["detect"]
+            _require(all(torch.equal(a, b.cpu()) for a, b in zip(det, det_ref)),
+                     f"{what}: sharded detections differ from the unsharded call's")
+            det_s = max(r["detect_s"] for r in ranks)
+            print(f"{what}, 10c sharded detection of {images.shape[0] * images.shape[1]} "
+                  f"frames: bit-identical to the unsharded call ({int(det[2].sum())} "
+                  f"detections); {1e3 * det_s / (images.shape[0] * images.shape[1]):.4f} ms a "
+                  f"frame (slowest rank); CCL launches per rank "
+                  f"{[r['detect_launches'] for r in ranks]}")
+        print(f"{what}: {wall:.1f} s with the ranks' start")
+
+
+def _phase10_streams(dev, card):
+    """10d (.asq) and 10e (the demo, the dry run) in this process."""
+    import tempfile
+
+    from aruco_slam_tpu_torch import demo, runner
+    from aruco_slam_tpu_torch.io.sequence import Sequence
+    from aruco_slam_tpu_torch.ops import detector
+    from aruco_slam_tpu_torch.ops.kernels import ccl
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.parallel import dryrun
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    def reset():
+        for counts in (ccl.LAUNCHES, k6.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def launched():
+        return {k: v for k, v in {**ccl.LAUNCHES, **{f"ekf_frame_update.{k}": v for k, v in
+                                                     k6.LAUNCHES.items()}}.items() if v}
+
+    img_seqs = _image_sequences(dev)
+    det_cfg = detector.DetectorConfig()
+    cfg_img = SlamConfig(ekf=EkfConfig(max_landmarks=32, max_observations_per_frame=24))
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, seq in enumerate(img_seqs):
+            seq.save(f"{tmp}/npz{k}.npz")
+            seq.save(f"{tmp}/asq{k}.npz", image_format="asq")
+            s_npz, s_asq = Sequence.load(f"{tmp}/npz{k}.npz"), Sequence.load(f"{tmp}/asq{k}.npz")
+            _require(s_asq.images is None and "images_asq_path" in s_asq.meta,
+                     "the .asq sequence holds its frames")
+            path = s_asq.meta["images_asq_path"]
+            frames = torch.from_numpy(s_npz.images).to(dev)
+            got, want = {}, {}
+            t_asq = _timed(lambda: got.update(d=runner.detect_frames_asq(path, det_cfg,
+                                                                         device=dev)))
+            t_npz = _timed(lambda: want.update(d=runner.detect_frames(frames, det_cfg)))
+            _require(all(torch.equal(a, b) for a, b in zip(got["d"], want["d"])),
+                     f"sequence {k}: .asq detections differ from the npz sequence's")
+            torch.cuda.synchronize()
+            reset()
+            r_asq = runner.replay_sequence(s_asq, cfg_img, level="images", device=dev)
+            torch.cuda.synchronize()
+            asq_launches = launched()
+            r_npz = runner.replay_sequence(s_npz, cfg_img, level="images", device=dev)
+            gap = _max_err(r_asq.trajectory, r_npz.trajectory)
+            _require(torch.equal(r_asq.trajectory, r_npz.trajectory),
+                     f"sequence {k}: .asq and npz trajectories differ by {gap}")
+            n = s_npz.num_frames
+            print(f"phase 10d ({card}): sequence {k} ({n} frames): .asq detections and "
+                  f"trajectory equal to the npz sequence's ({int(got['d'][2].sum())} "
+                  f"detections); detect_frames_asq {1e3 * t_asq / n:.4f} ms a frame, "
+                  f"detect_frames {1e3 * t_npz / n:.4f} (both at chunk 16, the first call); "
+                  f"launches in the .asq replay {asq_launches}")
+
+        res = {}
+        reset()
+        demo_s = _timed(lambda: res.update(out=demo.main(f"{tmp}/demo", device=dev)))
+        demo_launches = launched()
+        m = res["out"]["metrics"]
+        with open(res["out"]["map"]) as f:
+            n_map = sum(1 for line in f if line.strip() and not line.startswith("#"))
+        _require(n_map > 0 and m["ate"] < DEMO_ATE_MAX,
+                 f"demo: {n_map} map lines, ATE {m['ate']} m")
+        print(f"phase 10e ({card}): demo (30 s, ekf_then_ba) in {demo_s:.3f} s: ATE "
+              f"{m['ate']:.5f} m, {m['n_landmarks']} landmarks, map {n_map} lines, BA cost "
+              f"{res['out']['ba_cost'][0]:.6g} -> {res['out']['ba_cost'][1]:.6g}; launches "
+              f"{demo_launches}")
+    t0 = time.perf_counter()
+    runs = dryrun.dryrun_multichip(1)
+    _require(runs[0].device.type == "cuda" and runs[0].detections > 0,
+             f"dryrun_multichip(1): {runs}")
+    print(f"phase 10e: dryrun_multichip(1) on {runs[0].device}: {runs[0]}; "
+          f"{time.perf_counter() - t0:.1f} s with the rank's start")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1797,6 +2079,7 @@ def main() -> int:
     k6_launches = phase(7, phase7_single_stream, dev)
     phase(8, phase8_system, dev)
     phase(9, phase9_backend, dev)
+    phase(10, phase10_ranks, cfg, dev)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, n, err, ms, plain_ms, bound, **extra):

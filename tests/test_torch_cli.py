@@ -11,7 +11,8 @@ package where both write the same thing.
   (metrics within 1e-4; keyframe and landmark counts equal, costs within
   rtol 1e-3).
 - ``--config`` settings survive unless a flag overrides them; ``trace``
-  writes a trace; ``simulate --image-format asq`` raises.
+  writes a trace; ``replay --level images`` refuses a sequence whose
+  ``.asq`` frames are gone.
 """
 
 import argparse
@@ -158,9 +159,15 @@ def test_cli_simulate_replay_ba_match_jax(tmp_path, capsys):
 
 
 def test_cli_refuses_asq(tmp_path):
-    with pytest.raises(NotImplementedError, match="asq"):
-        cli.main(["simulate", "--out", str(tmp_path / "s.npz"), "--duration", "1",
-                  "--image-format", "asq"])
+    """``simulate --image-format asq`` writes the frames to a sibling .asq
+    container; ``replay --level images`` refuses the sequence once that
+    container is gone."""
+    out = tmp_path / "s.npz"
+    cli.main(["simulate", "--out", str(out), "--duration", "0.3", "--level", "images",
+              "--image-format", "asq", "--device", "cpu"])
+    os.remove(tmp_path / "s.asq")
+    with pytest.raises(IOError, match="asq"):
+        cli.main(["replay", "--sequence", str(out), "--level", "images", "--device", "cpu"])
 
 
 def test_cli_config_not_clobbered(tmp_path):

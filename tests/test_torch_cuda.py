@@ -457,3 +457,34 @@ def test_slam_system_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(gpu.landmark_map()[0], cpu.landmark_map()[0], atol=1e-4)
     assert [d["id"] for d in gpu.detected_markers()] == [d["id"] for d in cpu.detected_markers()]
     assert len(gpu.detected_markers()) >= 1
+
+
+def test_dryrun_two_ranks_share_the_card(dev):
+    """Two ranks on one card take gloo and run every multi-rank leg
+    (sharded replay, the distributed solve, sharded detection) there."""
+    from aruco_slam_tpu_torch.parallel import dryrun
+
+    runs = dryrun.dryrun_multichip(2)
+    assert [r.device.type for r in runs] == ["cuda", "cuda"]
+    np.testing.assert_array_equal(runs[0].ba_history, runs[1].ba_history)
+    assert runs[0].ba_history[-1] < runs[0].ba_history[0]
+    assert all(r.detections > 0 and r.image_replay_shape[0] == 2 for r in runs)
+
+
+def test_detect_frames_asq_on_the_card(dev, tmp_path):
+    """Frames streamed from an .asq onto the card detect as the same frames
+    held in memory, bit for bit (the chunk buffer is refilled only after
+    its copy has landed)."""
+    from aruco_slam_tpu_torch.io import native_seqio
+
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    seq = synthetic.generate_sequence(synthetic.SimParams(duration=4.0, seed=2), level="images",
+                                      camera=cam, device=dev)
+    path = str(tmp_path / "frames.asq")
+    native_seqio.write_frames(path, seq.images)
+    got = runner.detect_frames_asq(path, chunk=8, device=dev)
+    want = runner.detect_frames(torch.as_tensor(seq.images, device=dev), chunk=8)
+    assert got[0].device.type == "cuda"
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2].any())

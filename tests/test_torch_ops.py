@@ -1,10 +1,11 @@
 """The port's L0/L2 ops against the JAX package on the CPU: geometry,
-linalg and camera functions (atol 1e-6), and the plain version of the K1
-PnP front-end against the JAX K1 kernel in interpret mode and against the
-JAX XLA front-end (the JAX package's own contract: keep equal, z and R to
+linalg and camera functions (atol 1e-6; ``solve3x3`` 1e-5), ``Timer``,
+and the plain version of the K1 PnP front-end against the JAX K1 kernel
+in interpret mode and against the JAX XLA front-end (the JAX package's own contract: keep equal, z and R to
 atol 2e-5, R rtol 2e-4 — tests/test_pallas_kernels.py:312-317)."""
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +20,10 @@ from aruco_slam_tpu.ops import linalg as jlinalg
 from aruco_slam_tpu.ops.kernels import pnp_frontend as jpk
 from aruco_slam_tpu.sim import synthetic as jsyn
 from aruco_slam_tpu.utils import config as jconfig
+from aruco_slam_tpu.utils import logging as jlogging
 from aruco_slam_tpu_torch import convert
 from aruco_slam_tpu_torch.ops import camera, geometry, linalg
+from aruco_slam_tpu_torch.utils import logging as slogging
 from aruco_slam_tpu_torch.ops.kernels import pnp_frontend
 
 torch.set_num_threads(1)
@@ -82,6 +85,43 @@ def test_linalg_matches():
             + rng.uniform(-0.2, 0.2, (32, 4, 2)).astype(np.float32))
     t, j = both(linalg.homography_unit_square, jlinalg.homography_unit_square, quad)
     np.testing.assert_allclose(t, j, atol=ATOL)
+
+
+def test_se2_and_rotation_helpers_match():
+    """rot2d, wrap_angle_full, se2_compose / se2_inverse and rpy_to_matrix
+    on tests/test_geometry.py's cases."""
+    angles = np.linspace(-2.9 * np.pi, 2.9 * np.pi, 733).astype(np.float32)
+    t, j = both(geometry.wrap_angle_full, jgeometry.wrap_angle_full, angles)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    assert (t >= -np.pi).all() and (t < np.pi).all()
+    t, j = both(geometry.rot2d, jgeometry.rot2d, angles)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    rng = np.random.default_rng(0)
+    a, b = (np.concatenate([rng.uniform(-3, 3, (100, 2)), rng.uniform(-np.pi, np.pi, (100, 1))],
+                           axis=1).astype(np.float32) for _ in range(2))
+    t, j = both(geometry.se2_compose, jgeometry.se2_compose, a, b)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    t, j = both(geometry.se2_inverse, jgeometry.se2_inverse, a)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    ident = geometry.se2_compose(torch.as_tensor(a), geometry.se2_inverse(torch.as_tensor(a)))
+    np.testing.assert_allclose(ident.numpy(), 0.0, atol=1e-5)
+    rpy = np.concatenate([[[0.3, -1.2, 2.0]], rng.uniform(-np.pi, np.pi, (31, 3))]).astype(np.float32)
+    t, j = both(geometry.rpy_to_matrix, jgeometry.rpy_to_matrix, rpy[:, 0], rpy[:, 1], rpy[:, 2])
+    np.testing.assert_allclose(t, j, atol=ATOL)
+
+
+def test_solve3x3_and_timer_match():
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(32, 3, 3)).astype(np.float32)
+    A = X @ X.transpose(0, 2, 1) + 3 * np.eye(3, dtype=np.float32)
+    for B in (rng.normal(size=(32, 3)), rng.normal(size=(32, 3, 2))):
+        t, j = both(linalg.solve3x3, jlinalg.solve3x3, A, B.astype(np.float32))
+        assert t.shape == j.shape == B.shape
+        np.testing.assert_allclose(t, j, atol=1e-5)
+    for timer in (slogging.Timer, jlogging.Timer):
+        with timer() as tm:
+            time.sleep(0.02)
+        assert 0.02 <= tm.elapsed < 5.0
 
 
 @pytest.mark.parametrize("dist", [None, DIST])

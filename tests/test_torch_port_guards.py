@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -17,12 +18,15 @@ import torch
 import numpy as np
 
 import aruco_slam_tpu_torch
+import torch_dist_ranks
 from aruco_slam_tpu_torch import convert, pipeline, runner
+from aruco_slam_tpu_torch.io import native_seqio
 from aruco_slam_tpu_torch.models import ekf, graph_builder, pose_graph
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.kernels import (
     _build, ccl, ekf_update, ekf_update_batched, pnp_frontend,
 )
+from aruco_slam_tpu_torch.parallel import dryrun, launch, mesh
 from aruco_slam_tpu_torch.sim import renderer, synthetic
 from aruco_slam_tpu_torch.system import SlamSystem
 from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
@@ -46,7 +50,10 @@ def test_port_imports_no_jax_and_no_yaml():
         "aruco_slam_tpu_torch.models.ba, aruco_slam_tpu_torch.models.graph_builder, "
         "aruco_slam_tpu_torch.models.pose_graph, aruco_slam_tpu_torch.pipeline, "
         "aruco_slam_tpu_torch.io.checkpoint, aruco_slam_tpu_torch.utils.logging, "
-        "aruco_slam_tpu_torch.cli\n"
+        "aruco_slam_tpu_torch.cli, aruco_slam_tpu_torch.parallel.mesh, "
+        "aruco_slam_tpu_torch.parallel.launch, aruco_slam_tpu_torch.parallel.dist_ba, "
+        "aruco_slam_tpu_torch.parallel.dryrun, aruco_slam_tpu_torch.io.native_seqio, "
+        "aruco_slam_tpu_torch.demo\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yaml', 'aruco_slam_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'aruco_slam_tpu.'))]\n"
         "print(bad)\n"
@@ -404,12 +411,57 @@ def test_chip_smoke_refuses_outside_the_repo(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
+def test_backend_rule_never_puts_two_ranks_of_one_card_on_nccl(monkeypatch):
+    """nccl only where every rank has a card of its own; gloo on the CPU
+    and for ranks that share a card; nccl asked for more ranks than cards
+    raises."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.backend_for(1, "cuda") == "nccl"
+    assert mesh.backend_for(2, "cuda") == "gloo"
+    assert mesh.backend_for(4, "cuda") == "gloo"
+    assert mesh.backend_for(4, "cpu") == "gloo"
+    assert [mesh.rank_device(r, "cuda").index for r in range(4)] == [0, 0, 0, 0]
+    with pytest.raises(ValueError, match="card per rank"):
+        mesh.init(1, 2, "nccl", "cuda", "file:///nonexistent/store")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert mesh.backend_for(4, "cuda") == "nccl"
+    assert mesh.backend_for(8, "cuda") == "gloo"
+    assert [mesh.rank_device(r, "cuda").index for r in range(4)] == [0, 1, 2, 3]
+    assert not torch.distributed.is_initialized()
+
+
+def test_failed_group_init_raises(monkeypatch, tmp_path):
+    """A group that cannot be made raises, in this process and in spawned
+    ranks; nothing runs on the CPU instead."""
+    store = f"file://{tmp_path}/store"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.init(0, 1, init_method=store)  # device None: the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run_ranks(torch_dist_ranks.hang, 1, args=(0,))
+    with pytest.raises(ValueError, match="nccl"):
+        mesh.init(0, 1, "nccl", "cpu", store)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match=r"(?s)rank \d exited.*nccl needs every rank on a card"):
+        launch.run_ranks(torch_dist_ranks.hang, 2, "nccl", "cpu", args=(0,), timeout=120)
+
+
 def _seq():
     return synthetic.generate_sequence(synthetic.SimParams(duration=0.5, max_obs=3))
 
 
+def _detect_asq():
+    with tempfile.TemporaryDirectory() as d:
+        native_seqio.write_frames(f"{d}/frames.asq", np.zeros((2, 48, 64), np.uint8))
+        return runner.detect_frames_asq(f"{d}/frames.asq")
+
+
 ENTRY_POINTS = {
     "init_state": lambda: ekf.init_state(CFG, 1),
+    "replay_sharded": lambda: runner.replay_sharded(
+        runner.build_batch_data([_seq()], 2, device="cpu"), CFG),
+    "detect_frames_asq": _detect_asq,
+    "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
     "replay_data_from_sequence": lambda: runner.replay_data_from_sequence(_seq()),
     "build_batch_data": lambda: runner.build_batch_data([_seq()], 2),
     "replay_sequence": lambda: runner.replay_sequence(_seq(), CFG),

@@ -151,10 +151,13 @@ def test_evaluate_sequence_matches_jax(seqs):
         np.testing.assert_allclose(ours[k], ref[k], atol=TOL, err_msg=k)
 
 
-def test_replay_sequence_refuses_asq(seqs):
+def test_replay_sequence_refuses_asq(seqs, tmp_path):
+    """An image-level replay of a sequence whose .asq container is missing
+    raises instead of replaying something else."""
     seq = seqs[1]
-    asq = dataclasses.replace(seq, meta={**seq.meta, "images_asq_path": "frames.asq"})
-    with pytest.raises(NotImplementedError, match="asq"):
+    missing = str(tmp_path / "frames.asq")
+    asq = dataclasses.replace(seq, images=None, meta={**seq.meta, "images_asq_path": missing})
+    with pytest.raises(IOError, match="asq"):
         runner.replay_sequence(asq, _cfg(JCFG), level="images", device="cpu")
 
 
