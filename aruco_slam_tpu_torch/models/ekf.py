@@ -12,8 +12,10 @@ arrival), each linearized at the frame-start mean (the reference's stale
 the batch (``torch.where``), so lanes never diverge in control flow.
 
 The batched covariance predict plus :func:`apply_sorted` is the plain
-version of the K2 kernel (``ops/kernels/ekf_update_batched.py``), and
-:func:`update` that of K6 (``ops/kernels/ekf_update.py``).
+version of the K2 kernel (``ops/kernels/ekf_update_batched.py``);
+:func:`update` is that of K6's update alone, and :func:`predict_block`
+followed by :func:`update` that of its frame step
+(``ops/kernels/ekf_update.py``).
 :func:`update_fused` is the block-LDL form of :func:`update` for a single
 stream.
 """

@@ -119,24 +119,11 @@ long long batched_cluster_words(bool device, int N, int M, int G) {
   return device ? kMaxSharedBytes / 4 : cluster_words((long long)N * W, N, W, M) + 21;
 }
 
-// Compose lane b's ticks (every lane of the calling warp, redundantly) and
-// write pose, A, Q to pq[21] (lane 0).
-__device__ void compose_lane(const BatchIo& io, const Odom& od, int b, int N, float* pq) {
-  float pose[3] = {io.mu[(long long)b * N], io.mu[(long long)b * N + 1],
-                   io.mu[(long long)b * N + 2]};
-  float A[9], Q[9];
-  compose_ticks(od, io.init[b] != 0, io.wl + b * io.s_wl[0], io.s_wl[1],
-                io.wr + b * io.s_wr[0], io.s_wr[1], io.dt + b * io.s_dt[0], io.s_dt[1], io.T,
-                pose, A, Q);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int e = 0; e < 3; ++e) pq[e] = pose[e];
-#pragma unroll
-    for (int e = 0; e < 9; ++e) {
-      pq[3 + e] = A[e];
-      pq[12 + e] = Q[e];
-    }
-  }
+// Lane b's compose (ekf_frame_common.cuh: compose_lane) into pq[21].
+__device__ __forceinline__ void compose_batch_lane(const BatchIo& io, const Odom& od, int b, int N,
+                                                   float* pq) {
+  compose_lane(od, io.mu + (long long)b * N, io.init[b] != 0, io.wl + b * io.s_wl[0], io.s_wl[1],
+               io.wr + b * io.s_wr[0], io.s_wr[1], io.dt + b * io.s_dt[0], io.s_dt[1], io.T, pq);
 }
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
@@ -180,7 +167,7 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
 
   // ---- prologue: warp 0 composes, the others load; then lookup and sort
   if (warp == 0) {
-    compose_lane(io, od, b, N, pq);
+    compose_batch_lane(io, od, b, N, pq);
   } else {
     const int t0 = tid - 32, nt = kThreads - 32;
     // the observations into L1 for the chain (lines of 128 bytes)
@@ -443,7 +430,7 @@ ekf_frame_batched_cluster_kernel(BatchIo bio, Cfg cfg, Odom od) {
   const int N = cfg.N, L = cfg.L, M = cfg.M;
   const int b = blockIdx.x / cfg.G;
   float* pq = smem + cluster_words(cfg.cap, N, cfg.W, M);
-  if (threadIdx.x < 32) compose_lane(bio, od, b, N, pq);  // read after the body's first barrier
+  if (threadIdx.x < 32) compose_batch_lane(bio, od, b, N, pq);  // read after the body's first barrier
   const long long NN = (long long)N * N;
   const Io io{bio.mu + (long long)b * N, bio.sigma + b * NN, bio.slot_ids + (long long)b * L,
               bio.n_lm + b, bio.last_obs + (long long)b * 3 * L, bio.seen + (long long)b * L,

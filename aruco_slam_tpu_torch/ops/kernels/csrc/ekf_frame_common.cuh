@@ -17,8 +17,9 @@
 // the frame runs there in place. The choice is per lane and per frame, the
 // same in every CTA of the lane, and both homes run the same arithmetic.
 // The rest of sigma (and of mu) is a copy, spread over the cluster's CTAs
-// in 16-byte vectors, with no barrier against the chain. Per processed
-// observation:
+// in 16-byte vectors, with no barrier against the chain; where the output's
+// mu and sigma are the input's (an update in place) nothing is copied.
+// Per processed observation:
 //   - phase A: B = Gp sigma[0:3, :] + Gl sigma[idx:idx+3, :] (or the
 //     insert's sigma_mx) for the own columns, into the CTA's shared memory,
 //     double-buffered;
@@ -34,13 +35,17 @@
 // CTA already in the next phase A from overwriting B while a slower one
 // still reads it. On chip, the symmetrize reads the transposed entries from
 // the peers and writes the result straight to device memory; in device
-// memory each pair of entries is symmetrized in place by one CTA.
+// memory each pair of entries is symmetrized in place by one CTA. Every
+// write of the result comes after the body's last cluster barrier, after
+// every CTA has read its stripe and the frame-start mean, which is what
+// makes the update in place safe.
 //
-// K2 runs the same body with its frame prologue: the compose of the frame's
-// encoder ticks (pose, A, Q, by warp 0 of every CTA into its shared memory)
-// and the covariance predict on the own columns (rows 0..2 in every CTA,
-// then columns 0..2 in CTA 0, which owns them), and it writes the replay's
-// rows of the lane's pose, pose covariance and landmark count.
+// With a frame prologue (K2, and K6's frame step) the body also runs the
+// compose of the frame's encoder ticks (pose, A, Q, by warp 0 of every CTA
+// into its shared memory: compose_lane) and the covariance predict on the
+// own columns (rows 0..2 in every CTA, then columns 0..2 in CTA 0, which
+// owns them), and it writes the replay's rows of the lane's pose, pose
+// covariance and landmark count.
 
 #pragma once
 
@@ -114,7 +119,8 @@ struct Io {
   int* drop_out;
 };
 
-// What K2 adds around the cluster body; all null for K6.
+// The frame prologue around the cluster body (K2, and K6's frame step); all
+// null for K6's update alone.
 struct Lane {
   const float* pq;           // shared memory: pose[3], A[9], Q[9] of the compose
   float* traj;               // [3] the replay's trajectory row, or null
@@ -383,6 +389,25 @@ __device__ void compose_ticks(const Odom& od, bool init, const float* wl, long l
   }
 }
 
+// ekf.predict_compose of one lane, from its pose mu[0:3] (every lane of the
+// calling warp, redundantly); lane 0 writes pose, A and Q to pq[21].
+__device__ void compose_lane(const Odom& od, const float* mu, bool init, const float* wl,
+                             long long s_wl, const float* wr, long long s_wr, const float* dt,
+                             long long s_dt, int T, float* pq) {
+  float pose[3] = {mu[0], mu[1], mu[2]};
+  float A[9], Q[9];
+  compose_ticks(od, init, wl, s_wl, wr, s_wr, dt, s_dt, T, pose, A, Q);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int e = 0; e < 3; ++e) pq[e] = pose[e];
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      pq[3 + e] = A[e];
+      pq[12 + e] = Q[e];
+    }
+  }
+}
+
 // dst[e] = src[e] for e in [lo, hi), by participants part, part + parts, ...:
 // 16-byte vectors (streaming: the copy is not read again in the launch) where
 // src and dst share their alignment, else single floats.
@@ -474,9 +499,12 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
   float* sig = on_chip ? stripe : io.sigma + c0;
 
   // ---- the rest of sigma and mu, copied; the own stripe of the square
-  copy_outside(io.sigma_in, io.sigma, N, na, rank, G);
-  for (int j = na + rank * nt + tid; j < N; j += G * nt) io.mu[j] = io.mu_in[j];
-  for (int e0 = tid; e0 < na * Wb; e0 += nt * kBatch) {
+  // (nothing to copy where the update is in place)
+  const bool in_place = io.sigma == io.sigma_in;
+  if (!in_place) copy_outside(io.sigma_in, io.sigma, N, na, rank, G);
+  if (io.mu != io.mu_in)
+    for (int j = na + rank * nt + tid; j < N; j += G * nt) io.mu[j] = io.mu_in[j];
+  for (int e0 = tid; e0 < (on_chip || !in_place ? na * Wb : 0); e0 += nt * kBatch) {
     float v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {

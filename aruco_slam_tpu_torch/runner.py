@@ -18,9 +18,12 @@ card, two launches:
    allocated once per replay. The state alternates between two buffers.
 
 The single-stream path (``replay`` / ``replay_sequence``, the JAX
-``_replay_jit``) runs per frame the fused predict over the frame's encoder
-ticks and then the update that :func:`frame_update_for` picks: K6,
-``ops.kernels.ekf_update``, by default.
+``_replay_jit``) runs per frame the step that :func:`frame_step_for` picks:
+by default K6 (``ops.kernels.ekf_update.frame_step``), the predict over the
+frame's encoder ticks, the update and the frame's rows in one launch, the
+frames read from the replay's time-major arrays (``ekf_update.replay_step``,
+its inputs checked once); under ``update_backend
+"xla"`` or ``fused_update`` the predict in torch ops and that update.
 
 Nothing in either loop reads a tensor back to the host. On CPU tensors every
 kernel takes its plain version, which is how the tests run it.
@@ -268,8 +271,8 @@ def replay_batch(
     tensors.
 
     Under ``EkfConfig.fused_update`` each lane replays on its own with the
-    update that ``frame_update_for(config, batched=True)`` selects
-    (``ekf.update_fused``), as the JAX package's vmap of its single-stream
+    step that :func:`frame_step_for` selects (the predict, then
+    ``ekf.update_fused``), as the JAX package's vmap of its single-stream
     scan does; every other configuration runs K1 and K2."""
     if level == "images":
         data = _corner_data_from_detections(
@@ -277,7 +280,7 @@ def replay_batch(
         )
         level = "corners"
     if config.ekf.fused_update:
-        return _replay_lanes(data, config, camera, level, frame_update_for(config, batched=True))
+        return _replay_lanes(data, config, camera, level, frame_step_for(config))
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_batch, ekf_update_batched.frame_step_batched,
@@ -303,7 +306,7 @@ def replay_batch_reference(
         )
         level = "corners"
     if config.ekf.fused_update:
-        return _replay_lanes(data, config, camera, level, frame_update_for(config, batched=True))
+        return _replay_lanes(data, config, camera, level, frame_step_for(config))
     return _replay_batch(
         data, config, camera, level,
         pnp_frontend.pnp_frontend_reference, ekf_update_batched.frame_step_reference,
@@ -354,11 +357,12 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn,
     return ReplayResult(**rows, final_state=state)
 
 
-def _replay_lanes(data, config, camera, level, update_fn) -> ReplayResult:
+def _replay_lanes(data, config, camera, level, step) -> ReplayResult:
     """A batch replayed lane by lane through the single-stream loop with
-    ``update_fn``; the rows and final states stacked along the batch."""
+    the frame step ``step``; the rows and final states stacked along the
+    batch."""
     lanes = [_replay_single(ReplayData(*(None if x is None else x[b] for x in data)),
-                            config, camera, level, update_fn)
+                            config, camera, level, step)
              for b in range(data.obs_ids.shape[0])]
     return ReplayResult(
         *(torch.stack(rows) for rows in zip(*(r[:3] for r in lanes))),
@@ -396,7 +400,9 @@ def replay_sharded(
 def frame_update_for(config: SlamConfig, batched: bool):
     """The frame update ``(state, frame, config) -> state`` that a
     configuration selects (``EkfConfig.fused_update``, ``update_backend``):
-    the JAX package's policy, read for this card.
+    the JAX package's policy, read for this card. ``SlamSystem`` runs it
+    after its own predicts; a replay runs the whole step of
+    :func:`frame_step_for` instead.
 
     - ``fused_update``: ``ekf.update_fused``, the block-LDL form
       (single-stream);
@@ -416,6 +422,32 @@ def frame_update_for(config: SlamConfig, batched: bool):
     if backend not in ("auto", "pallas"):
         raise ValueError(f"update_backend must be 'auto', 'pallas' or 'xla', got {backend!r}")
     return update_batched if batched else ekf_update.frame_update
+
+
+def frame_step_for(config: SlamConfig):
+    """The single-stream frame step ``(state, frame, controls, config, out,
+    rows) -> state`` that a configuration selects, with
+    :func:`frame_update_for`'s policy: the predict over the frame's encoder
+    ticks, then the update, and the frame's rows written.
+
+    - ``fused_update``: ``ekf.predict_block`` then ``ekf.update_fused``;
+    - ``update_backend == "xla"``: ``ekf.predict_block`` then ``ekf.update``
+      (``ops.kernels.ekf_update.frame_step_reference``);
+    - ``"auto"`` or ``"pallas"``: K6's frame step
+      (``ops.kernels.ekf_update.frame_step``), predict and update in one
+      launch, at every ``max_landmarks``.
+
+    The first two keep the predict in torch ops, as the JAX package's XLA
+    path has no kernel there. K6 takes its plain version for CPU
+    tensors."""
+    if config.ekf.fused_update:
+        return functools.partial(ekf_update.frame_step_reference, update=ekf.update_fused)
+    backend = config.ekf.update_backend
+    if backend == "xla":
+        return ekf_update.frame_step_reference
+    if backend not in ("auto", "pallas"):
+        raise ValueError(f"update_backend must be 'auto', 'pallas' or 'xla', got {backend!r}")
+    return ekf_update.frame_step
 
 
 def update_batched(state: ekf.EkfState, frame: ekf.FrameObservations,
@@ -439,9 +471,9 @@ def replay(
     det_cfg: DetectorConfig = DetectorConfig(),
     det_chunk: int = 16,
 ) -> ReplayResult:
-    """One sequence (``data`` without a batch axis): per frame the fused
-    predict over the frame's encoder ticks, then the update of
-    ``frame_update_for(config, batched=False)``, K6 by default. At corner
+    """One sequence (``data`` without a batch axis): per frame the step of
+    :func:`frame_step_for` (the predict over the frame's encoder ticks and
+    the update), K6's frame step by default. At corner
     level the front-end is ``ops.frontend.observations_from_corners``, as
     in the JAX single-stream replay; at image level the frames are detected
     first (:func:`detect_frames`). Trajectory [F, 3], pose_cov [F, 3, 3],
@@ -451,7 +483,7 @@ def replay(
             data, *detect_frames(data.images, det_cfg, det_chunk)
         )
         level = "corners"
-    return _replay_single(data, config, camera, level, frame_update_for(config, batched=False))
+    return _replay_single(data, config, camera, level, frame_step_for(config))
 
 
 def replay_reference(
@@ -463,7 +495,8 @@ def replay_reference(
     det_chunk: int = 16,
 ) -> ReplayResult:
     """:func:`replay` through the plain versions on any device: the plain
-    detector and the plain sequential update ``ekf.update``, whatever the
+    detector, ``ekf.predict_block`` and the plain sequential update
+    ``ekf.update`` (``ekf_update.frame_step_reference``), whatever the
     config's backend. What a GPU run of the single-stream path is held
     against."""
     if level == "images":
@@ -471,38 +504,44 @@ def replay_reference(
             data, *detect_frames(data.images, det_cfg, det_chunk, reference=True)
         )
         level = "corners"
-    return _replay_single(data, config, camera, level, ekf.update)
+    return _replay_single(data, config, camera, level, ekf_update.frame_step_reference)
 
 
-def _replay_single(data, config, camera, level, update_fn) -> ReplayResult:
+def _replay_single(data, config, camera, level, step) -> ReplayResult:
+    """The single-stream frame loop: per frame ``step(state, frame,
+    controls, config, None, rows)`` (:func:`frame_step_for`'s protocol) with
+    ``rows.f`` the frame. At corner level ``frame`` is the frame's PnP
+    output [1, M]; at obs level it is frame ``rows.f`` of the replay's
+    time-major arrays, and K6's step (``ekf_update.frame_step``) runs as
+    ``ekf_update.replay_step``: checked once, then one launch a frame at
+    that index, with no per-frame tensor."""
     _check_level(level)
     if level == "corners" and camera is None:
         raise ValueError("corner-level replay needs the camera")
     F = data.obs_ids.shape[0]
     state = ekf.init_state(config, 1, data.obs_ids.device)
-    # The outputs, written frame by frame: a view of a frame's state would
-    # keep its whole [N, N] sigma alive until the end.
-    rows = ReplayResult(
-        trajectory=state.mu.new_empty(F, 3),
-        pose_cov=state.sigma.new_empty(F, 3, 3),
-        n_landmarks=state.n_landmarks.new_empty(F),
-        final_state=None,
-    )
+    # The outputs, written frame by frame by the step: a view of a frame's
+    # state would keep its whole [N, N] sigma alive until the end.
+    rows = ekf_update.Rows(state.mu.new_empty(F, 3), state.sigma.new_empty(F, 3, 3),
+                           state.n_landmarks.new_empty(F))
+    controls = ekf.Control(data.enc_w[..., 0], data.enc_w[..., 1], data.enc_dt)
+    frames = ekf.FrameObservations(data.obs_ids, data.obs_z, data.obs_R, data.obs_valid)
+    rep = None
+    if level == "obs" and step is ekf_update.frame_step:
+        rep = ekf_update.replay_step(state, frames, controls, config, rows)
     for f in range(F):
-        ew = data.enc_w[f][None]
-        state = ekf.predict_block(
-            state, ekf.Control(ew[..., 0], ew[..., 1], data.enc_dt[f][None]), config
-        )
-        ids, valid = data.obs_ids[f][None], data.obs_valid[f][None]
+        if rep is not None:
+            state = rep(f)
+            continue
+        rows.f = f
         if level == "corners":
+            ids, valid = data.obs_ids[f][None], data.obs_valid[f][None]
             frame = observations_from_corners(ids, data.corners_px[f][None], valid, camera, config)
+            ticks = ekf.Control(*(x[f][None] for x in controls))
         else:
-            frame = ekf.FrameObservations(ids, data.obs_z[f][None], data.obs_R[f][None], valid)
-        state = update_fn(state, frame, config)
-        rows.trajectory[f] = state.mu[0, :3]
-        rows.pose_cov[f] = state.sigma[0, :3, :3]
-        rows.n_landmarks[f] = state.n_landmarks[0]
-    return rows._replace(final_state=state)
+            frame, ticks = frames, controls
+        state = step(state, frame, ticks, config, None, rows)
+    return ReplayResult(rows.trajectory, rows.pose_cov, rows.n_landmarks, state)
 
 
 def replay_sequence(

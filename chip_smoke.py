@@ -9,7 +9,8 @@ x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
 detection of rendered 1920x1080 frames (K3-K5s in their block body: a frame
 in tiles over many SMs),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
-cluster variant; 512 landmarks, its grid variant), the streaming
+frame step in its cluster variant, one launch a frame; 512 landmarks, its
+grid variant on the frame's active square), the streaming
 SlamSystem (60 rendered frames, K3 + K6), the smoothing back-end (config
 2 through the filter -> smoother pipelines, K6 in their EKF pass; the BA
 solver alone on configs 4 and 5) and the multi-rank paths on this one card
@@ -103,17 +104,27 @@ Phases (each raises on failure; the script then exits non-zero):
      kernel alone and the device events per call (torch.profiler: exactly
      one), beside the plain version's and K2's at B=1, N=195; the cluster
      variant timed at 2, 4, 8 and 16 CTAs at N = 195 and 387 (where they fit).
+     Then K6's frame step (the compose of the frame's encoder ticks, the
+     predict, the update, the replay's rows) vs its plain version
+     (K6_STEP_CASES: N = 195, 387 and 1,539 with a small and a full active
+     square, 0 and 10 ticks, initialized and not): out of place, in place
+     (mu and sigma updated where they are) and reading frame f of time-major
+     arrays with the rows; exactly one device event a call. Timed on
+     K6_STEP_TIMED's states (12 known markers, 10 ticks): the kernel alone
+     in place, the call through the replay's path over 100 distinct frames,
+     the plain version, the bound of the frame's active square.
   7. the single-stream main path: runner.replay_sequence of BASELINE config
      2 (benchmarks/run_all.py config2_loop_100: the 100-marker 20 x 16 m
      arena, 210 s tour, EkfConfig(max_landmarks=128,
-     max_observations_per_frame=16), 2,100 frames at obs level). K6
-     (cluster variant) launches once per frame; against
+     max_observations_per_frame=16), 2,100 frames at obs level). K6's
+     frame step (cluster variant) launches once per frame; against
      runner.replay_reference: landmarks and slots equal, trajectory within
      TRAJ_TOL, ATE of both; frames/s of one timed replay; then
-     fused_update=True (plain update_fused) against the same reference.
-     Then the first GRID_FRAMES frames with
-     max_landmarks=512 (K6's grid variant once per frame) against the plain
-     replay of the same frames.
+     fused_update=True (plain update_fused) against the same reference; a
+     profile of 200 frames (gate: at most 2 device events a frame). Then
+     the first GRID_FRAMES frames with max_landmarks=512 (K6's grid variant
+     once per frame) against the plain replay of the same frames, frames/s
+     and their profile (the same gate).
   8. the streaming SlamSystem with the default SlamConfig(): 60 frames of
      10 add_encoder calls and one add_image of a 640x480 frame rendered on
      the card, against the same calls through the plain versions (pose, map
@@ -205,8 +216,9 @@ HD_CHUNK = 16
 # variant; the plain replay costs about 40 ms a frame there).
 C2_LANES, C2_FRAMES = 32, 300
 DEVICE_LANES, DEVICE_FRAMES = 4, 100
-# Frames of config 2 replayed with 512 landmark slots (K6's grid variant):
-# its plain replay costs about 60 ms a frame on the card.
+# Frames of config 2 replayed with 512 landmark slots (K6's grid variant on
+# the frames' small active squares): its plain replay costs about 60 ms a
+# frame on the card.
 GRID_FRAMES = 200
 # Detections of the kernel path against the plain detector on the same card:
 # the CCL stage is bit-identical, so everything downstream runs the same ops
@@ -1349,10 +1361,194 @@ def _k6_timing(call):
     return (_cuda_time(call, 100), *_kernel_ms(call, "ekf_frame_update"))
 
 
+# K6's frame step in phase 6: (max_landmarks, landmarks) with the case's 4
+# new markers, so the active square is small (40 of 64, 100 of 128 and of
+# 512 slots) or full (126 of 128 and 508 of 512: na = N), as the card tests
+# (tests/test_torch_cuda.py: _K6_SQUARES); and the states it is timed on:
+# config 2's late map at 128 and at 512 slots (100 landmarks) and a full
+# 512-landmark map, every observation known.
+K6_STEP_CASES = ((64, 40), (128, 100), (128, 126), (512, 100), (512, 508))
+K6_STEP_TIMED = (("N195", 64, 40), ("N387", 128, 100), ("N1539_small", 512, 100),
+                 ("N1539_full", 512, 512))
+K6_STEP_FRAMES = 101  # distinct frames of the timed replay-path calls
+
+
+def _k6_ticks(dev, rng, frames, ticks=10):
+    """``frames`` frames of encoder ticks [frames, T], as strided views of one
+    [frames, T, 2] tensor (the replay's layout)."""
+    from aruco_slam_tpu_torch.models import ekf
+
+    w = torch.as_tensor(rng.uniform(-1.0, 3.0, (frames, ticks, 2)).astype(np.float32),
+                        device=dev)
+    dt = torch.as_tensor(rng.uniform(0.005, 0.02, (frames, ticks)).astype(np.float32),
+                         device=dev)
+    return ekf.Control(w[..., 0], w[..., 1], dt)
+
+
+def _k6_step_bound(state, frame, ticks, L):
+    """The frame step's bound in place, from this run's inputs: the active
+    square of sigma (na x na, na = 3 + 3 min(L, landmarks + new markers))
+    and its mu read and written once, the bookkeeping, the observations and
+    the ticks read once, the rows written; 6 na^2 operations per known
+    observation, 30 na for the predict, COMPOSE_OPS_PER_TICK a tick."""
+    from aruco_slam_tpu_torch.models import ekf
+
+    slots = ekf.lookup_slots(state.slot_ids, frame.ids)
+    known = int((frame.valid & (slots >= 0)).sum())
+    new = int((frame.valid & (slots < 0)).sum())
+    na = 3 + 3 * min(L, int(state.n_landmarks[0]) + new)
+    M, T = frame.ids.shape[1], ticks.dt.shape[1]
+    n_bytes = (2 * na * na + 2 * na) * 4 + 2 * L * (4 + 12 + 1) + M * 53 + 12 * T + 52
+    return _bound(n_bytes, 6 * na * na * known + 30 * na + COMPOSE_OPS_PER_TICK * T), na
+
+
+def _k6_frame_step_checks(dev):
+    """K6's frame step against its plain version (K6_STEP_CASES at 0 and 10
+    ticks, initialized and not: out of place, in place, and frame f of
+    time-major arrays with the rows; the three frames through the replay's
+    ``replay_step``, in place from its second frame on), one device event a
+    call; returns the max error by variant."""
+    from aruco_slam_tpu_torch.models import ekf
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    worst = {"cluster": 0.0, "grid": 0.0}
+    for L, n_lm in K6_STEP_CASES:
+        cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+        kind = k6.variant(3 + 3 * L)[0]
+        for ticks in (0, 10):
+            for init in (True, False):
+                rng = np.random.default_rng(L + n_lm + ticks)
+                state = _k6_case(dev, cfg, n_lm, rng)
+                state = state._replace(initialized=torch.full_like(state.initialized, init))
+                frame = _k6_frame(state, rng, n_known=9, n_new=4)
+                frames = ekf.FrameObservations(*(torch.cat([x] * 3) for x in frame))
+                controls = _k6_ticks(dev, rng, 3, ticks)
+                one = (frame, ekf.Control(*(x[1:2] for x in controls)))
+
+                def rows():
+                    return k6.Rows(torch.zeros(3, 3, device=dev),
+                                   torch.zeros(3, 3, 3, device=dev),
+                                   torch.zeros(3, dtype=torch.int32, device=dev), 1)
+
+                ref_rows, got_rows = rows(), rows()
+                ref = k6.frame_step_reference(state, frames, controls, cfg, rows=ref_rows)
+                mine = ekf.EkfState(*(t.clone() for t in state))
+                spare = ekf.init_state(cfg, 1, dev)._replace(mu=mine.mu, sigma=mine.sigma)
+                outs = (k6.frame_step(state, *one, cfg),
+                        k6.frame_step(mine, *one, cfg, out=spare),
+                        k6.frame_step(state, frames, controls, cfg, rows=got_rows))
+                torch.cuda.synchronize()
+                what = f"K6 frame step (N {3 + 3 * L}, {n_lm} landmarks, {ticks} ticks, " \
+                       f"initialized {init})"
+                for out in outs:
+                    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized",
+                                 "diverged", "dropped"):
+                        _require(torch.equal(getattr(out, name), getattr(ref, name)),
+                                 f"{what}: {name} differs")
+                    for name in ("mu", "sigma", "last_obs"):
+                        a, r = getattr(out, name), getattr(ref, name)
+                        _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
+                                 f"{what}: {name} differs by {_max_err(a, r):.3e}")
+                        worst[kind] = max(worst[kind], _max_err(a, r))
+                _require(torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
+                         and torch.allclose(got_rows.trajectory, ref_rows.trajectory, atol=5e-5,
+                                            rtol=5e-3)
+                         and torch.allclose(got_rows.pose_cov, ref_rows.pose_cov, atol=5e-5,
+                                            rtol=5e-3), f"{what}: rows differ")
+                # the replay's path: three frames, the last two in place, each
+                # held against the plain step from the kernel's previous state
+                plain_rows, rep_rows = rows(), rows()
+                rep = k6.replay_step(state, frames, controls, cfg, rep_rows)
+                prev = state
+                for f in range(3):
+                    plain_rows.f = f
+                    plain = k6.frame_step_reference(prev, frames, controls, cfg,
+                                                    rows=plain_rows)
+                    got = rep(f)
+                    torch.cuda.synchronize()
+                    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized",
+                                 "diverged", "dropped"):
+                        _require(torch.equal(getattr(got, name), getattr(plain, name)),
+                                 f"{what}, replay path frame {f}: {name} differs")
+                    for name in ("mu", "sigma", "last_obs"):
+                        a, r = getattr(got, name), getattr(plain, name)
+                        _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
+                                 f"{what}, replay path frame {f}: {name} differs by "
+                                 f"{_max_err(a, r):.3e}")
+                        worst[kind] = max(worst[kind], _max_err(a, r))
+                    prev = ekf.EkfState(*(t.clone() for t in got))  # the next frame overwrites
+                for a, r in ((rep_rows.trajectory, plain_rows.trajectory),
+                             (rep_rows.pose_cov, plain_rows.pose_cov)):
+                    _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
+                             f"{what}, replay path: rows differ by {_max_err(a, r):.3e}")
+                _require(torch.equal(rep_rows.n_landmarks, plain_rows.n_landmarks),
+                         f"{what}, replay path: rows differ")
+        # one device event a call, on the last case's inputs (20 calls: the
+        # profiler drops the first events of a short window)
+        _, events = _kernel_ms(lambda: k6.frame_step(state, *one, cfg), "ekf_frame_update")
+        _require(events == 1, f"{what}: {events} device events per call, not one")
+        print(f"phase 6: K6 frame step ({kind} variant) N={3 + 3 * L}, {n_lm} landmarks + 4 new, "
+              f"0 and 10 ticks, initialized and not: equal to the plain version out of place, "
+              f"in place, at frame f of time-major arrays (rows too) and over 3 frames of the "
+              f"replay path; one device event a call")
+    return worst
+
+
+def _k6_frame_step_timing(dev):
+    """K6's frame step timed on K6_STEP_TIMED's states, 10 ticks a frame,
+    every observation known: the kernel alone in place (the main path's
+    form; torch.profiler over 20 calls from the same inputs), the call
+    through the replay path (``replay_step``; CUDA events over
+    K6_STEP_FRAMES - 1 distinct time-major frames after the first)
+    and the plain version; returns {tag: (kind, wrapper ms, plain ms,
+    kernel ms, bound, na, frame update kernel ms)}."""
+    from aruco_slam_tpu_torch.models import ekf
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    out = {}
+    for tag, L, n_lm in K6_STEP_TIMED:
+        cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+        kind = k6.variant(3 + 3 * L)[0]
+        rng = np.random.default_rng(n_lm)
+        state = _k6_case(dev, cfg, n_lm, rng)
+        per = [_k6_frame(state, rng, n_known=12, n_new=0) for _ in range(K6_STEP_FRAMES)]
+        frames = ekf.FrameObservations(*(torch.cat(x) for x in zip(*per)))
+        controls = _k6_ticks(dev, rng, K6_STEP_FRAMES)
+        one = (per[0], ekf.Control(*(x[:1] for x in controls)))
+        spare = ekf.init_state(cfg, 1, dev)._replace(mu=state.mu.clone(), sigma=state.sigma.clone())
+        mine = state._replace(mu=spare.mu, sigma=spare.sigma)
+        dev_ms, events = _kernel_ms(lambda: k6.frame_step(mine, *one, cfg, out=spare),
+                                    "ekf_frame_update")
+        _require(events == 1, f"K6 frame step {tag}: {events} device events per call, not one")
+        upd_ms = _kernel_ms(lambda: k6.frame_update(state, per[0], cfg), "ekf_frame_update")[0]
+        rows = k6.Rows(torch.zeros(K6_STEP_FRAMES, 3, device=dev),
+                       torch.zeros(K6_STEP_FRAMES, 3, 3, device=dev),
+                       torch.zeros(K6_STEP_FRAMES, dtype=torch.int32, device=dev))
+        rep = k6.replay_step(state, frames, controls, cfg, rows)
+        box = [0]
+
+        def step():
+            rep(box[0])
+            box[0] += 1
+
+        wrap_ms = _cuda_time(step, K6_STEP_FRAMES - 1)
+        plain = _cuda_time(lambda: k6.frame_step_reference(state, *one, cfg), 5)
+        bound, na = _k6_step_bound(state, per[0], one[1], L)
+        out[tag] = (kind, wrap_ms, plain, dev_ms, bound, na, upd_ms)
+        print(f"phase 6: K6 frame step {tag} ({kind} variant, N={3 + 3 * L}, na={na}, 12 known, "
+              f"10 ticks): kernel alone {dev_ms:.4f} ms in place (the update alone out of place "
+              f"{upd_ms:.4f}), {wrap_ms:.4f} ms/call through the replay path, plain "
+              f"{plain:.4f} ms/call; bound {bound[0]:.5f} ms ({bound[1]})")
+    return out
+
+
 def phase6_k6(dev):
-    """K6 against its plain version in both variants; returns (max err by
-    variant, {max_landmarks: (variant, wrapper ms, plain ms, kernel-alone
-    ms, bound)})."""
+    """K6 against its plain version in both variants (the update alone,
+    then the frame step); returns (max err by variant, {max_landmarks:
+    (variant, wrapper ms, plain ms, kernel-alone ms, bound)} of the update,
+    the frame step's timings)."""
     from aruco_slam_tpu_torch import runner
     from aruco_slam_tpu_torch.models import ekf
     from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
@@ -1433,7 +1629,9 @@ def phase6_k6(dev):
     k2_ms = _cuda_time(lambda: runner.update_batched(state, frame, cfg), 100)
     print(f"phase 6: K6 uninitialized no-op equal; {repeats} stationary-gate hits; K2 at B=1, N=195 "
           f"(runner.update_batched) {k2_ms:.4f} ms/launch beside K6 {timings[64][1]:.4f}")
-    return worst, timings
+    for kind, err in _k6_frame_step_checks(dev).items():
+        worst[kind] = max(worst[kind], err)
+    return worst, timings, _k6_frame_step_timing(dev)
 
 
 def _config2():
@@ -1451,6 +1649,39 @@ def _config2():
         marker_map=synthetic.make_arena(n_markers=100, width=20.0, height=16.0),
     )
     return cfg, seq
+
+
+# Windows of phase 7's profiles: seconds of idle time at each end, tried in
+# turn (the widest of PROFILE_PADS_S, then wider still).
+SINGLE_STREAM_PADS_S = (PROFILE_PADS_S[-1], 6.0)
+
+
+def _profile_single_stream(what, replay, frames):
+    """One single-stream replay of ``frames`` frames under torch.profiler:
+    the device's busy share, device events and K6's ms a frame. Every frame
+    launches K6 exactly once, so a window that holds fewer K6 events than
+    frames lost some and runs again in a wider one; the widest must hold
+    them all, and at most 2 device events a frame in all."""
+    for pad in SINGLE_STREAM_PADS_S:
+        with _profiled(pad) as prof:
+            t0 = time.perf_counter()
+            replay()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, by_name = _device_busy(prof)
+        n_dev = sum(c for c, _ in by_name.values())
+        hits = [v for k, v in by_name.items() if "ekf_frame_update" in k]
+        k6_n, k6_us = sum(c for c, _ in hits), sum(us for _, us in hits)
+        if k6_n >= frames:
+            break
+        print(f"(profiler: {k6_n} K6 events of {frames} frames in a {pad} s window; again in "
+              f"a wider one)")
+    print(f"phase 7: profile of {what}: device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
+          f"wall ({100 * busy / 1e6 / wall:.1f}%), {n_dev / frames:.2f} device events per frame, "
+          f"{k6_n} K6 events, K6 {k6_us / frames / 1e3:.4f} ms per frame")
+    _require(k6_n == frames, f"{what}: {k6_n} K6 events in the profile of {frames} frames")
+    _require(n_dev <= 2 * frames, f"{what}: {n_dev / frames:.2f} device events a frame: the "
+             "frame step is not one launch a frame")
 
 
 def phase7_single_stream(dev):
@@ -1510,18 +1741,7 @@ def phase7_single_stream(dev):
 
     head = data._replace(**{k: v[:200] for k, v in data._asdict().items() if v is not None})
     runner.replay(head, cfg)
-    torch.cuda.synchronize()
-    with _profiled(PROFILE_PADS_S[-1]) as prof:
-        t0 = time.perf_counter()
-        runner.replay(head, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, by_name = _device_busy(prof)
-    n_dev = sum(c for c, _ in by_name.values())
-    k6_us = sum(v[1] for k, v in by_name.items() if "ekf_frame_update" in k)
-    print(f"phase 7: profile of 200 frames: device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} "
-          f"ms wall ({100 * busy / 1e6 / wall:.1f}%), {n_dev / 200:.1f} device events per "
-          f"frame, K6 {k6_us / 200 / 1e3:.4f} ms per frame")
+    _profile_single_stream("200 frames", lambda: runner.replay(head, cfg), 200)
 
     # a map of 512 slots (N = 1,539): K6's grid variant on every frame
     big = dataclasses.replace(cfg, ekf=dataclasses.replace(cfg.ekf, max_landmarks=512))
@@ -1544,9 +1764,12 @@ def phase7_single_stream(dev):
              "512 slots: slot_ids differ")
     g_err = _max_err(got.trajectory, ref_big.trajectory)
     _require(g_err <= TRAJ_TOL, f"512 slots: trajectory deviates from the plain path by {g_err}")
+    g_s = _timed(lambda: runner.replay(head, big))  # the first call above made the grid's plan
     print(f"phase 7: max_landmarks=512, first {GRID_FRAMES} frames: launches {grid_launches}; "
           f"landmarks {int(got.n_landmarks[-1])} and slots equal to the plain replay, trajectory "
           f"max |K6 - plain| {g_err:.3e}; {GRID_FRAMES / g_s:.1f} frames/s ({g_s:.3f} s)")
+    _profile_single_stream(f"the {GRID_FRAMES} frames at 512 slots",
+                           lambda: runner.replay(head, big), GRID_FRAMES)
     return {"cluster": launches["cluster"], "grid": grid_launches["grid"]}
 
 
@@ -2075,7 +2298,7 @@ def main() -> int:
     c2_launches = phase("3b", phase3b_config2_batched, dev)
     ccl_stats = phase(4, phase4_ccl, dev)
     img_launches = phase(5, phase5_image_path, dev)
-    k6_err, k6_times = phase(6, phase6_k6, dev)
+    k6_err, _, k6_step = phase(6, phase6_k6, dev)
     k6_launches = phase(7, phase7_single_stream, dev)
     phase(8, phase8_system, dev)
     phase(9, phase9_backend, dev)
@@ -2110,14 +2333,21 @@ def main() -> int:
             err, ms, plain_ms, bound = ccl_stats[key]
             kernels.append(row(key, "ccl.cu", f"ccl.py:{line}", img_launches[key], err, ms,
                                plain_ms, bound))
-    # K6 at its paths' shapes: config 2 (N = 387) and 512 slots (N = 1,539);
-    # ms is the kernel alone (the profiler), wrapper_ms the call through the wrapper
-    for kind, L in (("cluster", 128), ("grid", 512)):
-        _, wrap_ms, plain_ms, dev_ms, bound = k6_times[L]
+    # K6's frame step at its paths' shapes: config 2's map at 128 slots (N =
+    # 387, cluster) and at 512 (N = 1,539, grid; its full square beside it).
+    # ms is the kernel alone in place (the profiler), wrapper_ms the call
+    # through the replay path, update_ms the update alone (SlamSystem's
+    # call) out of place; the bound counts the frame's active square (na).
+    for kind, tag in (("cluster", "N387"), ("grid", "N1539_small")):
+        _, wrap_ms, plain_ms, dev_ms, bound, na, upd_ms = k6_step[tag]
+        extra = {}
+        if kind == "grid":
+            full = k6_step["N1539_full"]
+            extra = {"full_square_ms": full[3], "full_square_bound_ms": full[4][0],
+                     "full_square_wrapper_ms": full[1]}
         kernels.append(row(f"ekf_frame_update.{kind}", "ekf_frame_update.cu", "ekf_update.py:73",
-                           k6_launches[kind], k6_err[kind],
-                           dev_ms, plain_ms, bound,
-                           wrapper_ms=wrap_ms))
+                           k6_launches[kind], k6_err[kind], dev_ms, plain_ms, bound,
+                           wrapper_ms=wrap_ms, update_ms=upd_ms, active_rows=na, **extra))
     idle = [k["name"] for k in kernels if not k["launches"]]
     _require(not idle, f"kernels the paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

@@ -353,6 +353,149 @@ def test_frame_update_kernel_matches_plain(dev, max_lm, reject):
         assert torch.equal(getattr(still, name), getattr(state, name)), name
 
 
+# K6's frame step: (max_landmarks, landmarks). With the case's 4 new
+# markers the active square is small at 40 of 64 and 100 of 128 or 512
+# slots, and full (na = N, 2 inserts dropped at 128) at 126 and 508. At
+# 1,000 slots (N = 3,003) a full square's stripes pass the grid's shared
+# memory, so that frame runs in device memory.
+_K6_SQUARES = [(64, 40), (128, 100), (128, 126), (512, 100), (512, 508), (1000, 996)]
+
+
+@pytest.mark.parametrize("max_lm,n_lm", _K6_SQUARES)
+@pytest.mark.parametrize("ticks", [0, 10])
+@pytest.mark.parametrize("initialized", [True, False])
+def test_k6_frame_step_matches_plain(dev, max_lm, n_lm, ticks, initialized):
+    """K6's frame step (the compose, the predict, the update, the rows)
+    against its plain version at N = 195 and 387 (cluster variant) and
+    1,539 (grid variant), with a small and a full active square, from an
+    initialized and an uninitialized state: out of place, in place (``out``
+    sharing mu and sigma with the state), reading frame f of time-major
+    arrays; exactly one device event per call."""
+    cfg, state, frame = _k6_case(dev, max_lm, n_lm, max_lm + n_lm)
+    state = state._replace(initialized=torch.full_like(state.initialized, initialized))
+    rng = np.random.default_rng(ticks)
+    w = torch.as_tensor(rng.uniform(-1.0, 3.0, (3, ticks, 2)).astype(np.float32), device=dev)
+    dt = torch.as_tensor(rng.uniform(0.005, 0.02, (3, ticks)).astype(np.float32), device=dev)
+    controls = ekf.Control(w[..., 0], w[..., 1], dt)  # 3 frames, strided views
+    frames = ekf.FrameObservations(*(torch.cat([x] * 3) for x in frame))
+    kind = k6.variant(3 + 3 * max_lm)[0]
+    assert kind == ("grid" if max_lm > k6.MAX_CLUSTER_LANDMARKS else "cluster")
+
+    def rows():
+        return k6.Rows(torch.zeros(3, 3, device=dev), torch.zeros(3, 3, 3, device=dev),
+                       torch.zeros(3, dtype=torch.int32, device=dev), 1)
+
+    ref_rows = rows()
+    ref = k6.frame_step_reference(state, frames, controls, cfg, rows=ref_rows)
+    one = (ekf.FrameObservations(*(x[1:2] for x in frames)),
+           ekf.Control(*(x[1:2] for x in controls)))
+    mine = ekf.EkfState(*(t.clone() for t in state))
+    spare = ekf.init_state(cfg, 1, dev)._replace(mu=mine.mu, sigma=mine.sigma)
+    got_rows = rows()
+    before = dict(k6.LAUNCHES)
+    outs = [k6.frame_step(state, *one, cfg),
+            k6.frame_step(mine, *one, cfg, out=spare),
+            k6.frame_step(state, frames, controls, cfg, rows=got_rows)]
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == {**before, kind: before[kind] + 3}
+    assert outs[1] is spare and spare.sigma is mine.sigma
+    for out in outs:
+        for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
+                     "dropped"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        for name in ("mu", "sigma", "last_obs"):
+            torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5,
+                                       rtol=5e-3)
+    assert int(ref.n_landmarks[0]) == min(max_lm, n_lm + 4) and bool(ref.initialized[0])
+    assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
+    for a, b in ((got_rows.trajectory, ref_rows.trajectory), (got_rows.pose_cov,
+                                                             ref_rows.pose_cov)):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-3)
+    assert _device_events_per_call(lambda: k6.frame_step(state, *one, cfg)) == 1
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_k6_grid_full_square_repeats(dev, in_place):
+    """K6's grid variant on the full square (N = 1,539, na = N: every
+    stripe's CTA in the chain and its barriers), 20 times from the same
+    inputs and 10 ticks, out of place or in place: each result equals the
+    plain version, and the first bit for bit (the kernel has no float
+    atomics, so a race between the stripes would show as a difference)."""
+    cfg, state, frame = _k6_case(dev, 512, 508, 1020)
+    rng = np.random.default_rng(10)
+    w = torch.as_tensor(rng.uniform(-1.0, 3.0, (1, 10, 2)).astype(np.float32), device=dev)
+    dt = torch.as_tensor(rng.uniform(0.005, 0.02, (1, 10)).astype(np.float32), device=dev)
+    controls = ekf.Control(w[..., 0], w[..., 1], dt)
+    assert k6.variant(state.mu.shape[1])[0] == "grid"
+    ref = k6.frame_step_reference(state, frame, controls, cfg)
+    first = None
+    for _ in range(20):
+        if in_place:
+            mine = ekf.EkfState(*(t.clone() for t in state))
+            out = k6.frame_step(mine, frame, controls, cfg, out=ekf.init_state(cfg, 1, dev)
+                                ._replace(mu=mine.mu, sigma=mine.sigma))
+        else:
+            out = k6.frame_step(state, frame, controls, cfg)
+        torch.cuda.synchronize()
+        for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
+                     "dropped"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        for name in ("mu", "sigma", "last_obs"):
+            torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5,
+                                       rtol=5e-3)
+        first = first or out
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
+
+
+def _device_events_per_call(call, reps=10, pads=(0.2, 1.0, 3.0)):
+    """Device events per call over ``reps`` calls under torch.profiler, the
+    window opened ``pad`` seconds before the calls and closed ``pad`` after
+    their device work. The profiler can drop the events of a short window
+    (on an H100 it kept none of a K6 call's in some windows), so a window
+    that saw fewer events than calls is tried again wider (chip_smoke.py's
+    ``_kernel_ms`` does the same)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for pad in pads:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        if n >= reps:
+            break
+    return n / reps
+
+
+@pytest.mark.parametrize("max_lm", [128, 512])
+def test_k6_replay_matches_plain(dev, max_lm):
+    """The single-stream replay through K6's frame step (one launch a frame
+    through ``ekf_update.replay_step``, the state updated in place from the
+    second frame on) against the plain replay on the card."""
+    seq = synthetic.generate_sequence(synthetic.SimParams(duration=6.0, seed=9, max_obs=8))
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=8))
+    data = runner.replay_data_from_sequence(seq, "obs", dev)
+    kind = k6.variant(3 + 3 * max_lm)[0]
+    before = dict(k6.LAUNCHES)
+    out = runner.replay(data, cfg)
+    ref = runner.replay_reference(data, cfg)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == {**before, kind: before[kind] + seq.num_frames}
+    assert torch.equal(out.n_landmarks, ref.n_landmarks) and int(out.n_landmarks[-1]) > 0
+    assert torch.equal(out.final_state.slot_ids, ref.final_state.slot_ids)
+    torch.testing.assert_close(out.trajectory, ref.trajectory, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.final_state.sigma, ref.final_state.sigma, atol=1e-4,
+                               rtol=5e-3)
+
+
 def _k2_case(dev, max_lm, B=3, T=10, seed=0, n_lms=None):
     """B lanes of ``_k6_case`` (``max_lm - 2`` landmarks, so inserts drop,
     or lane b's ``n_lms[b]``), lane 1 not yet initialized, with T encoder

@@ -1,11 +1,13 @@
-"""K6's plain version (``ops.kernels.ekf_update.frame_update`` on CPU
-tensors) against the JAX single-stream frame kernel
+"""K6's plain versions (``ops.kernels.ekf_update.frame_update`` and
+``frame_step`` on CPU tensors) against the JAX single-stream frame kernel
 ``aruco_slam_tpu.ops.kernels.ekf_update.frame_update`` in interpret mode,
 on the cases of the JAX package's own kernel tests: a mixed chain of known
 and new markers, a capacity overflow, the gate off with reject-divergent
-on, and the uninitialized no-op. Integer fields exact; mu, sigma, last_obs
-to atol 5e-5 / rtol 5e-3 (float32 sums in another order, carried over a
-few frames)."""
+on, and the uninitialized no-op; the frame step against JAX's
+``ekf.predict_block`` followed by that kernel, at 0, 1 and 10 encoder
+ticks from initialized and uninitialized states. Integer fields exact; mu,
+sigma, last_obs to atol 5e-5 / rtol 5e-3 (float32 sums in another order,
+carried over a few frames)."""
 
 import dataclasses
 
@@ -18,7 +20,7 @@ import torch
 from aruco_slam_tpu.models import ekf as jekf
 from aruco_slam_tpu.ops.kernels import ekf_update as jkern
 from aruco_slam_tpu.utils import config as jconfig
-from aruco_slam_tpu_torch import convert
+from aruco_slam_tpu_torch import convert, runner
 from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.kernels import ekf_update
 
@@ -133,7 +135,7 @@ def test_variant_is_chosen_by_size_alone():
     n = lambda lm: 3 + 3 * lm  # noqa: E731
     assert ekf_update.variant(n(64)) == ("cluster", 16)  # SlamSystem's default
     assert ekf_update.variant(n(128)) == ("cluster", 16)  # config 2
-    assert ekf_update.cluster_shared_bytes(n(128), 16) == 46_384  # 25 columns a CTA
+    assert ekf_update.cluster_shared_bytes(n(128), 16) == 46_468  # 25 columns a CTA, the compose
     assert ekf_update.MAX_CLUSTER_LANDMARKS == 308
     assert ekf_update.cluster_shared_bytes(n(308), 16) <= ekf_update.MAX_SHARED_BYTES
     assert ekf_update.cluster_shared_bytes(n(309), 16) > ekf_update.MAX_SHARED_BYTES
@@ -145,3 +147,169 @@ def test_variant_is_chosen_by_size_alone():
     for lm in range(1, 309):
         kind, ctas = ekf_update.variant(n(lm))
         assert kind == "cluster" and -(-n(lm) // ctas) >= 3
+
+
+def _ticks(rng, n):
+    """n encoder ticks (wl, wr, dt), float32."""
+    w = rng.uniform(0.5, 2.0, (2, n)).astype(np.float32)
+    return w[0], w[1], rng.uniform(0.02, 0.08, n).astype(np.float32)
+
+
+def _gate_frames(rng):
+    """Three frames: two new markers; both known and a third new one; then
+    marker 5 again at the record the second frame left (a stationary-gate
+    hit), marker 3 moved and a fourth new one."""
+    second = _frame(rng, [5, 9, 3])
+    a, z, R, v = _frame(rng, [5, 3, 11])
+    z[0] = second[1][0]  # marker 5 where it was seen last frame
+    return _frame(rng, [3, 5]), second, (a, z, R, v)
+
+
+@pytest.mark.parametrize("ticks", [0, 1, 10])
+@pytest.mark.parametrize("initialized", [True, False])
+@pytest.mark.parametrize("case", ["gate", "capacity_drop"])
+def test_frame_step_plain_matches_jax_predict_then_kernel(case, initialized, ticks):
+    """``frame_step``'s plain version (the predict over the frame's ticks,
+    then the update) against JAX's ``predict_block`` followed by the Pallas
+    ``frame_update``, frame after frame from an initialized or an
+    uninitialized state: the latch spends an uninitialized state's first
+    tick, and the frame runs even with no tick (``predict_block`` sets the
+    latch)."""
+    rng = np.random.default_rng(10 * ticks + initialized)
+    jcfg = JCFG if case == "gate" else dataclasses.replace(
+        JCFG, ekf=jconfig.EkfConfig(max_landmarks=2, max_observations_per_frame=6))
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    frames = _gate_frames(rng) if case == "gate" else ([1, 2, 3], [2, 4, 1])
+    ref = _jstate(jcfg, initialized)
+    ours = convert.ekf_state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+    launches = dict(ekf_update.LAUNCHES)
+    for ids in frames:
+        a, z, R, v = ids if isinstance(ids, tuple) else _frame(rng, ids)
+        wl, wr, dt = _ticks(rng, ticks)
+        ref = jekf.predict_block(ref, jekf.Control(*map(jnp.asarray, (wl, wr, dt))), jcfg)
+        ref = jkern.frame_update(ref, jekf.FrameObservations(*map(jnp.asarray, (a, z, R, v))),
+                                 jcfg, interpret=True)
+        ours = ekf_update.frame_step(
+            ours, ekf.FrameObservations(*(torch.as_tensor(x)[None] for x in (a, z, R, v))),
+            ekf.Control(*(torch.as_tensor(x)[None] for x in (wl, wr, dt))), cfg)
+        _assert_same(ours, ref)
+    assert bool(ours.initialized[0])
+    if case == "gate":
+        assert int(ours.n_landmarks[0]) == 4
+    else:
+        assert int(ours.dropped[0]) == 2 and int(ours.n_landmarks[0]) == 2
+    assert ekf_update.LAUNCHES == launches  # CPU tensors never launch
+
+
+def test_frame_step_gate_hit_zeroes_the_record():
+    """The last of ``_gate_frames`` hits the stationary gate: JAX's
+    predict + kernel and the port's frame step both leave marker 5's
+    last_obs at zero (quirk (c)) and count it seen."""
+    rng = np.random.default_rng(7)
+    cfg = convert.config_from_dict(dataclasses.asdict(JCFG))
+    ref = _jstate(JCFG)
+    ours = convert.ekf_state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+    for a, z, R, v in _gate_frames(rng):
+        wl, wr, dt = _ticks(rng, 10)
+        ref = jkern.frame_update(
+            jekf.predict_block(ref, jekf.Control(*map(jnp.asarray, (wl, wr, dt))), JCFG),
+            jekf.FrameObservations(*map(jnp.asarray, (a, z, R, v))), JCFG, interpret=True)
+        ours = ekf_update.frame_step(
+            ours, ekf.FrameObservations(*(torch.as_tensor(x)[None] for x in (a, z, R, v))),
+            ekf.Control(*(torch.as_tensor(x)[None] for x in (wl, wr, dt))), cfg)
+        _assert_same(ours, ref)
+    slot = int(np.flatnonzero(np.asarray(ref.slot_ids) == 5)[0])
+    assert np.asarray(ref.last_obs)[slot].tolist() == [0.0, 0.0, 0.0]
+    assert ours.last_obs[0, slot].tolist() == [0.0, 0.0, 0.0] and bool(ours.seen_prev[0, slot])
+
+
+def test_frame_step_reads_frame_f_of_time_major_frames():
+    """With rows, the step takes frame ``rows.f`` of the replay's time-major
+    observations and ticks, equal to the same frame handed over alone, and
+    writes that frame's rows; ``replay_step``'s ``rep(f)`` gives the same
+    states and rows."""
+    rng = np.random.default_rng(8)
+    cfg = convert.config_from_dict(dataclasses.asdict(JCFG))
+    frames = [_frame(rng, ids) for ids in ([3, 5], [5, 9, 3], [9, 1])]
+    ticks = [_ticks(rng, 10) for _ in frames]
+    every = ekf.FrameObservations(*(torch.as_tensor(np.stack(x)) for x in zip(*frames)))
+    every_ticks = ekf.Control(*(torch.as_tensor(np.stack(x)) for x in zip(*ticks)))
+    rows = ekf_update.Rows(torch.zeros(3, 3), torch.zeros(3, 3, 3),
+                           torch.zeros(3, dtype=torch.int32))
+    state = alone = convert.ekf_state_from_numpy(jax.tree.map(np.asarray, _jstate(JCFG)), "cpu")
+    rep_rows = ekf_update.Rows(torch.zeros(3, 3), torch.zeros(3, 3, 3),
+                               torch.zeros(3, dtype=torch.int32))
+    rep = ekf_update.replay_step(state, every, every_ticks, cfg, rep_rows)
+    for f in range(3):
+        rows.f = f
+        state = ekf_update.frame_step(state, every, every_ticks, cfg, None, rows)
+        for a, b in zip(rep(f), state):
+            assert torch.equal(a, b)
+        alone = ekf_update.frame_step(
+            alone, ekf.FrameObservations(*(torch.as_tensor(x)[None] for x in frames[f])),
+            ekf.Control(*(torch.as_tensor(x)[None] for x in ticks[f])), cfg)
+        for a, b in zip(state, alone):
+            assert torch.equal(a, b)
+        assert torch.equal(rows.trajectory[f], state.mu[0, :3])
+        assert torch.equal(rows.pose_cov[f], state.sigma[0, :3, :3])
+        assert int(rows.n_landmarks[f]) == int(state.n_landmarks[0])
+    for name in ("trajectory", "pose_cov", "n_landmarks"):
+        assert torch.equal(getattr(rep_rows, name), getattr(rows, name))
+
+
+def test_replay_calls_the_frame_step_once_a_frame(monkeypatch):
+    """``runner.replay`` with the default backend makes K6's replay step
+    once (``ekf_update.replay_step``, which checks the inputs) and runs it
+    once per frame, and ``predict_block`` only inside it (the predict is
+    the step's, not the loop's)."""
+    from aruco_slam_tpu.sim import synthetic as jsyn
+
+    seq = jsyn.generate_sequence(jsyn.SimParams(duration=2.0, seed=5, max_obs=6))
+    data = runner.replay_data_from_sequence(seq, "obs", "cpu")
+    cfg = convert.config_from_dict(dataclasses.asdict(JCFG))
+    made, calls, inside, predicts = [], [], [False], []
+    real_make, real_step = ekf_update.replay_step, ekf_update.Replay.__call__
+    real_predict = ekf.predict_block
+
+    def spy_make(*a, **k):
+        made.append(1)
+        return real_make(*a, **k)
+
+    def spy_step(self, f):
+        calls.append(f)
+        inside[0] = True
+        try:
+            return real_step(self, f)
+        finally:
+            inside[0] = False
+
+    def spy_predict(*a, **k):
+        predicts.append(inside[0])
+        return real_predict(*a, **k)
+
+    monkeypatch.setattr(ekf_update, "replay_step", spy_make)
+    monkeypatch.setattr(ekf_update.Replay, "__call__", spy_step)
+    monkeypatch.setattr(ekf, "predict_block", spy_predict)
+    res = runner.replay(data, cfg)
+    F = data.obs_ids.shape[0]
+    assert made == [1] and calls == list(range(F))
+    assert predicts == [True] * F
+    assert res.trajectory.shape == (F, 3)
+
+
+def test_frame_step_for_policy():
+    """The replay's step by configuration: K6's frame step for "auto" and
+    "pallas"; the plain predict and update for "xla"; the predict and
+    ``update_fused`` under ``fused_update``."""
+    def cfg(**kw):
+        return convert.config_from_dict(dataclasses.asdict(dataclasses.replace(
+            JCFG, ekf=dataclasses.replace(JCFG.ekf, **kw))))
+
+    for backend in ("auto", "pallas"):
+        assert runner.frame_step_for(cfg(update_backend=backend)) is ekf_update.frame_step
+    assert runner.frame_step_for(cfg(update_backend="xla")) is ekf_update.frame_step_reference
+    fused = runner.frame_step_for(cfg(fused_update=True))
+    assert fused.func is ekf_update.frame_step_reference
+    assert fused.keywords == {"update": ekf.update_fused}
+    with pytest.raises(ValueError, match="update_backend"):
+        runner.frame_step_for(cfg(update_backend="mosaic"))

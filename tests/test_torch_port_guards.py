@@ -161,6 +161,46 @@ def test_frame_update_rejects_bad_inputs():
         ekf_update.frame_update(state._replace(sigma=state.sigma.transpose(1, 2)), frame, CFG)
 
 
+def test_frame_step_rejects_bad_inputs():
+    """K6's frame step checks the ticks, the rows, the observations' frame
+    axis (one frame, or every frame of the replay with rows) and what
+    ``out`` shares with the state."""
+    state, frame = _k6_args()
+    ticks = ekf.Control(torch.ones(1, 2), torch.ones(1, 2), torch.full((1, 2), 0.1))
+    rows = ekf_update.Rows(torch.zeros(4, 3), torch.zeros(4, 3, 3),
+                           torch.zeros(4, dtype=torch.int32), 3)
+    out = ekf_update.frame_step(state, frame, ticks, CFG, rows=rows)
+    assert bool(out.initialized[0]) and int(rows.n_landmarks[3]) == 0
+    with pytest.raises(TypeError, match="dt"):
+        ekf_update.frame_step(state, frame, ticks._replace(dt=ticks.dt.double()), CFG)
+    with pytest.raises(ValueError, match="wl"):
+        ekf_update.frame_step(state, frame, ticks._replace(wl=torch.ones(2, 2)), CFG)
+    with pytest.raises(ValueError, match="outside"):
+        rows.f = 4
+        ekf_update.frame_step(state, frame, ticks, CFG, rows=rows)
+    rows.f = 0
+    with pytest.raises(TypeError, match="rows.n_landmarks"):
+        ekf_update.frame_step(state, frame, ticks, CFG, rows=ekf_update.Rows(
+            rows.trajectory, rows.pose_cov, rows.n_landmarks.long()))
+    two = ekf.FrameObservations(*(torch.cat([x, x]) for x in frame))
+    with pytest.raises(ValueError, match="one, or with rows"):
+        ekf_update.frame_step(state, two, ticks, CFG)
+    with pytest.raises(ValueError, match="one, or with rows"):
+        ekf_update.frame_step(state, two, ticks, CFG, rows=rows)
+    spare = ekf.init_state(CFG, 1, "cpu")
+    with pytest.raises(ValueError, match="share only mu and sigma"):
+        ekf_update.frame_step(state, frame, ticks, CFG, out=spare._replace(
+            slot_ids=state.slot_ids))
+    with pytest.raises(ValueError, match="share only mu and sigma"):
+        ekf_update.frame_step(state, frame, ticks, CFG, out=spare._replace(
+            sigma=state.sigma.view(state.sigma.shape)))
+    in_place = spare._replace(mu=state.mu, sigma=state.sigma)
+    assert ekf_update.frame_step(state, frame, ticks, CFG, out=in_place) is not in_place
+    with pytest.raises(ValueError, match="no kernel"):
+        ekf_update.frame_step(*_k6_args(device="meta"), ekf.Control(
+            *(torch.ones(1, 2, device="meta") for _ in range(3))), CFG)
+
+
 def test_pnp_frontend_rejects_bad_inputs():
     corners = torch.zeros(2, 3, 4, 2)
     valid = torch.zeros(2, 3, dtype=torch.bool)
@@ -234,17 +274,14 @@ class _RefusingK6:
         W._obj.value, smem._obj.value, count._obj.value = -(-N // G), 1024, 4
         return 0
 
-    def ekf_frame_update_grid_plan(self, N, M, G, W, smem):
+    def ekf_frame_update_grid_plan(self, N, M, G, W, cap, smem):
         G._obj.value, W._obj.value, smem._obj.value = 8, -(-N // 8), 1024
+        cap._obj.value = N * W._obj.value
         return 0
 
-    def ekf_frame_update_cluster_launch(self, *args):
-        self.calls.append("cluster")
+    def ekf_frame_update_launch(self, args):
+        self.calls.append(("cluster", "grid")[args._obj.variant])
         return 2  # cudaErrorMemoryAllocation
-
-    def ekf_frame_update_grid_launch(self, *args):
-        self.calls.append("grid")
-        return 2
 
     def ekf_frame_update_error_string(self, err):
         return b"out of memory"
@@ -288,7 +325,7 @@ def _as_if_on_the_card(monkeypatch, module, lib):
 def test_refused_k6_launch_raises_and_tries_no_other_variant(monkeypatch, max_lm, kind):
     lib = _RefusingK6()
     _as_if_on_the_card(monkeypatch, ekf_update, lib)
-    monkeypatch.setattr(ekf_update, "_barriers", {})
+    monkeypatch.setattr(ekf_update, "_workspaces", {})
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
     state = ekf.init_state(cfg, 1, "cpu")
     _, frame = _k6_args()
@@ -298,6 +335,93 @@ def test_refused_k6_launch_raises_and_tries_no_other_variant(monkeypatch, max_lm
         ekf_update._launch(state, frame, cfg, ekf_update.variant(3 + 3 * max_lm))
     assert lib.calls == [kind]
     assert ekf_update.LAUNCHES == before
+
+
+@pytest.mark.parametrize("max_lm,kind", [(64, "cluster"), (400, "grid")])
+def test_refused_k6_frame_step_raises_and_keeps_no_replay(monkeypatch, max_lm, kind):
+    """A refused frame step raises, tries no other variant and counts no
+    launch, through ``frame_step``'s launch and through a replay's first
+    frame; the refused replay keeps the caller's state, and its next call
+    launches the first frame again."""
+    lib = _RefusingK6()
+    _as_if_on_the_card(monkeypatch, ekf_update, lib)
+    monkeypatch.setattr(ekf_update, "_workspaces", {})
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
+    state = ekf.init_state(cfg, 1, "cpu")
+    frame = ekf.FrameObservations(*(torch.cat([x, x]) for x in _k6_args()[1]))
+    ticks = ekf.Control(*(torch.ones(2, 4) for _ in range(3)))
+    rows = ekf_update.Rows(torch.zeros(2, 3), torch.zeros(2, 3, 3),
+                           torch.zeros(2, dtype=torch.int32))
+    before = dict(ekf_update.LAUNCHES)
+    with pytest.raises(RuntimeError, match=f"{kind} launch.*out of memory"):
+        ekf_update._launch(state, frame, cfg, ekf_update.variant(3 + 3 * max_lm), ticks,
+                           None, rows)
+    rep = ekf_update.replay_step(state, frame, ticks, cfg, rows)
+    rep._on_card()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=f"{kind} launch.*out of memory"):
+            rep(0)
+        assert rep.state is state
+    assert lib.calls == [kind] * 3
+    assert ekf_update.LAUNCHES == before
+
+
+class _RecordingK6(_RefusingK6):
+    """K6's library with launches that succeed and record their arguments."""
+
+    def ekf_frame_update_launch(self, args):
+        a = args._obj
+        self.calls.append((a.f, a.state[1], a.out[1], a.state[2], a.out[2], a.obs_frames, a.T))
+        return 0
+
+
+@pytest.mark.parametrize("max_lm", [64, 400])
+def test_replay_checks_once_and_steps_in_place(monkeypatch, max_lm):
+    """A replay's frames through ``ekf_update.replay_step``, as if on the
+    card: the inputs are checked once, when it is made; every frame then
+    launches with the arguments made there, only the frame index changed
+    (the time-major observations read at it); the first frame reads the
+    caller's state, and from the second on sigma (and mu) are updated in
+    place while the bookkeeping alternates between two sets. A frame
+    outside the replay raises and launches nothing, and a replay is made
+    only from every frame of its observations."""
+    lib = _RecordingK6()
+    _as_if_on_the_card(monkeypatch, ekf_update, lib)
+    monkeypatch.setattr(ekf_update, "_workspaces", {})
+    checks = []
+    real_check = ekf_update._check_step
+    monkeypatch.setattr(ekf_update, "_check_step", lambda *a: checks.append(1) or real_check(*a))
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
+    F = 5
+    frames = ekf.FrameObservations(*(torch.cat([x] * F) for x in _k6_args()[1]))
+    ticks = ekf.Control(*(torch.ones(F, 4) for _ in range(3)))
+    rows = ekf_update.Rows(torch.zeros(F, 3), torch.zeros(F, 3, 3),
+                           torch.zeros(F, dtype=torch.int32))
+    state0 = ekf.init_state(cfg, 1, "cpu")
+    kind = ekf_update.variant(3 + 3 * max_lm)[0]
+    before = ekf_update.LAUNCHES[kind]
+    rep = ekf_update.replay_step(state0, frames, ticks, cfg, rows)
+    rep._on_card()
+    states = [rep(f) for f in range(F)]
+    assert ekf_update.LAUNCHES[kind] == before + F and len(checks) == 1
+    assert [c[0] for c in lib.calls] == list(range(F)) and rows.f == F - 1
+    assert all(c[5] == 1 and c[6] == 4 for c in lib.calls)  # frame f of the arrays, 4 ticks
+    sig0 = state0.sigma.data_ptr()
+    first = lib.calls[0]
+    assert first[1] == sig0 and first[2] != sig0  # the caller's state is only read
+    for c in lib.calls[1:]:
+        assert c[1] == c[2] == first[2]  # sigma in place in the replay's own buffer
+        assert c[3] != c[4]  # the bookkeeping never in place
+    assert states[0] is states[2] is states[4] and states[1] is states[3]
+    assert states[0] is not states[1] and states[0].sigma is states[1].sigma
+    assert rep.state is states[-1]
+    for f in (F, -1):
+        with pytest.raises(ValueError, match="outside the replay"):
+            rep(f)
+    assert len(lib.calls) == F and ekf_update.LAUNCHES[kind] == before + F
+    with pytest.raises(ValueError, match="every frame"):
+        ekf_update.replay_step(state0, ekf.FrameObservations(*(x[:1] for x in frames)),
+                               ekf.Control(*(x[:1] for x in ticks)), cfg, rows)
 
 
 class _RefusingK2:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Same-card comparison of two checkouts of the PyTorch port on the batched
 corner-level main path (chip_smoke.py phase 3), on K2 and K6 alone
-(``--k2``) or on the CCL family (``--ccl``). Host-bound rates move by up
+(``--k2``), on the CCL family (``--ccl``) or on K6's single-stream frame
+step and the replay that runs it (``--k6``). Host-bound rates move by up
 to 2x from one machine to the next, so two versions are compared only
 inside one run, in the order A, B, B, A (each in a fresh process that
 builds its own kernels).
@@ -54,11 +55,35 @@ renderer, from this tree; DetectorConfig()'s threshold and rounds):
   - ``k3_vga128_ms`` / ``k3_vga16_ms``: K3 alone in the cluster body at
     128 and 16 rendered 640x480 frames.
 
-    python3 tools/port_ab.py [--k2 | --ccl] PATH_A PATH_B
+With ``--k6`` it measures the single-stream path (chip_smoke.py phase 7,
+and phase 6's K6 states, 10 encoder ticks a frame, every observation
+known: K6_STEP_TIMED), from the same inputs in both checkouts:
+  - ``k6_ms_N195`` / ``k6_ms_N387`` / ``k6_ms_N1539_small`` /
+    ``k6_ms_N1539_full``: K6 alone a frame (torch.profiler over 20 calls,
+    device ms of the kernels whose names hold ``ekf_frame_update``) on 40
+    landmarks of 64 slots, 100 of 128, 100 of 512 (a small active square
+    in an N = 1,539 state) and 512 of 512 (the full square). A checkout
+    with ``ekf_update.frame_step`` runs it in place (the replay's form); an
+    older one runs ``frame_update`` on the predicted state (its predict is
+    torch ops, outside the kernel);
+  - ``k6_frame_ms_*``: the whole frame (predict and update) a call, host
+    and device, CUDA events over 100 consecutive frames: the frame step
+    through the replay's path (``ekf_update.replay_step``), or
+    ``ekf.predict_block`` then ``frame_update``;
+  - ``fps_128``: config 2's 2,100-frame ``runner.replay`` (128 slots) in
+    frames/s (one timed replay after a 200-frame warm one), ``fps_512``
+    its first 200 frames at 512 slots (median of 3);
+  - ``events_per_frame`` / ``busy``: torch.profiler over 200 frames at 128
+    slots: device events a frame and the device-busy share;
+  - ``events_per_frame_512`` / ``k6_frame_ms_512``: the same 200 frames at
+    512 slots, and K6's device ms a frame there.
+
+    python3 tools/port_ab.py [--k2 | --ccl | --k6] PATH_A PATH_B
 
 Then a table of the medians per checkout. Needs one CUDA card.
 """
 
+import functools
 import importlib.util
 import json
 import statistics
@@ -220,6 +245,77 @@ def measure_k2(root):
     return out
 
 
+def measure_k6(root):
+    """One ``--k6`` run's numbers for the checkout at ``root``."""
+    sys.path.insert(0, str(root))
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.models import ekf
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    cs = _smoke()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    step = getattr(k6, "frame_step", None)
+    out = {}
+    for tag, L, n_lm in cs.K6_STEP_TIMED:
+        cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=cs.M))
+        rng = np.random.default_rng(n_lm)
+        state = cs._k6_case(dev, cfg, n_lm, rng)
+        per = [cs._k6_frame(state, rng, n_known=12, n_new=0) for _ in range(101)]
+        controls = cs._k6_ticks(dev, rng, 101)
+        one = ekf.Control(*(x[:1] for x in controls))
+        if step is not None:
+            spare = ekf.init_state(cfg, 1, dev)._replace(mu=state.mu.clone(),
+                                                        sigma=state.sigma.clone())
+            mine = state._replace(mu=spare.mu, sigma=spare.sigma)
+            kernel = functools.partial(step, mine, per[0], one, cfg, out=spare)
+            frames = ekf.FrameObservations(*(torch.cat(x) for x in zip(*per)))
+            rows = k6.Rows(torch.zeros(101, 3, device=dev), torch.zeros(101, 3, 3, device=dev),
+                           torch.zeros(101, dtype=torch.int32, device=dev))
+            rep = k6.replay_step(state, frames, controls, cfg, rows)
+            box = [0]  # the next frame
+
+            def frame():
+                rep(box[0])
+                box[0] += 1
+        else:
+            predicted = ekf.predict_block(state, one, cfg)
+            kernel = functools.partial(k6.frame_update, predicted, per[0], cfg)
+            box = [state, 0]
+
+            def frame():
+                f = box[1]
+                box[0] = k6.frame_update(
+                    ekf.predict_block(box[0], ekf.Control(*(x[f:f + 1] for x in controls)), cfg),
+                    per[f], cfg)
+                box[1] += 1
+        out[f"k6_ms_{tag}"] = cs._kernel_ms(kernel, "ekf_frame_update")[0]
+        out[f"k6_frame_ms_{tag}"] = cs._cuda_time(frame, 100)
+
+    cfg, seq = cs._config2()
+    data = runner.replay_data_from_sequence(seq, "obs", dev)
+    head = data._replace(**{k: v[:200] for k, v in data._asdict().items() if v is not None})
+    runner.replay(head, cfg)  # warm
+    out["fps_128"] = seq.num_frames / cs._timed(lambda: runner.replay(data, cfg))
+    big = dataclasses.replace(cfg, ekf=dataclasses.replace(cfg.ekf, max_landmarks=512))
+    runner.replay(head, big)  # warm
+    out["fps_512"] = 200 / statistics.median(cs._timed(lambda: runner.replay(head, big))
+                                             for _ in range(3))
+    for key, c in (("", cfg), ("_512", big)):
+        n_ev, busy, by_name = _profile(torch, lambda: runner.replay(head, c))
+        out[f"events_per_frame{key}"] = n_ev / 200
+        out[f"busy{key}"] = busy
+        out[f"k6_frame_ms{key}"] = sum(v[1] for k, v in by_name.items()
+                                       if "ekf_frame_update" in k) / 200 / 1e3
+    return out
+
+
 def measure_ccl(root):
     """One ``--ccl`` run's numbers for the checkout at ``root``."""
     sys.path.insert(0, str(root))
@@ -304,12 +400,13 @@ def _check_costs(torch, runner, data, cfg, res):
 
 def main():
     args = sys.argv[1:]
-    modes = {"--measure": measure, "--measure-k2": measure_k2, "--measure-ccl": measure_ccl}
+    modes = {"--measure": measure, "--measure-k2": measure_k2, "--measure-ccl": measure_ccl,
+             "--measure-k6": measure_k6}
     if len(args) == 2 and args[0] in modes:
         print(json.dumps(modes[args[0]](Path(args[1]).resolve())))
         return 0
     mode = "--measure"
-    if args[:1] in (["--k2"], ["--ccl"]):
+    if args[:1] in (["--k2"], ["--ccl"], ["--k6"]):
         mode, args = "--measure-" + args[0][2:], args[1:]
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
