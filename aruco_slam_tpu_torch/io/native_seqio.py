@@ -9,7 +9,8 @@ by either reads in the other.
 
 The library is built with ``g++`` at first use into ``build/`` beside this
 file, named by a hash of the source and the flags; nothing is built at
-import. A failed build raises.
+import. A failed build raises; :func:`is_available` says whether the
+library builds and loads, without raising.
 """
 
 from __future__ import annotations
@@ -82,6 +83,18 @@ def _load():
         lib.seq_prefetch_stop.argtypes = [vp]
         _lib = lib
         return _lib
+
+
+def is_available() -> bool:
+    """True when the library builds (or is built already) and loads; False
+    where g++ or the source is missing or the build or the load fails. It
+    never raises: callers gate on it, while the readers and writers call
+    ``_load``, which raises and names the cause."""
+    try:
+        _load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def write_frames(path: str, frames: np.ndarray) -> None:

@@ -43,3 +43,9 @@ def observations_from_corners(
         & (torch.linalg.matrix_norm(R) <= 1.0)
     )
     return FrameObservations(ids=ids, z=z, R=R, valid=keep)
+
+
+def observations_direct(ids: Tensor, z: Tensor, R: Tensor, valid: Tensor) -> FrameObservations:
+    """Measurement-level stream passthrough (sim level 'obs'): the
+    observations as they are."""
+    return FrameObservations(ids=ids, z=z, R=R, valid=valid)

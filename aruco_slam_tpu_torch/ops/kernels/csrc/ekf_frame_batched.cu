@@ -9,7 +9,9 @@
 //   - the prologue: the compose of the frame's encoder ticks into (pose, A,
 //     Q) (ekf.predict_compose: midpoint arcs, the latch's first tick), the
 //     slot lookup and the stable (slot * M + arrival) sort with invalid
-//     observations last (ekf_frame_common.cuh, shared with K6). Invalid
+//     observations last (ekf_frame_common.cuh, shared with K6), in shared
+//     memory, or past kMaxSharedObs observations in a region a CTA of the
+//     workspace in device memory (any M takes one launch). Invalid
 //     observations are never read, which is what the glue's sanitise (z ->
 //     0, R -> I) made safe for the masked TPU kernel;
 //   - the covariance predict sigma <- blockdiag(A, I) sigma blockdiag(A, I)^T
@@ -96,15 +98,19 @@ struct BatchIo {
   float* traj;       // [B, F, 3] or null
   float* pose_cov;   // [B, F, 9]
   int* nlm_rows;     // [B, F]
+  int* slots;        // [B, G, 2, M] the prologue's slots and order a CTA where M >
+                     // kMaxSharedObs, else null
   long long s_wl[2], s_wr[2], s_dt[2];  // (batch, tick) strides
   int T, F, f;
 };
 
 // The smem variant's shared memory in 4-byte words: sigma N*N | mu N | mu0 N |
 // B double buffer 2 x 3N | Gram partials 2 x 6 x kMaxWarps | pose, A, Q 21 |
-// frozen last_obs 3L | slots M | order M | frozen seen L bytes.
+// frozen last_obs 3L | slots M | order M (shared_slot_words) | frozen seen L
+// bytes.
 __host__ __device__ inline long long lane_words(int N, int L, int M) {
-  return (long long)N * N + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L + 2LL * M + (L + 3) / 4;
+  return (long long)N * N + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L + shared_slot_words(M) +
+         (L + 3) / 4;
 }
 
 // The cluster and device variants' stripe width on G CTAs: ceil(N / G), at
@@ -151,10 +157,11 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
   float* Gw = Bb + 6 * N;              // [2][kMaxWarps][6]
   float* pq = Gw + 12 * kMaxWarps;     // [21]
   float* f_last = pq + 21;             // [3L]
-  int* s_slot = reinterpret_cast<int*>(f_last + 3 * L);  // [M]
-  int* s_order = s_slot + M;           // [M]
-  unsigned char* f_seen = reinterpret_cast<unsigned char*>(s_order + M);  // [L]
+  int* s_sh = reinterpret_cast<int*>(f_last + 3 * L);  // [2M] where the frame is narrow enough
+  unsigned char* f_seen = reinterpret_cast<unsigned char*>(s_sh + shared_slot_words(M));  // [L]
 
+  int* s_slot = prologue_slots(s_sh, io.slots, b, M);  // [M]
+  int* s_order = s_slot + M;                             // [M]
   const float* sig_in = io.sigma + b * NN;
   const int* ids = io.ids + (long long)b * M;
   const float* z = io.z + (long long)b * 3 * M;
@@ -439,7 +446,8 @@ ekf_frame_batched_cluster_kernel(BatchIo bio, Cfg cfg, Odom od) {
               bio.valid + (long long)b * M, bio.mu_out + (long long)b * N, bio.sigma_out + b * NN,
               bio.slot_ids_out + (long long)b * L, bio.n_lm_out + b,
               bio.last_obs_out + (long long)b * 3 * L, bio.seen_out + (long long)b * L,
-              bio.div_out + b, bio.drop_out + b};
+              bio.div_out + b, bio.drop_out + b,
+              bio.slots ? bio.slots + (long long)b * cfg.G * 2 * M : nullptr};
   const long long row = (long long)b * bio.F + bio.f;
   const bool rows = bio.traj != nullptr;
   const Lane ln{pq, rows ? bio.traj + row * 3 : nullptr, rows ? bio.pose_cov + row * 9 : nullptr,
@@ -521,7 +529,8 @@ extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, i
 // ptrs: mu, sigma, slot_ids, n_lm, last_obs, seen, init, div, drop, ids, z,
 // R9, valid, wl, wr, dt (inputs; observations in arrival order), mu, sigma,
 // slot_ids, n_lm, last_obs, seen, init, div, drop (outputs), traj, pose_cov,
-// nlm_rows (the replay's rows, or null). strides: wl, wr, dt (batch, tick).
+// nlm_rows (the replay's rows, or null), slots ([B, G, 2, M] int32 where M >
+// kMaxSharedObs, else null). strides: wl, wr, dt (batch, tick).
 // fcfg: gate_eps2, div_ze2, div_k2, kl, kr, two_b, inv_b, kl_over_b,
 // kr_over_b, half_kl, q_k. icfg: B, N, L, M, G, T, F, f, stationary_gate,
 // reject_divergent, symmetrize, kl_both.
@@ -559,6 +568,8 @@ extern "C" int ekf_frame_batched_launch(int variant, void* const* ptrs, const lo
   io.traj = static_cast<float*>(ptrs[25]);
   io.pose_cov = static_cast<float*>(ptrs[26]);
   io.nlm_rows = static_cast<int*>(ptrs[27]);
+  io.slots = static_cast<int*>(ptrs[28]);
+  if (M > kMaxSharedObs && io.slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < 2; ++k) {
     io.s_wl[k] = strides[k];
     io.s_wr[k] = strides[2 + k];

@@ -69,6 +69,12 @@ constexpr int kMaxCluster = 16;
 constexpr int kBatch = 8;
 // The same for the cluster body's rank-3 update and in-place symmetrize.
 constexpr int kUpd = 4;
+// The widest frame whose prologue slots and order (2M int32) live in shared
+// memory, where the plans reserve room for them; a wider frame keeps them in
+// device memory, a region a CTA of the launch's workspace, so that the
+// prologue stays redundant per CTA with no barrier of its own
+// (ekf_update.MAX_SHARED_OBS, ekf_update_batched.MAX_SHARED_OBS).
+constexpr int kMaxSharedObs = 256;
 
 struct Cfg {
   int N, L, M;              // state dim, landmark slots, observations/frame
@@ -117,6 +123,8 @@ struct Io {
   unsigned char* seen_out;
   int* div_out;
   int* drop_out;
+  int* slot_ws;                    // [G, 2, M] the prologue's slots and order of the lane's
+                                   // CTAs where M > kMaxSharedObs, else unused
 };
 
 // The frame prologue around the cluster body (K2, and K6's frame step); all
@@ -129,11 +137,25 @@ struct Lane {
   unsigned char* init_out;   // [1] the latch, set
 };
 
+// Shared words of the prologue's slots and order: 2M up to kMaxSharedObs
+// observations, none for a wider frame (they are in device memory).
+__host__ __device__ inline long long shared_slot_words(int M) {
+  return M <= kMaxSharedObs ? 2LL * M : 0;
+}
+
+// The prologue's slots and order [2, M] of CTA `cta` of the launch: at
+// `shared` (the layout's place) where the frame is narrow enough, else in
+// the CTA's own region of the workspace `ws` in device memory.
+__device__ __forceinline__ int* prologue_slots(int* shared, int* ws, long long cta, int M) {
+  return M <= kMaxSharedObs ? shared : ws + 2 * cta * M;
+}
+
 // The cluster body's shared memory in 4-byte words: the stripe area cap (own
 // sigma columns; N x W holds any frame's) | own mu W | B double buffer 2 x 3W |
-// K^T (first B) 3N | the pose block 9 | reduction 2 x 32 | slots M | order M.
+// K^T (first B) 3N | the pose block 9 | reduction 2 x 32 | slots M | order M
+// (shared_slot_words).
 __host__ __device__ inline long long cluster_words(long long cap, int N, int W, int M) {
-  return cap + 7LL * W + 3LL * N + 9 + 64 + 2LL * M;
+  return cap + 7LL * W + 3LL * N + 9 + 64 + shared_slot_words(M);
 }
 
 __device__ __forceinline__ float wrap_angle(float a) {
@@ -197,7 +219,9 @@ __device__ __forceinline__ float block_sum(float v, float* red, int& set) {
 // observation i's slot (the first slot whose id equals ids[i], else -1),
 // s_order[p] the observation processed p-th: stable by key slot * M +
 // arrival, an invalid observation's key after every valid one. Every
-// thread of the CTA takes part; it ends in a barrier.
+// thread of the CTA takes part; it ends in a barrier. The two arrays are the
+// CTA's own, in shared or in device memory (prologue_slots): the barriers
+// order their reads and writes in either.
 __device__ void lookup_and_sort(const int* slot_ids, const int* ids, const unsigned char* valid,
                                 int L, int M, int* s_slot, int* s_order) {
   const int tid = threadIdx.x;
@@ -466,7 +490,7 @@ __device__ void cluster_frame(const Io& io, const Cfg& cfg, const Lane& ln) {
   float* KT = Bbuf + 6 * W;                   // [3, N]
   float* Bsc = KT + 3 * N;                    // [9] the pose block (inserts)
   float* red = Bsc + 9;                       // [2, 32] warp partials
-  int* s_slot = reinterpret_cast<int*>(red + 64);  // [M]
+  int* s_slot = prologue_slots(reinterpret_cast<int*>(red + 64), io.slot_ws, rank, M);  // [M]
   int* s_order = s_slot + M;                  // [M]
 
   const int tid = threadIdx.x;

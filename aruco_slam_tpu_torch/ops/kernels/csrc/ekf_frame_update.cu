@@ -16,7 +16,9 @@
 //     prologue and keeps a state that has had no encoder tick as it was
 //     (the addImage early-out);
 //   - the slot lookup and the stable (slot * M + arrival) sort, computed by
-//     every CTA into its own shared memory;
+//     every CTA into its own shared memory (for a frame wider than
+//     kMaxSharedObs, into its own region of the workspace in device memory:
+//     any M takes one launch, as the chain runs over the whole frame);
 //   - the frame's M observations through the sequential update in the
 //     reference's queue order (new markers first, then ascending slot, ties
 //     by arrival), every one linearized at the frame-start mean: a known
@@ -143,11 +145,11 @@ ekf_frame_update_grid_kernel(Io io, Cfg cfg, Odom od, Step st,
   float* KT = Bbuf + 6 * W;                   // [3, N]
   float* Bsc = KT + 3 * N;                    // [9] the pose block (inserts)
   float* red = Bsc + 9;                       // [2, 32] warp partials
-  int* s_slot = reinterpret_cast<int*>(red + 64);  // [M]
+  const int rank = blockIdx.x, G = gridDim.x;
+  int* s_slot = prologue_slots(reinterpret_cast<int*>(red + 64), io.slot_ws, rank, M);  // [M]
   int* s_order = s_slot + M;                  // [M]
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int rank = blockIdx.x, G = gridDim.x;
   const bool lead = rank == 0;  // CTA 0 keeps the bookkeeping and owns the pose columns
   const bool init = pq != nullptr || io.init_in[0] != 0;
 
@@ -505,6 +507,8 @@ struct Args {
   void* rows[3];         // trajectory [F, 3], pose_cov [F, 3, 3], n_landmarks [F], or null
   void* scratch;         // the grid variant's [2, 3N + 9]
   void* bar;             // the grid variant's barrier words
+  void* slots;           // [G, 2, M] int32, the prologue's slots and order a CTA
+                         // where M > kMaxSharedObs (else null)
   void* stream;
   long long obs_frames;  // 1: the observations and ticks hold every frame (F' = F,
                          // time-major) and frame f is read; 0: they hold frame f alone
@@ -521,6 +525,9 @@ struct Args {
 // The cluster variant's plan for an N-dim state on G CTAs: columns per CTA,
 // shared bytes, and how many such clusters the current card can hold at
 // once (0: none, the launch would be refused). Sets the kernel's attributes.
+// M: the observations a frame whose slots and order the shared memory is
+// planned for (the wrapper passes kMaxSharedObs, so that one plan serves
+// every frame width: a wider frame keeps them in device memory).
 extern "C" int ekf_frame_update_cluster_plan(int N, int M, int G, int* W, int* smem_bytes,
                                              int* max_clusters) {
   if (G < 1 || G > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
@@ -545,7 +552,7 @@ extern "C" int ekf_frame_update_cluster_plan(int N, int M, int G, int* W, int* s
 // resident at once (G), the widest stripe a CTA can own (W =
 // max(kGridMinCols, ceil(N / G))), its stripe area in words (cap: N x W where that fits, else what the shared memory leaves;
 // a frame whose stripes do not fit runs in device memory) and the shared
-// bytes. Sets the kernel's attributes.
+// bytes, M as for the cluster plan. Sets the kernel's attributes.
 extern "C" int ekf_frame_update_grid_plan(int N, int M, int* G, int* W, int* cap,
                                           int* smem_bytes) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -579,9 +586,10 @@ extern "C" int ekf_frame_update_launch(const Args* a) {
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int M = a->M;
+  if (M > kMaxSharedObs && a->slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (cur != a->device && (err = cudaSetDevice(a->device)) != cudaSuccess)
     return static_cast<int>(err);
-  const int M = a->M;
   const long long fo = a->obs_frames * a->f;  // the frame's row of time-major inputs
   const Io io{in_at<float>(a->state[0]), in_at<float>(a->state[1]), in_at<int>(a->state[2]),
               in_at<int>(a->state[3]), in_at<float>(a->state[4]),
@@ -591,7 +599,7 @@ extern "C" int ekf_frame_update_launch(const Args* a) {
               in_at<float>(a->obs[2]) + fo * 9 * M, in_at<unsigned char>(a->obs[3]) + fo * M,
               out_at<float>(a->out[0]), out_at<float>(a->out[1]), out_at<int>(a->out[2]),
               out_at<int>(a->out[3]), out_at<float>(a->out[4]), out_at<unsigned char>(a->out[5]),
-              out_at<int>(a->out[7]), out_at<int>(a->out[8])};
+              out_at<int>(a->out[7]), out_at<int>(a->out[8]), out_at<int>(a->slots)};
   const Cfg cfg{a->N, a->L, M, a->G, a->W, a->cap, a->stationary_gate, a->gate_eps2,
                 a->reject_divergent, a->div_ze2, a->div_k2, a->symmetrize};
   const Odom od{a->kl, a->kr, a->two_b, a->inv_b, a->kl_over_b, a->kr_over_b, a->half_kl,

@@ -29,10 +29,12 @@ kernel, or raises, for a CUDA tensor. A refused launch raises
 
 Per call the wrapper checks its inputs and makes one device launch and no
 other device work: its launch arguments are one C struct (:class:`_Args`),
-the launch plans are cached per device and size, and the grid variant's
-scratch and barrier words per device, stream and size (the barrier words
-are cleared once). The new state goes to the caller's buffers (``out``) or
-to views of one new allocation.
+the launch plans are cached per device and size, and the workspace in
+device memory per device, stream, variant, size and frame width (the grid
+variant's scratch and barrier words, cleared once; a frame wider than
+:data:`MAX_SHARED_OBS`'s prologue slots). The new state goes to the
+caller's buffers (``out``) or to views of one new allocation. A frame of
+any width takes one launch.
 
 A single-stream replay runs :func:`replay_step` instead: made once for the
 replay's time-major observations and ticks, its checks run and its buffers
@@ -58,10 +60,13 @@ Tensor = torch.Tensor
 # Kernel launches by variant since import (or since a caller reset them).
 LAUNCHES = {"cluster": 0, "grid": 0}
 
-# Shared memory a CTA may use on Hopper (227 KB), and the observations per
-# frame the kernels' shared memory is planned for.
+# Shared memory a CTA may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232_448
-MAX_OBS = 256
+# The widest frame whose prologue slots and order (2M int32 a CTA) live in
+# shared memory, where every plan reserves room for them; a wider frame
+# keeps them in device memory, a region a CTA of the launch's workspace
+# (csrc: kMaxSharedObs). Not a limit on M.
+MAX_SHARED_OBS = 256
 # CTAs in a cluster: 16 is above the portable 8 and needs the kernel's
 # non-portable attribute (csrc: ekf_frame_update_cluster_plan).
 MAX_CLUSTER = 16
@@ -72,7 +77,7 @@ _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 
 _plans: dict = {}  # (device index, variant, N, CTAs) -> launch plan
-_workspaces: dict = {}  # (device index, stream, N) -> the grid variant's scratch and barrier
+_workspaces: dict = {}  # (device index, stream, variant, N, wide M or 0) -> workspace
 
 
 class _Args(ctypes.Structure):
@@ -80,7 +85,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [
         ("state", _P * 9), ("out", _P * 9), ("obs", _P * 4), ("ticks", _P * 3), ("rows", _P * 3),
-        ("scratch", _P), ("bar", _P), ("stream", _P),
+        ("scratch", _P), ("bar", _P), ("slots", _P), ("stream", _P),
         ("obs_frames", ctypes.c_longlong), ("s_tick", ctypes.c_longlong * 6),
         ("variant", _I), ("N", _I), ("L", _I), ("M", _I), ("T", _I), ("f", _I), ("G", _I),
         ("W", _I), ("cap", _I), ("smem", _I), ("device", _I),
@@ -133,11 +138,12 @@ def _lib():
 def cluster_shared_bytes(n_dim: int, ctas: int) -> int:
     """Shared bytes per CTA of the cluster variant: the CTA's columns of
     sigma (N x W, W = ceil(N / CTAs)), its mu entries, the double-buffered
-    B columns, the whole K^T, the prologue's slots and order (planned for
-    :data:`MAX_OBS` observations) and the compose's pose, A and Q; csrc:
-    ``k6_words``."""
+    B columns, the whole K^T, the prologue's slots and order (room for
+    :data:`MAX_SHARED_OBS` observations, so that one plan serves every
+    frame: a wider frame's are in device memory) and the compose's pose, A
+    and Q; csrc: ``k6_words``."""
     w = -(-n_dim // ctas)
-    return 4 * (n_dim * w + 7 * w + 3 * n_dim + 9 + 64 + 2 * MAX_OBS + 21)
+    return 4 * (n_dim * w + 7 * w + 3 * n_dim + 9 + 64 + 2 * MAX_SHARED_OBS + 21)
 
 
 def cluster_ctas(n_dim: int) -> int:
@@ -174,8 +180,6 @@ def _check_inputs(state: ekf.EkfState, frame: ekf.FrameObservations, config: Sla
     if N != 3 + 3 * L:
         raise ValueError(f"mu is [1, {N}], config max_landmarks {L} needs N = {3 + 3 * L}")
     M = frame.ids.shape[-1]
-    if M > MAX_OBS:
-        raise ValueError(f"K6 takes at most {MAX_OBS} observations per frame, got {M}")
     dev = state.mu.device
     for name, t, shape, dtype in (
         *_state_specs(state, N, L),
@@ -318,7 +322,7 @@ def _plan(lib, dev_index: int, kind: str, N: int, g: int):
         a, b, c, d = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         if kind == "cluster":
             # (columns per CTA, shared bytes, clusters the card holds at once)
-            err = lib.ekf_frame_update_cluster_plan(N, MAX_OBS, g, ctypes.byref(a),
+            err = lib.ekf_frame_update_cluster_plan(N, MAX_SHARED_OBS, g, ctypes.byref(a),
                                                     ctypes.byref(b), ctypes.byref(c))
             _raise_on(err, lib, f"cluster plan (N={N}, {g} CTAs)")
             if c.value < 1:
@@ -327,23 +331,42 @@ def _plan(lib, dev_index: int, kind: str, N: int, g: int):
             plan = (g, a.value, N * a.value, b.value)
         else:
             # (CTAs, widest stripe, stripe area, shared bytes)
-            err = lib.ekf_frame_update_grid_plan(N, MAX_OBS, ctypes.byref(a), ctypes.byref(b),
-                                                 ctypes.byref(c), ctypes.byref(d))
+            err = lib.ekf_frame_update_grid_plan(N, MAX_SHARED_OBS, ctypes.byref(a),
+                                                 ctypes.byref(b), ctypes.byref(c),
+                                                 ctypes.byref(d))
             _raise_on(err, lib, f"grid plan (N={N})")
             plan = (a.value, b.value, c.value, d.value)
         _plans[key] = plan
     return plan
 
 
-def _workspace(dev: torch.device, dev_index: int, stream: int, N: int) -> Tensor:
-    """The grid variant's scratch [2, 3N + 9] and, after it, its two barrier
-    words, per device, stream and size: cleared once, the kernel leaves the
-    barrier at zero arrivals."""
-    key = (dev_index, stream, N)
+def _grid_words(N: int) -> int:
+    """The grid variant's words at the head of its workspace: the scratch
+    [2, 3N + 9], then its two barrier words."""
+    return 2 * (3 * N + 9) + 2
+
+
+def _workspace(dev: torch.device, dev_index: int, stream: int, kind: str, N: int, ctas: int,
+               M: int) -> Optional[Tensor]:
+    """A launch's workspace in device memory, per device, stream, variant,
+    size and (past :data:`MAX_SHARED_OBS`) frame width, or None where it
+    needs none: the grid variant's scratch and barrier words
+    (:func:`_grid_words`; cleared once, the kernel leaves the barrier at
+    zero arrivals), then, for a frame wider than ``MAX_SHARED_OBS``, the
+    prologue's slots and order [CTAs, 2, M] int32, a region a CTA."""
+    head = _grid_words(N) if kind == "grid" else 0
+    wide = M if M > MAX_SHARED_OBS else 0
+    if not head and not wide:
+        return None
+    key = (dev_index, stream, kind, N, wide)
     ws = _workspaces.get(key)
     if ws is None:
-        ws = _workspaces[key] = torch.zeros(2 * (3 * N + 9) + 2, dtype=torch.float32,
-                                            device=dev)
+        try:
+            ws = torch.zeros(head + 2 * ctas * wide, dtype=torch.float32, device=dev)
+        except torch.OutOfMemoryError as e:
+            raise RuntimeError(f"ekf_frame_update: no workspace for a frame of M={M} "
+                               f"observations on {ctas} CTAs (N={N})") from e
+        _workspaces[key] = ws
     return ws
 
 
@@ -402,13 +425,17 @@ def _args(kind, plan, dev_index, stream, ws, state, out, frame, controls, rows, 
         a.rows[:] = [rows.trajectory.data_ptr(), rows.pose_cov.data_ptr(),
                      rows.n_landmarks.data_ptr()]
         a.f = rows.f
-    if ws is not None:
-        a.scratch = ws.data_ptr()
-        a.bar = ws.data_ptr() + 4 * 2 * (3 * N + 9)
-    a.stream = stream
-    a.variant = ("cluster", "grid").index(kind)
     a.N, a.L, a.M = N, L, frame.ids.shape[1]
     a.G, a.W, a.cap, a.smem = plan
+    if ws is not None:
+        head = _grid_words(N) if kind == "grid" else 0
+        if head:
+            a.scratch = ws.data_ptr()
+            a.bar = ws.data_ptr() + 4 * (head - 2)
+        if a.M > MAX_SHARED_OBS:
+            a.slots = ws.data_ptr() + 4 * head
+    a.stream = stream
+    a.variant = ("cluster", "grid").index(kind)
     a.device = dev_index
     cc, od = config.compat, config.odom
     a.stationary_gate, a.reject_divergent = int(cc.stationary_gate), int(cc.reject_divergent)
@@ -422,16 +449,17 @@ def _args(kind, plan, dev_index, stream, ws, state, out, frame, controls, rows, 
     return a
 
 
-def _prepare(state, kind, g):
-    """(library, device index, stream, plan, grid workspace or None) of a
-    launch of variant ``kind`` on the state's card."""
+def _prepare(state, kind, g, M):
+    """(library, device index, stream, plan, workspace or None) of a launch
+    of variant ``kind`` on the state's card for frames of M observations."""
     lib = _lib()
     dev = state.mu.device
+    N = state.mu.shape[1]
     with torch.cuda.device(dev):
         dev_index = torch.cuda.current_device()
         stream = _stream(dev)
-        plan = _plan(lib, dev_index, kind, state.mu.shape[1], g)
-        ws = _workspace(dev, dev_index, stream, state.mu.shape[1]) if kind == "grid" else None
+        plan = _plan(lib, dev_index, kind, N, g)
+        ws = _workspace(dev, dev_index, stream, kind, N, plan[0], M)
     return lib, dev_index, stream, plan, ws
 
 
@@ -440,12 +468,13 @@ def _launch(state, frame, config, choice, controls=None, out=None, rows=None):
     frame step where ``controls`` are given, else the update alone."""
     kind, g = choice
     latch = controls is not None
-    lib, dev_index, stream, plan, ws = _prepare(state, kind, g)
+    M = frame.ids.shape[1]
+    lib, dev_index, stream, plan, ws = _prepare(state, kind, g, M)
     if out is None:
         out = _outputs(state, latch)
     a = _args(kind, plan, dev_index, stream, ws, state, out, frame, controls, rows, config, latch)
     _raise_on(lib.ekf_frame_update_launch(ctypes.byref(a)), lib,
-              f"{kind} launch (N={state.mu.shape[1]})")
+              f"{kind} launch (N={state.mu.shape[1]}, M={M})")
     LAUNCHES[kind] += 1
     return out
 
@@ -468,10 +497,12 @@ class Replay:
         sigma in place there, the bookkeeping from one set to the other and
         back."""
         kind, g = variant(self.state.mu.shape[1])
-        lib, dev_index, stream, plan, ws = _prepare(self.state, kind, g)
+        M = self.frames.ids.shape[1]
+        lib, dev_index, stream, plan, ws = _prepare(self.state, kind, g, M)
         own = _outputs(self.state, latch=True)
         other = _outputs(own, latch=True, mu_sigma=False)
-        self._lib, self._kind, self._what = lib, kind, f"{kind} launch (N={own.mu.shape[1]})"
+        self._lib, self._kind = lib, kind
+        self._what = f"{kind} launch (N={own.mu.shape[1]}, M={M})"
         self._steps = [
             (_args(kind, plan, dev_index, stream, ws, src, dst, self.frames, self.controls,
                    self.rows, self.config, True), dst)

@@ -30,7 +30,10 @@ The wrapper takes it for a CPU tensor and launches the kernel, or raises,
 for a CUDA tensor; a refused launch raises ``RuntimeError`` and nothing
 retries on another variant. Per call the wrapper makes one device launch
 and no other device work: the launch plans are cached per device and size,
-and the outputs are the caller's buffers or views of one allocation.
+the workspace of a frame wider than :data:`MAX_SHARED_OBS` (the prologue's
+slots and order in device memory) per device, stream and shape, and the
+outputs are the caller's buffers or views of one allocation. A frame of
+any width takes one launch.
 """
 
 from __future__ import annotations
@@ -52,18 +55,23 @@ VARIANTS = ("smem", "cluster", "device")
 # Kernel launches by variant since import (or since a caller reset them).
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
-# A block's shared memory on Hopper: 227 KB (232,448 bytes); the
-# observations per frame that the variants' shared memory is planned for;
-# the warps whose Gram partials the smem and device variants keep.
+# A block's shared memory on Hopper: 227 KB (232,448 bytes); the warps
+# whose Gram partials the smem and device variants keep.
 MAX_SHARED_BYTES = 232_448
-MAX_OBS = 256
 _MAX_WARPS = 32
+# The widest frame whose prologue slots and order (2M int32 a CTA) live in
+# shared memory; a wider frame keeps them in device memory, a region a CTA
+# of the launch's workspace [B, G, 2, M] (csrc: kMaxSharedObs). The variant's
+# kind is chosen for this width, so that it holds for every frame. Not a
+# limit on M.
+MAX_SHARED_OBS = ekf_update.MAX_SHARED_OBS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 _plans: dict = {}  # (device index, variant, N, M, CTAs) -> (shared bytes, resident)
 _choices: dict = {}  # (device index, N, M, B) -> (variant, CTAs, shared bytes)
+_workspaces: dict = {}  # (device index, stream, B, CTAs, M) -> slots and order [B, G, 2, M]
 _stream = ekf_update._stream
 
 
@@ -82,21 +90,30 @@ def stripe_width(n_dim: int, ctas: int) -> int:
     return max(3, -(-n_dim // ctas))
 
 
-def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_OBS,
+def _slot_words(n_obs: int) -> int:
+    """Shared words of the prologue's slots and order: 2M up to
+    :data:`MAX_SHARED_OBS` observations, none for a wider frame (csrc:
+    ``shared_slot_words``)."""
+    return 2 * n_obs if n_obs <= MAX_SHARED_OBS else 0
+
+
+def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_SHARED_OBS,
                  ctas: int = 1) -> int:
-    """Shared bytes per CTA of a variant (csrc: ``lane_words``,
-    ``batched_cluster_words``). The smem variant: sigma, mu and mu0, the
-    double-buffered B, the Gram partials, pose / A / Q, the frozen last_obs
-    and seen, the slots and the order. The cluster variant on ``ctas`` CTAs
-    a lane: K6's layout with a stripe of N x W (W = :func:`stripe_width`),
-    then pose / A / Q. The device variant: all of a CTA's shared memory."""
+    """Shared bytes per CTA of a variant for frames of ``n_obs``
+    observations (csrc: ``lane_words``, ``batched_cluster_words``). The
+    smem variant: sigma, mu and mu0, the double-buffered B, the Gram
+    partials, pose / A / Q, the frozen last_obs and seen, the slots and the
+    order (in shared memory up to :data:`MAX_SHARED_OBS` observations, in
+    device memory past it). The cluster variant on ``ctas`` CTAs a lane:
+    K6's layout with a stripe of N x W (W = :func:`stripe_width`), then
+    pose / A / Q. The device variant: all of a CTA's shared memory."""
     if kind == "device":
         return MAX_SHARED_BYTES
     if kind == "cluster":
         w = stripe_width(n_dim, ctas)
-        return 4 * (n_dim * w + 7 * w + 3 * n_dim + 73 + 2 * n_obs + 21)
-    return 4 * (n_dim * n_dim + 8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm + 2 * n_obs
-                + (max_lm + 3) // 4)
+        return 4 * (n_dim * w + 7 * w + 3 * n_dim + 73 + _slot_words(n_obs) + 21)
+    return 4 * (n_dim * n_dim + 8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm
+                + _slot_words(n_obs) + (max_lm + 3) // 4)
 
 
 def on_chip_rows(kind: str, n_dim: int, n_obs: int, ctas: int) -> int:
@@ -105,8 +122,8 @@ def on_chip_rows(kind: str, n_dim: int, n_obs: int, ctas: int) -> int:
     area (csrc: ``cluster_frame``'s ``on_chip``): a frame of a lane whose
     block is larger runs in device memory."""
     w = stripe_width(n_dim, ctas)
-    area = shared_bytes(kind, n_dim, 0, n_obs, ctas) // 4 - (7 * w + 3 * n_dim + 73 + 2 * n_obs
-                                                             + 21)
+    area = shared_bytes(kind, n_dim, 0, n_obs, ctas) // 4 - (7 * w + 3 * n_dim + 73
+                                                             + _slot_words(n_obs) + 21)
     return max((na for na in range(3, n_dim + 1, 3) if na * stripe_width(na, ctas) <= area),
                default=0)
 
@@ -220,9 +237,6 @@ def _check_inputs(state, frame, controls, config, out, rows) -> None:
         raise ValueError(f"ids must be [B, M] and the ticks [B, T], got "
                          f"{list(frame.ids.shape)} and {list(controls.dt.shape)}")
     M, T = frame.ids.shape[1], controls.dt.shape[1]
-    if M > MAX_OBS:
-        raise ValueError(f"frame_step_batched takes at most {MAX_OBS} observations per frame, "
-                         f"got {M}")
     ts = (*state, *frame, *controls)
     F = -1
     if out is not None:
@@ -362,6 +376,25 @@ def _choose(lib, dev_index: int, N: int, L: int, M: int, B: int):
     return choice
 
 
+def _slot_workspace(dev: torch.device, dev_index: int, stream: int, B: int, ctas: int,
+                    M: int) -> Optional[Tensor]:
+    """The prologue's slots and order in device memory, [B, CTAs, 2, M]
+    int32 (a region a CTA), for a frame wider than :data:`MAX_SHARED_OBS`,
+    per device, stream and shape; None for a narrower frame."""
+    if M <= MAX_SHARED_OBS:
+        return None
+    key = (dev_index, stream, B, ctas, M)
+    ws = _workspaces.get(key)
+    if ws is None:
+        try:
+            ws = torch.empty(B * ctas * 2 * M, dtype=torch.int32, device=dev)
+        except torch.OutOfMemoryError as e:
+            raise RuntimeError(f"ekf_frame_batched: no workspace for frames of M={M} "
+                               f"observations on {B} lanes x {ctas} CTAs") from e
+        _workspaces[key] = ws
+    return ws
+
+
 def _outputs(state: ekf.EkfState) -> ekf.EkfState:
     """A new state as views of one float32 allocation, sigma first (so that
     it shares the input's 16-byte alignment, which the kernel's vector copy
@@ -413,17 +446,18 @@ def _launch(state, frame, controls, config, out, rows, choice=None):
             kind, ctas = choice
             smem = _plan(lib, dev_index, kind, N, L, M, ctas)[0]
         stream = _stream(dev)
+        ws = _slot_workspace(dev, dev_index, stream, B, ctas, M)
         if out is None:
             out = _outputs(state)
         traj, cov, nlm = (rows.trajectory.data_ptr(), rows.pose_cov.data_ptr(),
                           rows.n_landmarks.data_ptr()) if rows is not None else (None,) * 3
-        ptrs = (ctypes.c_void_p * 28)(
+        ptrs = (ctypes.c_void_p * 29)(
             *(t.data_ptr() for t in state), *(t.data_ptr() for t in frame),
             *(t.data_ptr() for t in controls),
             out.mu.data_ptr(), out.sigma.data_ptr(), out.slot_ids.data_ptr(),
             out.n_landmarks.data_ptr(), out.last_obs.data_ptr(), out.seen_prev.data_ptr(),
             out.initialized.data_ptr(), out.diverged.data_ptr(), out.dropped.data_ptr(),
-            traj, cov, nlm,
+            traj, cov, nlm, None if ws is None else ws.data_ptr(),
         )
         strides = (ctypes.c_longlong * 6)(*controls.wl.stride(), *controls.wr.stride(),
                                           *controls.dt.stride())
@@ -440,6 +474,6 @@ def _launch(state, frame, controls, config, out, rows, choice=None):
         )
         err = lib.ekf_frame_batched_launch(VARIANTS.index(kind), ptrs, strides, fcfg, icfg,
                                            smem, stream)
-    _raise_on(err, lib, f"{kind} launch (N={N})")
+    _raise_on(err, lib, f"{kind} launch (N={N}, M={M})")
     LAUNCHES[kind] += 1
     return out

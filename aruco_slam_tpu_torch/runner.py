@@ -527,7 +527,7 @@ def _replay_single(data, config, camera, level, step) -> ReplayResult:
     controls = ekf.Control(data.enc_w[..., 0], data.enc_w[..., 1], data.enc_dt)
     frames = ekf.FrameObservations(data.obs_ids, data.obs_z, data.obs_R, data.obs_valid)
     rep = None
-    if level == "obs" and step is ekf_update.frame_step:
+    if level == "obs" and step is ekf_update.frame_step and F:  # no frame: no step to make
         rep = ekf_update.replay_step(state, frames, controls, config, rows)
     for f in range(F):
         if rep is not None:

@@ -45,7 +45,12 @@ Phases (each raises on failure; the script then exits non-zero):
      one device event a call) beside its plain version and bound. The card's
      cluster occupancy for G = 1..16, and the G sweep: the cluster program
      alone at N=387 (100 landmarks a lane) for G in SWEEP_CTAS x B in
-     SWEEP_LANES, beside the rule's G.
+     SWEEP_LANES, beside the rule's G. Then each kind (K2_WIDE: smem at
+     B=256, N=99; cluster at B=32, N=387; device at B=4, N=1,539) over
+     WIDE_FRAMES frames of WIDE_M = 300 observation slots (past
+     MAX_SHARED_OBS, the prologue's slots and order in device memory; ids
+     repeated, new and padding ones among them) against the plain version,
+     the kernel alone timed beside the plain version and the bound.
   3. the main path: runner.replay_batch over 8 synthetic sequences (seeds
      0-7, 60 s) tiled to 256 lanes, EkfConfig(max_landmarks=32,
      max_observations_per_frame=16), the sequences' own camera. K1 and K2
@@ -112,7 +117,10 @@ Phases (each raises on failure; the script then exits non-zero):
      arrays with the rows; exactly one device event a call. Timed on
      K6_STEP_TIMED's states (12 known markers, 10 ticks): the kernel alone
      in place, the call through the replay's path over 100 distinct frames,
-     the plain version, the bound of the frame's active square.
+     the plain version, the bound of the frame's active square. Then both
+     variants (K6_WIDE: N = 387 and 1,539, 100 landmarks) over WIDE_FRAMES
+     frames of WIDE_M = 300 slots through the replay's path, each frame
+     against the plain step, the kernel alone timed in place.
   7. the single-stream main path: runner.replay_sequence of BASELINE config
      2 (benchmarks/run_all.py config2_loop_100: the 100-marker 20 x 16 m
      arena, 210 s tour, EkfConfig(max_landmarks=128,
@@ -480,6 +488,15 @@ L2_LANDMARKS = (400, 60, 505, 100)
 # The G sweep: K2's cluster program at N = 387 (128 slots, 100 landmarks a
 # lane, config 2's late tour), kernel alone, at these batches and CTAs a lane.
 SWEEP_LANES, SWEEP_CTAS = (1, 4, 32, 128), (2, 3, 4, 6, 8, 16)
+# Frames wider than the kernels keep their prologue's slots and order in
+# shared memory for (ekf_update.MAX_SHARED_OBS = 256; past it they are in
+# device memory): K2 in each kind and K6 in each variant over WIDE_FRAMES
+# frames of WIDE_M observation slots whose ids repeat, new and padding ones
+# among them (_wide_frame). K2: (variant, lanes, max_landmarks, landmarks a
+# lane); K6: (max_landmarks, landmarks).
+WIDE_M, WIDE_FRAMES = 300, 3
+K2_WIDE = (("smem", B, 32, 20), ("cluster", 32, 128, 100), ("device", DEVICE_LANES, 512, 100))
+K6_WIDE = ((128, 100), (512, 100))
 
 
 def _k2_check(out, ref, what):
@@ -512,12 +529,14 @@ def _k2_lanes(dev, cfg, n_lms, rng, ticks=10):
     return state, frame, controls
 
 
-def _k2_next(state, rng, ticks=10):
-    """A frame of ``_k6_frame`` for every lane of a batched state, and its ticks."""
+def _k2_next(state, rng, ticks=10, make=None):
+    """A frame of ``make`` (``_k6_frame`` by default) for every lane of a
+    batched state, and its ticks."""
     from aruco_slam_tpu_torch.models import ekf
 
     dev, n = state.mu.device, state.mu.shape[0]
-    frames = [_k6_frame(ekf.EkfState(*(x[b:b + 1] for x in state)), rng) for b in range(n)]
+    make = make or _k6_frame
+    frames = [make(ekf.EkfState(*(x[b:b + 1] for x in state)), rng) for b in range(n)]
     w = torch.as_tensor(rng.uniform(-1.0, 3.0, (n, ticks, 2)).astype(np.float32), device=dev)
     dt = torch.as_tensor(rng.uniform(0.005, 0.02, (n, ticks)).astype(np.float32), device=dev)
     return (ekf.FrameObservations(*(torch.cat(x) for x in zip(*frames))),
@@ -592,7 +611,59 @@ def phase2_k2(dev):
     _require(dropped > 0, "the small-capacity run never dropped a landmark")
     out_stats["device"][0] = max(out_stats["device"][0], _k2_device_memory(dev, kb))
     _k2_sweep(dev, kb)
+    for kind, (err, ms) in _k2_wide(dev, kb).items():
+        out_stats[kind][0] = max(out_stats[kind][0], err)
+        out_stats[kind].append(ms)
     return {k: tuple(v) for k, v in out_stats.items()}
+
+
+def _k2_wide(dev, kb):
+    """K2 in each kind (K2_WIDE) on WIDE_FRAMES consecutive frames of
+    WIDE_M observation slots against its plain version, timed at the
+    first; returns {kind: (max err, kernel ms)}."""
+    from aruco_slam_tpu_torch.models import ekf
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    out = {}
+    for kind, lanes, L, n_lm in K2_WIDE:
+        cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=WIDE_M))
+        n_dim = 3 + 3 * L
+        _require(kb.variant(n_dim)[0] == kind, f"K2 at {L} landmarks: {kb.variant(n_dim)}")
+        rng = np.random.default_rng(WIDE_M + L)
+        state = ekf.EkfState(*(torch.cat(x) for x in zip(*(_k6_case(dev, cfg, n_lm, rng)
+                                                            for _ in range(lanes)))))
+        frame, controls = _k2_next(state, rng, make=_wide_frame)
+        err, before = 0.0, kb.LAUNCHES[kind]
+        for f in range(WIDE_FRAMES):
+            got = kb.frame_step_batched(state, frame, controls, cfg)
+            ref = kb.frame_step_reference(state, frame, controls, cfg)
+            torch.cuda.synchronize()
+            err = max(err, _k2_check(got, ref, f"({kind}, B={lanes}, M={WIDE_M}) frame {f}"))
+            if f == 0:
+                ms, _ = _kernel_ms(lambda: kb.frame_step_batched(state, frame, controls, cfg),
+                                   "ekf_frame_batched")
+                plain = _cuda_time(lambda: kb.frame_step_reference(state, frame, controls, cfg),
+                                   2)
+                _, _, _, _, _, _, valid, slots = kb.frame_step_inputs(state, frame, controls, cfg)
+                known = (valid & (slots >= 0)).sum(dim=1).double()
+                active = (3 + 3 * state.n_landmarks).double()
+                bound = _ekf_bound(lanes, n_dim, L, WIDE_M, float((6 * known * active**2).sum()),
+                                   controls.dt.shape[1])
+                n_valid = int(frame.valid.sum())
+            state = got
+            frame, controls = _k2_next(state, rng, make=_wide_frame)
+        _require(kb.LAUNCHES[kind] - before >= WIDE_FRAMES, f"K2 ({kind}) did not launch at "
+                 f"M={WIDE_M}")
+        out[kind] = (err, ms)
+        g = kb._choices[(torch.cuda.current_device(), n_dim, WIDE_M, lanes)][1]
+        print(f"phase 2: K2 ({kind}, G={g}) B={lanes} N={n_dim} M={WIDE_M} (slots and order "
+              f"in device memory; "
+              f"{n_valid} valid at the first frame): {WIDE_FRAMES} frames equal to the plain "
+              f"version, max |err| {err:.3e}; {ms:.4f} ms/launch on the device, plain "
+              f"{plain:.4f} ms/call, bound {bound[0]:.5f} ms ({bound[1]}); landmarks now "
+              f"{int(state.n_landmarks.min())}-{int(state.n_landmarks.max())}, dropped "
+              f"{int(state.dropped.sum())}")
+    return out
 
 
 def _k2_device_memory(dev, kb):
@@ -1355,6 +1426,44 @@ def _k6_frame(state, rng, n_known=9, n_new=4):
                                    for x in (ids, z, R, ids >= 0)))
 
 
+def _wide_frame(state, rng, m=WIDE_M, n_known=12, n_new=4):
+    """m observation slots of one lane in a random arrival order whose ids
+    repeat: n_known of its landmarks and n_new new markers, each many
+    times (a known one near its expected measurement from the state's
+    mean, a new one near one place; each copy moved by a few cm, so that
+    their order matters), about a fifth invalid (some with a padding id);
+    one is a known landmark at its slot's last record (a stationary-gate
+    hit where the slot was seen last frame). A noise floor of 0.1 in R:
+    measurements far from the expected ones, or a floor of 0.01, would
+    make a chain of ~200 updates lose float32 digits in any order (mu to
+    about 1e-3 against float64)."""
+    from aruco_slam_tpu_torch.models import ekf
+
+    dev = state.mu.device
+    n_lm = int(state.n_landmarks[0])
+    slots = state.slot_ids[0].cpu().numpy()
+    mu = state.mu[0].double().cpu().numpy()
+    known = rng.choice(n_lm, min(n_known, n_lm), replace=False)
+    pool = np.concatenate([slots[known], 200_000 + rng.choice(100_000, n_new, replace=False)])
+    lm = mu[3:].reshape(-1, 3)[known]
+    dx, dy, c, s = lm[:, 0] - mu[0], lm[:, 1] - mu[1], np.cos(mu[2]), np.sin(mu[2])
+    at = np.concatenate([np.stack([c * dx + s * dy, -s * dx + c * dy,
+                                   (lm[:, 2] - mu[2] + np.pi) % (2 * np.pi) - np.pi], -1),
+                         rng.uniform(0.3, 2.0, (n_new, 3))])
+    pick = rng.integers(0, len(pool), m)
+    ids = pool[pick].astype(np.int32)
+    valid = rng.random(m) > 0.2
+    ids[~valid & (rng.random(m) > 0.5)] = -1
+    z = (at[pick] + rng.normal(size=(m, 3)) * 0.03).astype(np.float32)
+    ids[0], valid[0] = slots[known[0]], True
+    z[0] = state.last_obs[0, known[0]].cpu().numpy()
+    Bn = (rng.normal(size=(m, 3, 3)) * 0.05).astype(np.float32)
+    R = Bn @ np.transpose(Bn, (0, 2, 1)) + 0.1 * np.eye(3, dtype=np.float32)
+    perm = rng.permutation(m)
+    return ekf.FrameObservations(*(torch.as_tensor(x[perm], device=dev)[None]
+                                   for x in (ids, z, R, valid)))
+
+
 def _k6_timing(call):
     """(ms per call over 100 calls, the kernel alone in ms and the device
     events per call, both from torch.profiler over 20 calls) of a K6 call."""
@@ -1631,7 +1740,88 @@ def phase6_k6(dev):
           f"(runner.update_batched) {k2_ms:.4f} ms/launch beside K6 {timings[64][1]:.4f}")
     for kind, err in _k6_frame_step_checks(dev).items():
         worst[kind] = max(worst[kind], err)
-    return worst, timings, _k6_frame_step_timing(dev)
+    wide = _k6_wide(dev)
+    for kind, (err, _) in wide.items():
+        worst[kind] = max(worst[kind], err)
+    return worst, timings, _k6_frame_step_timing(dev), {k: ms for k, (_, ms) in wide.items()}
+
+
+def _k6_wide(dev):
+    """K6's frame step in each variant (K6_WIDE) on WIDE_FRAMES frames of
+    WIDE_M observation slots through the replay's ``replay_step`` (in place
+    from its second frame on), each frame held against the plain step from
+    the kernel's previous state; the kernel alone timed in place on the
+    first frame. Returns {variant: (max err, kernel ms)}."""
+    from aruco_slam_tpu_torch.models import ekf
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    out = {}
+    for L, n_lm in K6_WIDE:
+        cfg = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=WIDE_M))
+        kind = k6.variant(3 + 3 * L)[0]
+        rng = np.random.default_rng(WIDE_M + L)
+        state = _k6_case(dev, cfg, n_lm, rng)
+        controls = _k6_ticks(dev, rng, WIDE_FRAMES)
+        per, ahead = [], state  # each frame made for the state it will meet (the plain chain)
+        for f in range(WIDE_FRAMES):
+            per.append(_wide_frame(ahead, rng))
+            ahead = k6.frame_step_reference(ahead, per[-1],
+                                            ekf.Control(*(x[f:f + 1] for x in controls)), cfg)
+        frames = ekf.FrameObservations(*(torch.cat(x) for x in zip(*per)))
+
+        def rows():
+            return k6.Rows(torch.zeros(WIDE_FRAMES, 3, device=dev),
+                           torch.zeros(WIDE_FRAMES, 3, 3, device=dev),
+                           torch.zeros(WIDE_FRAMES, dtype=torch.int32, device=dev))
+
+        got_rows, plain_rows = rows(), rows()
+        before = k6.LAUNCHES[kind]
+        rep = k6.replay_step(state, frames, controls, cfg, got_rows)
+        prev, err, what = state, 0.0, f"K6 ({kind}, N {3 + 3 * L}, M {WIDE_M})"
+        for f in range(WIDE_FRAMES):
+            plain_rows.f = f
+            plain = k6.frame_step_reference(prev, frames, controls, cfg, rows=plain_rows)
+            got = rep(f)
+            torch.cuda.synchronize()
+            for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
+                         "dropped"):
+                _require(torch.equal(getattr(got, name), getattr(plain, name)),
+                         f"{what} frame {f}: {name} differs")
+            for name in ("mu", "sigma", "last_obs"):
+                a, r = getattr(got, name), getattr(plain, name)
+                _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
+                         f"{what} frame {f}: {name} differs by {_max_err(a, r):.3e}")
+                err = max(err, _max_err(a, r))
+            prev = ekf.EkfState(*(t.clone() for t in got))  # the next frame overwrites
+        _require(k6.LAUNCHES[kind] - before == WIDE_FRAMES, f"{what}: launches")
+        _require(torch.equal(got_rows.n_landmarks, plain_rows.n_landmarks)
+                 and torch.allclose(got_rows.trajectory, plain_rows.trajectory, atol=5e-5,
+                                    rtol=5e-3), f"{what}: rows differ")
+        one = (per[0], ekf.Control(*(x[:1] for x in controls)))
+        spare = ekf.init_state(cfg, 1, dev)._replace(mu=state.mu.clone(), sigma=state.sigma.clone())
+        mine = state._replace(mu=spare.mu, sigma=spare.sigma)
+        ms, _ = _kernel_ms(lambda: k6.frame_step(mine, *one, cfg, out=spare), "ekf_frame_update")
+        plain_ms = _cuda_time(lambda: k6.frame_step_reference(state, *one, cfg), 2)
+        bound, na = _k6_step_bound(state, per[0], one[1], L)
+        # frames with no valid observation: the prologue (its O(M^2) rank
+        # count), the predict and the bookkeeping alone, at WIDE_M and at M
+        idle = {m: f._replace(valid=torch.zeros_like(f.valid))
+                for m, f in ((WIDE_M, per[0]), (M, _k6_frame(state, rng)))}
+        idle_ms = {m: _kernel_ms(lambda f=f: k6.frame_step(mine, f, one[1], cfg, out=spare),
+                                 "ekf_frame_update", pads=PROFILE_PADS_S[:1])[0]
+                   for m, f in idle.items()}
+        out[kind] = (err, ms)
+        print(f"phase 6: K6 frame step ({kind} variant) N={3 + 3 * L}, {n_lm} landmarks, "
+              f"M={WIDE_M} (slots and order in device memory; {int(per[0].valid.sum())} valid "
+              f"at the first frame, na={na}): {WIDE_FRAMES} frames through the replay path "
+              f"equal to the plain step, max |err| {err:.3e}; kernel alone in place "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms/call, bound {bound[0]:.5f} ms "
+              f"({bound[1]}); landmarks now {int(got.n_landmarks[0])}, dropped "
+              f"{int(got.dropped[0])}; a frame with no valid observation (prologue, "
+              f"predict, bookkeeping): {idle_ms[WIDE_M]:.4f} ms at M={WIDE_M}, "
+              f"{idle_ms[M]:.4f} ms at M={M}")
+    return out
 
 
 def _config2():
@@ -2298,7 +2488,7 @@ def main() -> int:
     c2_launches = phase("3b", phase3b_config2_batched, dev)
     ccl_stats = phase(4, phase4_ccl, dev)
     img_launches = phase(5, phase5_image_path, dev)
-    k6_err, _, k6_step = phase(6, phase6_k6, dev)
+    k6_err, _, k6_step, k6_wide = phase(6, phase6_k6, dev)
     k6_launches = phase(7, phase7_single_stream, dev)
     phase(8, phase8_system, dev)
     phase(9, phase9_backend, dev)
@@ -2321,11 +2511,12 @@ def main() -> int:
     ]
     # K2's variants on their paths: smem in phase 3, cluster and device in 3b
     k2_launches = {"smem": launches["ekf_frame_batched.smem"], **c2_launches}
+    # m300_ms: the kernel alone on frames of WIDE_M observation slots
     for kind in ("smem", "cluster", "device"):
-        err, ms, plain_ms, bound, wrap_ms = k2_stats[kind]
+        err, ms, plain_ms, bound, wrap_ms, wide_ms = k2_stats[kind]
         kernels.append(row(f"ekf_frame_batched.{kind}", "ekf_frame_batched.cu",
                            "ekf_update_batched.py:77", k2_launches[kind], err, ms, plain_ms,
-                           bound, wrapper_ms=wrap_ms))
+                           bound, wrapper_ms=wrap_ms, m300_ms=wide_ms))
     for name, line in (("threshold_label_union", 229), ("threshold_label", 217),
                        ("label_components", 200), ("label_components_seeded", 207)):
         for kind in ("cluster", "block"):
@@ -2337,7 +2528,8 @@ def main() -> int:
     # 387, cluster) and at 512 (N = 1,539, grid; its full square beside it).
     # ms is the kernel alone in place (the profiler), wrapper_ms the call
     # through the replay path, update_ms the update alone (SlamSystem's
-    # call) out of place; the bound counts the frame's active square (na).
+    # call) out of place, m300_ms the kernel alone in place on a frame of
+    # WIDE_M slots; the bound counts the frame's active square (na).
     for kind, tag in (("cluster", "N387"), ("grid", "N1539_small")):
         _, wrap_ms, plain_ms, dev_ms, bound, na, upd_ms = k6_step[tag]
         extra = {}
@@ -2347,7 +2539,8 @@ def main() -> int:
                      "full_square_wrapper_ms": full[1]}
         kernels.append(row(f"ekf_frame_update.{kind}", "ekf_frame_update.cu", "ekf_update.py:73",
                            k6_launches[kind], k6_err[kind], dev_ms, plain_ms, bound,
-                           wrapper_ms=wrap_ms, update_ms=upd_ms, active_rows=na, **extra))
+                           wrapper_ms=wrap_ms, update_ms=upd_ms, active_rows=na,
+                           m300_ms=k6_wide[kind], **extra))
     idle = [k["name"] for k in kernels if not k["launches"]]
     _require(not idle, f"kernels the paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

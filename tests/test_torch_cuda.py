@@ -292,7 +292,8 @@ def test_image_replay_kernels_match_plain(dev):
 def _k6_case(dev, max_lm, n_lm, seed, M=16):
     """A state with ``n_lm`` landmarks (SPD covariance) and a frame that
     mixes known, new and invalid observations, one known one at its
-    slot's last record (a stationary-gate hit)."""
+    slot's last record (a stationary-gate hit). At any M but 16 the frame
+    is :func:`_wide_obs`'s."""
     rng = np.random.default_rng(seed)
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=M))
     N, na = 3 + 3 * max_lm, 3 + 3 * n_lm
@@ -313,16 +314,60 @@ def _k6_case(dev, max_lm, n_lm, seed, M=16):
         seen_prev=torch.ones(1, max_lm, dtype=torch.bool, device=dev),
         initialized=torch.ones(1, dtype=torch.bool, device=dev),
     )
-    ids = np.full(M, -1, np.int32)
-    ids[:12] = np.concatenate([slot_ids[:8], 20_000 + np.arange(4)])
-    z = (rng.normal(size=(M, 3)) * 0.5).astype(np.float32)
-    z[0] = last[0]
+    if M == 16:
+        ids = np.full(M, -1, np.int32)
+        ids[:12] = np.concatenate([slot_ids[:8], 20_000 + np.arange(4)])
+        z = (rng.normal(size=(M, 3)) * 0.5).astype(np.float32)
+        z[0] = last[0]
+        valid = ids >= 0
+    else:
+        ids, z, valid = _wide_obs(rng, mu, slot_ids, min(8, n_lm), last[0], M)
     Bn = (rng.normal(size=(M, 3, 3)) * 0.05).astype(np.float32)
-    R = Bn @ np.transpose(Bn, (0, 2, 1)) + 0.01 * np.eye(3, dtype=np.float32)
+    # a wide frame's chain (about 200 updates, most of a few landmarks)
+    # keeps its float32 digits with a noise floor of 0.1 (M 16's 0.01 would
+    # cost it ten times more of the tolerance, in the plain version too)
+    floor = 0.01 if M == 16 else 0.1
+    R = Bn @ np.transpose(Bn, (0, 2, 1)) + floor * np.eye(3, dtype=np.float32)
     perm = rng.permutation(M)
     frame = ekf.FrameObservations(*(torch.as_tensor(x[perm], device=dev)[None]
-                                    for x in (ids, z, R, ids >= 0)))
+                                    for x in (ids, z, R, valid)))
     return cfg, state, frame
+
+
+def _expected_z(mu, slots):
+    """The robot-frame measurement of the landmarks in ``slots`` from the
+    pose mu[0:3] (``ekf.update``'s model)."""
+    x, y, th = mu[:3]
+    lm = mu[3:].reshape(-1, 3)[slots]
+    dx, dy = lm[:, 0] - x, lm[:, 1] - y
+    c, s = np.cos(th), np.sin(th)
+    return np.stack([c * dx + s * dy, -s * dx + c * dy,
+                     (lm[:, 2] - th + np.pi) % (2 * np.pi) - np.pi], -1)
+
+
+def _wide_obs(rng, mu, slot_ids, n_known, last0, M):
+    """(ids, z, valid) of M observations whose ids repeat: the landmarks of
+    the first ``n_known`` slots and 4 new markers, each many times (a known
+    one near its expected measurement, a new one near one place; each copy
+    moved by a few cm, so that their order matters to the result), about a
+    fifth invalid (some with a padding id); the first is slot 0's landmark
+    at its last record (a stationary-gate hit). M may be 0."""
+    pool = np.concatenate([slot_ids[:n_known], 20_000 + np.arange(4)]).astype(np.int32)
+    at = np.concatenate([_expected_z(mu, np.arange(n_known)),
+                         rng.uniform(0.3, 2.0, (4, 3))])
+    pick = rng.integers(0, len(pool), M)
+    ids = pool[pick]
+    valid = rng.random(M) > 0.2
+    ids[~valid & (rng.random(M) > 0.5)] = -1
+    z = (at[pick] + rng.normal(size=(M, 3)) * 0.03).astype(np.float32)
+    if M:
+        ids[0], valid[0], z[0] = pool[0], True, last0
+    return ids, z, valid
+
+
+def _n_new(state, frame):
+    """The frame's valid observations of ids that the map does not hold."""
+    return (frame.valid & (ekf.lookup_slots(state.slot_ids, frame.ids) < 0)).sum(1)
 
 
 @pytest.mark.parametrize("max_lm", [64, 128, k6.MAX_CLUSTER_LANDMARKS,
@@ -359,19 +404,28 @@ def test_frame_update_kernel_matches_plain(dev, max_lm, reject):
 # 1,000 slots (N = 3,003) a full square's stripes pass the grid's shared
 # memory, so that frame runs in device memory.
 _K6_SQUARES = [(64, 40), (128, 100), (128, 126), (512, 100), (512, 508), (1000, 996)]
+# Frames wider than the kernels keep their prologue in shared memory for
+# (past ekf_update.MAX_SHARED_OBS = 256, in device memory), and an empty
+# one, in both variants: (max_landmarks, landmarks, M).
+_WIDE = [(128, 100, 257), (128, 100, 300), (128, 100, 0), (512, 100, 257), (512, 100, 300),
+         (512, 100, 0)]
+_K6_FRAMES = ([pytest.param(lm, n, 16, id=f"{lm}-{n}") for lm, n in _K6_SQUARES]
+              + [pytest.param(lm, n, m, id=f"{lm}-{n}-M{m}") for lm, n, m in _WIDE])
 
 
-@pytest.mark.parametrize("max_lm,n_lm", _K6_SQUARES)
+@pytest.mark.parametrize("max_lm,n_lm,M", _K6_FRAMES)
 @pytest.mark.parametrize("ticks", [0, 10])
 @pytest.mark.parametrize("initialized", [True, False])
-def test_k6_frame_step_matches_plain(dev, max_lm, n_lm, ticks, initialized):
+def test_k6_frame_step_matches_plain(dev, max_lm, n_lm, M, ticks, initialized):
     """K6's frame step (the compose, the predict, the update, the rows)
     against its plain version at N = 195 and 387 (cluster variant) and
     1,539 (grid variant), with a small and a full active square, from an
     initialized and an uninitialized state: out of place, in place (``out``
     sharing mu and sigma with the state), reading frame f of time-major
-    arrays; exactly one device event per call."""
-    cfg, state, frame = _k6_case(dev, max_lm, n_lm, max_lm + n_lm)
+    arrays; exactly one device event per call. Also frames of 257 and 300
+    observation slots (ids repeated, new and padding ones among them) and
+    of none, in both variants."""
+    cfg, state, frame = _k6_case(dev, max_lm, n_lm, max_lm + n_lm, M)
     state = state._replace(initialized=torch.full_like(state.initialized, initialized))
     rng = np.random.default_rng(ticks)
     w = torch.as_tensor(rng.uniform(-1.0, 3.0, (3, ticks, 2)).astype(np.float32), device=dev)
@@ -406,7 +460,9 @@ def test_k6_frame_step_matches_plain(dev, max_lm, n_lm, ticks, initialized):
         for name in ("mu", "sigma", "last_obs"):
             torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5,
                                        rtol=5e-3)
-    assert int(ref.n_landmarks[0]) == min(max_lm, n_lm + 4) and bool(ref.initialized[0])
+    n_new = int(_n_new(state, frame)[0])
+    assert n_new == 4 if M == 16 else (n_new > 0) == (M > 0)
+    assert int(ref.n_landmarks[0]) == min(max_lm, n_lm + n_new) and bool(ref.initialized[0])
     assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
     for a, b in ((got_rows.trajectory, ref_rows.trajectory), (got_rows.pose_cov,
                                                              ref_rows.pose_cov)):
@@ -475,20 +531,47 @@ def _device_events_per_call(call, reps=10, pads=(0.2, 1.0, 3.0)):
     return n / reps
 
 
-@pytest.mark.parametrize("max_lm", [128, 512])
-def test_k6_replay_matches_plain(dev, max_lm):
+def _widened(data, M, frames, seed):
+    """The first ``frames`` frames of a single-stream replay's data, each
+    frame's observation slots drawn with repeats to M slots (ids repeated,
+    invalid slots among them; each copy's z moved by up to 1 cm, so that
+    their order matters)."""
+    rng = np.random.default_rng(seed)
+    F, m = data.obs_ids.shape
+    pick = torch.as_tensor(rng.integers(0, m, (frames, M)), device=data.obs_ids.device)
+
+    def take(x):
+        idx = pick.reshape(frames, M, *([1] * (x.dim() - 2))).expand(frames, M, *x.shape[2:])
+        return torch.gather(x[:frames], 1, idx)
+
+    jitter = torch.as_tensor(rng.uniform(-0.01, 0.01, (frames, M, 3)).astype(np.float32),
+                             device=data.obs_z.device)
+    return data._replace(enc_w=data.enc_w[:frames], enc_dt=data.enc_dt[:frames],
+                         obs_ids=take(data.obs_ids), obs_z=take(data.obs_z) + jitter,
+                         obs_R=take(data.obs_R), obs_valid=take(data.obs_valid))
+
+
+@pytest.mark.parametrize("max_lm,M", [pytest.param(128, 8, id="128"),
+                                      pytest.param(512, 8, id="512"),
+                                      pytest.param(128, 300, id="128-M300"),
+                                      pytest.param(512, 257, id="512-M257")])
+def test_k6_replay_matches_plain(dev, max_lm, M):
     """The single-stream replay through K6's frame step (one launch a frame
     through ``ekf_update.replay_step``, the state updated in place from the
-    second frame on) against the plain replay on the card."""
+    second frame on) against the plain replay on the card; also 10 frames
+    widened to 300 and 257 observation slots (``_widened``)."""
     seq = synthetic.generate_sequence(synthetic.SimParams(duration=6.0, seed=9, max_obs=8))
-    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=8))
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=M))
     data = runner.replay_data_from_sequence(seq, "obs", dev)
+    if M != 8:
+        data = _widened(data, M, 10, M)
+    assert data.obs_ids.shape[1] == M
     kind = k6.variant(3 + 3 * max_lm)[0]
     before = dict(k6.LAUNCHES)
     out = runner.replay(data, cfg)
     ref = runner.replay_reference(data, cfg)
     torch.cuda.synchronize()
-    assert k6.LAUNCHES == {**before, kind: before[kind] + seq.num_frames}
+    assert k6.LAUNCHES == {**before, kind: before[kind] + data.obs_ids.shape[0]}
     assert torch.equal(out.n_landmarks, ref.n_landmarks) and int(out.n_landmarks[-1]) > 0
     assert torch.equal(out.final_state.slot_ids, ref.final_state.slot_ids)
     torch.testing.assert_close(out.trajectory, ref.trajectory, atol=1e-4, rtol=0)
@@ -496,13 +579,13 @@ def test_k6_replay_matches_plain(dev, max_lm):
                                rtol=5e-3)
 
 
-def _k2_case(dev, max_lm, B=3, T=10, seed=0, n_lms=None):
+def _k2_case(dev, max_lm, B=3, T=10, seed=0, n_lms=None, M=16):
     """B lanes of ``_k6_case`` (``max_lm - 2`` landmarks, so inserts drop,
-    or lane b's ``n_lms[b]``), lane 1 not yet initialized, with T encoder
-    ticks each (as strided views of one [B, T, 2] tensor, as the replay
-    hands them over)."""
+    or lane b's ``n_lms[b]``; frames of M observations), lane 1 not yet
+    initialized, with T encoder ticks each (as strided views of one [B, T,
+    2] tensor, as the replay hands them over)."""
     n_lms = n_lms or (max_lm - 2,) * B
-    lanes = [_k6_case(dev, max_lm, n_lms[b], seed + b) for b in range(B)]
+    lanes = [_k6_case(dev, max_lm, n_lms[b], seed + b, M) for b in range(B)]
     cfg = lanes[0][0]
     state = ekf.EkfState(*(torch.cat(x) for x in zip(*(st for _, st, _ in lanes))))
     state = state._replace(initialized=torch.arange(B, device=dev) != 1)
@@ -520,27 +603,32 @@ def _k2_case(dev, max_lm, B=3, T=10, seed=0, n_lms=None):
 _MIXED = {128: (100, 20, 126), 512: (400, 60, 510)}
 
 
-@pytest.mark.parametrize("max_lm,kind", [(8, "smem"), (kb.MAX_SMEM_LANDMARKS, "smem"),
-                                         (100, "cluster"), (kb.MAX_CLUSTER_LANDMARKS + 1, "device"),
-                                         (128, "cluster"), (512, "device")])
+_K2_SIZES = [(8, "smem"), (kb.MAX_SMEM_LANDMARKS, "smem"), (100, "cluster"),
+             (kb.MAX_CLUSTER_LANDMARKS + 1, "device"), (128, "cluster"), (512, "device")]
+# Frames of 257, 300 and 0 observation slots in each variant.
+_K2_FRAMES = ([pytest.param(lm, kind, 16, id=f"{lm}-{kind}") for lm, kind in _K2_SIZES]
+              + [pytest.param(lm, kind, m, id=f"{lm}-{kind}-M{m}")
+                 for lm, kind in ((8, "smem"), (128, "cluster"), (512, "device"))
+                 for m in (257, 300, 0)])
+
+
+@pytest.mark.parametrize("max_lm,kind,M", _K2_FRAMES)
 @pytest.mark.parametrize("ticks", [10, 0])
-def test_frame_step_variants_match_plain(dev, max_lm, kind, ticks):
+def test_frame_step_variants_match_plain(dev, max_lm, kind, M, ticks):
     """K2 in each variant against its plain version on one frame of known,
     new, gated, dropped and invalid observations, with and without encoder
     ticks, one lane uninitialized; the replay rows it writes; exactly one
     device event per call. The cluster and device variants also at the
     fewest CTAs a lane, and with lanes of different active sizes, the
-    device variant's largest in device memory."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    cfg, state, frame, controls = _k2_case(dev, max_lm, T=ticks, n_lms=_MIXED.get(max_lm))
+    device variant's largest in device memory. Each variant also on frames
+    of 257 and 300 observation slots (ids repeated) and of none."""
+    cfg, state, frame, controls = _k2_case(dev, max_lm, T=ticks, n_lms=_MIXED.get(max_lm), M=M)
     n = 3 + 3 * max_lm
-    assert kb.variant(n)[0] == kind
+    assert kb.variant(n)[0] == kind and frame.ids.shape[1] == M
     B, F = state.mu.shape[0], 4
     if max_lm == 512:
-        na = 3 + 3 * torch.clamp(state.n_landmarks + 4, max=max_lm)
-        rows_on_chip = kb.on_chip_rows(kind, n, frame.ids.shape[1], kb.variant(n, B)[1])
+        na = 3 + 3 * torch.clamp(state.n_landmarks + _n_new(state, frame), max=max_lm)
+        rows_on_chip = kb.on_chip_rows(kind, n, M, kb.variant(n, B)[1])
         assert (na > rows_on_chip).tolist() == [True, False, True]
 
     def rows():
@@ -562,17 +650,15 @@ def test_frame_step_variants_match_plain(dev, max_lm, kind, ticks):
         for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged",
                      "dropped"):
             assert torch.equal(getattr(out, name), getattr(ref, name)), (name, choice)
-        assert int(out.dropped.sum()) > 0 and bool(out.initialized.all())
+        assert (int(out.dropped.sum()) > 0) == (M > 0) and bool(out.initialized.all())
         for name in ("mu", "sigma", "last_obs"):
             torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5,
                                        rtol=5e-3)
         assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
         for a, b in zip(got_rows[:2], ref_rows[:2]):
             torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kb.frame_step_batched(state, frame, controls, cfg)
-        torch.cuda.synchronize()
-    assert sum(e.device_type == DeviceType.CUDA for e in prof.events()) == 1
+    assert _device_events_per_call(lambda: kb.frame_step_batched(state, frame, controls,
+                                                                 cfg)) == 1
 
 
 def test_slam_system_on_the_card_matches_the_cpu(dev):

@@ -1,6 +1,7 @@
 """The port's frame-batched detector against the JAX package's, stage by
 stage and end to end, on rendered marker scenes (the arena and camera of
-``tests/test_detector.py``). Both sides get the same numpy frames. Ids,
+``tests/test_detector.py``), and on ``tests/test_robustness.py``'s
+degraded frames. Both sides get the same numpy frames. Ids,
 validity and every integer stage output must be equal; corners agree to
 1e-3 px (subpixel refinement and decoding sum floats in another order)."""
 
@@ -75,13 +76,28 @@ def stages(scenes):
 
 
 @pytest.fixture(scope="module")
-def jax_detections(scenes):
+def degraded(scenes):
+    """Scene 0 (``tests/test_robustness.py``'s scene) three ways degraded, as
+    that file does: sensor noise of sigma 8 from a numpy seed, a 0.55-1.2
+    illumination ramp across the width, and a 3x3 box blur."""
+    img = scenes[0].astype(np.float32)
+    noisy = img + np.random.default_rng(8).normal(scale=8.0, size=img.shape)
+    ramp = img * (0.55 + 0.65 * np.linspace(0, 1, img.shape[1])[None, :])
+    pad = np.pad(img, 1, mode="edge")
+    blur = sum(pad[1 + dy: 1 + dy + img.shape[0], 1 + dx: 1 + dx + img.shape[1]]
+               for dy in (-1, 0, 1) for dx in (-1, 0, 1)) / 9.0
+    return np.stack([np.clip(x, 0, 255).astype(np.uint8) for x in (noisy, ramp, blur)])
+
+
+@pytest.fixture(scope="module")
+def jax_detections(scenes, degraded):
     colour = _colour(scenes[3])
     out = {}
     for name, kw in CONFIGS.items():
         cfg = jdet.DetectorConfig(**kw)
         fn = jax.jit(jax.vmap(lambda im, c=cfg: jdet.detect_markers(im, c)))
         out[name] = [np.asarray(x) for x in fn(jnp.asarray(scenes[:3]))]
+        out[name + "_degraded"] = [np.asarray(x) for x in fn(jnp.asarray(degraded))]  # same shape
         single = jax.jit(lambda im, c=cfg: jdet.detect_markers(im, c))(jnp.asarray(colour))
         out[name + "_colour"] = [np.asarray(x) for x in single]
     return out
@@ -241,6 +257,18 @@ def test_detect_markers_matches_jax(scenes, jax_detections, name):
     colour = detector.detect_markers(torch.as_tensor(_colour(scenes[3])), cfg)
     _assert_detections(colour, *jax_detections[name + "_colour"])
     assert bool(colour.valid.any())
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_detect_markers_matches_jax_on_degraded_frames(degraded, jax_detections, name):
+    """The robustness scenes (noise, illumination ramp, blur) through both
+    detectors: ids and validity equal, corners within 1e-3 px, markers
+    found in every frame."""
+    ours = detector.detect_markers_batch(torch.as_tensor(degraded),
+                                         detector.DetectorConfig(**CONFIGS[name]))
+    ids, corners, valid = jax_detections[name + "_degraded"]
+    _assert_detections(ours, ids, corners, valid)
+    assert valid.any(axis=1).all()
 
 
 def test_single_frame_equals_its_batch_row(scenes):

@@ -5,9 +5,10 @@ on the cases of the JAX package's own kernel tests: a mixed chain of known
 and new markers, a capacity overflow, the gate off with reject-divergent
 on, and the uninitialized no-op; the frame step against JAX's
 ``ekf.predict_block`` followed by that kernel, at 0, 1 and 10 encoder
-ticks from initialized and uninitialized states. Integer fields exact; mu,
-sigma, last_obs to atol 5e-5 / rtol 5e-3 (float32 sums in another order,
-carried over a few frames)."""
+ticks from initialized and uninitialized states; and at 300 observation
+slots against ``predict_block`` then JAX's ``ekf.update``. Integer fields
+exact; mu, sigma, last_obs to atol 5e-5 / rtol 5e-3 (float32 sums in
+another order, carried over a few frames)."""
 
 import dataclasses
 
@@ -199,6 +200,50 @@ def test_frame_step_plain_matches_jax_predict_then_kernel(case, initialized, tic
     else:
         assert int(ours.dropped[0]) == 2 and int(ours.n_landmarks[0]) == 2
     assert ekf_update.LAUNCHES == launches  # CPU tensors never launch
+
+
+def _wide_frames(rng, m=300, n_first=10):
+    """Two frames of ``m`` observation slots: ``n_first`` new markers, then
+    a frame whose ids repeat (each of those markers many times, near where
+    it was first seen) with 8 new ids among them, 6 past a 16-slot map's
+    capacity, and about a fifth of the slots invalid (padding ids among
+    them), in arrival order."""
+    first = _frame(rng, list(range(n_first)), m)
+    ids = rng.choice(np.r_[np.arange(n_first), 100 + np.arange(8)], m).astype(np.int32)
+    valid = rng.random(m) > 0.2
+    ids[~valid & (rng.random(m) > 0.5)] = -1
+    z = np.where((ids < n_first)[:, None], first[1][np.minimum(ids, n_first - 1)],
+                 rng.uniform(0.3, 2, (m, 3))).astype(np.float32)
+    z += rng.normal(0, 0.03, z.shape).astype(np.float32)
+    R = np.tile(np.eye(3, dtype=np.float32) * 0.05, (m, 1, 1))
+    return first, (ids, z, R, valid)
+
+
+def test_frame_step_plain_matches_jax_at_300_observations():
+    """A frame 300 slots wide (wider than the kernels keep their prologue
+    in shared memory for): ``frame_step``'s plain version against JAX's
+    ``predict_block`` then its sequential ``ekf.update`` (the Pallas
+    kernel's semantics; in interpret mode a frame this wide takes many
+    minutes) on a 16-slot map, ids repeated across the frame with new,
+    dropped and invalid entries among them. This is the reference the
+    card's cases at M 300 are held to."""
+    rng = np.random.default_rng(300)
+    jcfg = dataclasses.replace(JCFG, ekf=jconfig.EkfConfig(max_landmarks=16,
+                                                           max_observations_per_frame=300))
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    ref = _jstate(jcfg)
+    ours = convert.ekf_state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+    assert ekf_update.MAX_SHARED_OBS < 300
+    for a, z, R, v in _wide_frames(rng):
+        wl, wr, dt = _ticks(rng, 10)
+        ref = jax.jit(jekf.update, static_argnums=2)(
+            jekf.predict_block(ref, jekf.Control(*map(jnp.asarray, (wl, wr, dt))), jcfg),
+            jekf.FrameObservations(*map(jnp.asarray, (a, z, R, v))), jcfg)
+        ours = ekf_update.frame_step(
+            ours, ekf.FrameObservations(*(torch.as_tensor(x)[None] for x in (a, z, R, v))),
+            ekf.Control(*(torch.as_tensor(x)[None] for x in (wl, wr, dt))), cfg)
+        _assert_same(ours, ref)
+    assert int(ours.n_landmarks[0]) == 16 and int(ours.dropped[0]) > 0
 
 
 def test_frame_step_gate_hit_zeroes_the_record():

@@ -174,10 +174,10 @@ def test_variant_covers_every_map_size():
             elif kind == "cluster":
                 assert 77 < lm <= 308 and ctas >= kb.min_ctas("cluster", n) >= 2
                 assert kb.stripe_width(n, ctas) == -(-n // ctas) >= 3
-                assert kb.on_chip_rows("cluster", n, kb.MAX_OBS, ctas) == n
+                assert kb.on_chip_rows("cluster", n, kb.MAX_SHARED_OBS, ctas) == n
                 assert kb.shared_bytes("smem", n, lm) > kb.MAX_SHARED_BYTES
             else:
-                assert lm > 308 and kb.on_chip_rows("device", n, kb.MAX_OBS, ctas) < n
+                assert lm > 308 and kb.on_chip_rows("device", n, kb.MAX_SHARED_OBS, ctas) < n
                 assert kb.shared_bytes("cluster", n, lm, ctas=16) > kb.MAX_SHARED_BYTES
         assert len(kinds) == 1  # the kind does not depend on the batch
         if not seen or seen[-1] != kind:

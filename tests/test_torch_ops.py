@@ -22,7 +22,8 @@ from aruco_slam_tpu.sim import synthetic as jsyn
 from aruco_slam_tpu.utils import config as jconfig
 from aruco_slam_tpu.utils import logging as jlogging
 from aruco_slam_tpu_torch import convert
-from aruco_slam_tpu_torch.ops import camera, geometry, linalg
+from aruco_slam_tpu_torch.models.ekf import FrameObservations
+from aruco_slam_tpu_torch.ops import camera, frontend, geometry, linalg, pnp
 from aruco_slam_tpu_torch.utils import logging as slogging
 from aruco_slam_tpu_torch.ops.kernels import pnp_frontend
 
@@ -182,3 +183,59 @@ def test_pnp_frontend_plain_matches_jax_kernel_and_xla(dist, seed):
         np.testing.assert_array_equal(keep, kj)
         np.testing.assert_allclose(z[keep], np.asarray(zj)[keep], atol=2e-5)
         np.testing.assert_allclose(R[keep], np.asarray(Rj)[keep], atol=2e-5, rtol=2e-4)
+
+
+def test_observations_direct_matches_jax():
+    """The obs-level passthrough returns the observations as they are,
+    field for field as JAX's."""
+    rng = np.random.default_rng(5)
+    ids = np.array([[3, -1, 7]], np.int32)
+    z = rng.normal(size=(1, 3, 3)).astype(np.float32)
+    R = rng.normal(size=(1, 3, 3, 3)).astype(np.float32)
+    valid = np.array([[True, False, True]])
+    ours = frontend.observations_direct(*map(torch.as_tensor, (ids, z, R, valid)))
+    ref = jfrontend.observations_direct(*map(jnp.asarray, (ids, z, R, valid)))
+    assert isinstance(ours, FrameObservations) and ours._fields == ref._fields
+    for a, b in zip(ours, ref):
+        assert a.dtype == torch.as_tensor(np.array(b)).dtype
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_pnp_close_to_opencv():
+    """The port's square PnP and its front-end against OpenCV's
+    SOLVEPNP_IPPE_SQUARE on the corners ``tests/test_camera_pnp.py``
+    renders (its camera, marker and poses): tvec to that test's 5e-3, the
+    rotation to its 2e-2; the front-end's robot-frame z equal to z made
+    from OpenCV's pose to the same bounds, every marker kept."""
+    cv2 = pytest.importorskip("cv2")
+    from test_camera_pnp import CAM as JCAM, MARKER_LEN, make_pose, project_marker
+
+    cam = convert.camera_from_numpy(JCAM.fx, JCAM.fy, JCAM.cx, JCAM.cy, JCAM.dist)
+    obj = pnp.marker_object_points(MARKER_LEN, torch.float64, "cpu").numpy()
+    K = np.asarray(JCAM.matrix, np.float64)
+    dist = np.asarray(JCAM.dist, np.float64)
+    rng = np.random.default_rng(0)
+    corners, cv_r, cv_t = [], [], []
+    for _ in range(10):
+        rvec, tvec = make_pose(rng)
+        c = np.asarray(project_marker(rvec, tvec, JCAM), np.float64)
+        ok, rv_cv, tv_cv = cv2.solvePnP(obj, c.reshape(-1, 1, 2), K, dist,
+                                        flags=cv2.SOLVEPNP_IPPE_SQUARE)
+        assert ok
+        corners.append(c)
+        cv_r.append(rv_cv[:, 0])
+        cv_t.append(tv_cv[:, 0])
+    corners = torch.as_tensor(np.stack(corners), dtype=torch.float32)
+    cv_r = torch.as_tensor(np.stack(cv_r), dtype=torch.float32)
+    cv_t = torch.as_tensor(np.stack(cv_t), dtype=torch.float32)
+    res = pnp.solve_pnp_square(corners, cam, MARKER_LEN)
+    np.testing.assert_allclose(res.tvec.numpy(), cv_t.numpy(), atol=5e-3)
+    np.testing.assert_allclose(geometry.rodrigues(res.rvec).numpy(),
+                               geometry.rodrigues(cv_r).numpy(), atol=2e-2)
+    ids = torch.arange(10, dtype=torch.int32)[None]
+    keep = torch.ones(1, 10, dtype=torch.bool)
+    obs = frontend.observations_from_corners(ids, corners[None], keep, cam, CFG)
+    want = pnp.camera_observation_to_robot(cv_r, cv_t, (CFG.t_r2c_x, CFG.t_r2c_y))
+    assert bool(obs.valid.all())
+    np.testing.assert_allclose(obs.z[0, :, :2].numpy(), want[:, :2].numpy(), atol=5e-3)
+    np.testing.assert_allclose(obs.z[0, :, 2].numpy(), want[:, 2].numpy(), atol=2e-2)

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it never imports JAX, sets true-float32
 matmuls, refuses to build without nvcc, validates kernel inputs before any
 launch, sends a non-CPU tensor only to a kernel (no plain fallback), raises
-on a refused launch without trying another kernel variant, and puts what
-its entry points make on the card unless told otherwise."""
+on a refused launch without trying another kernel variant, gives a frame
+wider than the EKF kernels' shared slots its workspace in device memory,
+and puts what its entry points make on the card unless told otherwise."""
 
 import contextlib
 import os
@@ -442,6 +443,103 @@ class _RefusingK2:
 
     def ekf_frame_batched_error_string(self, err):
         return b"out of memory"
+
+
+class _WidthRecordingK6(_RefusingK6):
+    """K6's library whose plans record the observations they are planned
+    for and whose launches succeed and record (variant, M, scratch, slots)."""
+
+    def __init__(self):
+        super().__init__()
+        self.planned_for = []
+
+    def ekf_frame_update_cluster_plan(self, N, M, G, W, smem, count):
+        self.planned_for.append(M)
+        return super().ekf_frame_update_cluster_plan(N, M, G, W, smem, count)
+
+    def ekf_frame_update_grid_plan(self, N, M, G, W, cap, smem):
+        self.planned_for.append(M)
+        return super().ekf_frame_update_grid_plan(N, M, G, W, cap, smem)
+
+    def ekf_frame_update_launch(self, args):
+        a = args._obj
+        self.calls.append((("cluster", "grid")[a.variant], a.M, a.scratch, a.slots))
+        return 0
+
+
+@pytest.mark.parametrize("max_lm", [64, 400])
+def test_k6_wide_frames_take_a_slot_workspace(monkeypatch, max_lm):
+    """As if on the card: a frame of 256 observation slots or fewer
+    launches as before (no slots in device memory; the grid's scratch
+    alone); a wider one gets the prologue's slots and order, [CTAs, 2, M]
+    int32 after the grid's scratch, made once per width and reused, with
+    no check refusing it; every plan is made for MAX_SHARED_OBS slots."""
+    lib = _WidthRecordingK6()
+    _as_if_on_the_card(monkeypatch, ekf_update, lib)
+    monkeypatch.setattr(ekf_update, "_workspaces", {})
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
+    state = ekf.init_state(cfg, 1, "cpu")
+    choice = ekf_update.variant(3 + 3 * max_lm)
+    ctas = 8 if choice[0] == "grid" else choice[1]  # the stand-in grid plan's CTAs
+    head = ekf_update._grid_words(3 + 3 * max_lm) if choice[0] == "grid" else 0
+    for M in (16, 256, 257, 300, 300):
+        frame = ekf.FrameObservations(*(x.expand(1, M, *x.shape[2:]).contiguous()
+                                        for x in _k6_args(M=1)[1]))
+        ekf_update._launch(state, frame, cfg, choice)
+    assert set(lib.planned_for) == {ekf_update.MAX_SHARED_OBS}
+    assert [c[:2] for c in lib.calls] == [(choice[0], m) for m in (16, 256, 257, 300, 300)]
+    assert all((c[2] is not None) == (choice[0] == "grid") for c in lib.calls)
+    assert lib.calls[0][3] is None and lib.calls[1][3] is None
+    assert lib.calls[3][3] == lib.calls[4][3] != lib.calls[2][3]
+    for M, call in ((257, lib.calls[2]), (300, lib.calls[3])):
+        ws = ekf_update._workspaces[(0, 0, choice[0], 3 + 3 * max_lm, M)]
+        assert ws.numel() == head + 2 * ctas * M
+        assert call[3] == ws.data_ptr() + 4 * head
+
+
+class _RecordingK2(_RefusingK2):
+    """K2's library with launches that succeed and record (variant, M,
+    CTAs a lane, shared bytes, the slots' pointer)."""
+
+    def ekf_frame_batched_launch(self, variant, ptrs, strides, fcfg, icfg, smem, stream):
+        self.calls.append((ekf_update_batched.VARIANTS[variant], icfg[3], icfg[4], smem,
+                           ptrs[28]))
+        return 0
+
+
+@pytest.mark.parametrize("max_lm", [32, 128, 400])
+def test_k2_wide_frames_take_a_slot_workspace(monkeypatch, max_lm):
+    """As if on the card: K2 at 256 observation slots or fewer launches with
+    the shared bytes its layout always had (2M words of slots and order)
+    and no slots in device memory; a wider frame gets [B, G, 2, M] int32 in
+    device memory, made once per shape and reused, and its layout drops
+    the slots' words; nothing refuses the width."""
+    lib = _RecordingK2()
+    _as_if_on_the_card(monkeypatch, ekf_update_batched, lib)
+    monkeypatch.setattr(ekf_update_batched, "_workspaces", {})
+    monkeypatch.setattr(ekf_update_batched, "_choices", {})
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
+    N, B = 3 + 3 * max_lm, 2
+    kind = ekf_update_batched.variant(N)[0]
+    for M in (16, 256, 257, 300, 300):
+        args = _k2_args(B=B, M=M)
+        ekf_update_batched._launch(ekf.init_state(cfg, B, "cpu"), args["frame"],
+                                   args["controls"], cfg, None, None)
+    assert [c[:2] for c in lib.calls] == [(kind, m) for m in (16, 256, 257, 300, 300)]
+    for (_, M, ctas, smem, slots) in lib.calls:
+        w = ekf_update_batched.stripe_width(N, ctas)
+        fixed = {"smem": N * N + 8 * N + 384 + 21 + 3 * max_lm + (max_lm + 3) // 4,
+                 "cluster": N * w + 7 * w + 3 * N + 73 + 21}.get(kind)
+        words = 2 * M if M <= 256 else 0
+        assert smem == (ekf_update_batched.MAX_SHARED_BYTES if fixed is None
+                        else 4 * (fixed + words))
+        if M <= 256:
+            assert slots is None
+        else:
+            ws = ekf_update_batched._workspaces[(0, 0, B, ctas, M)]
+            assert ws.dtype == torch.int32 and ws.numel() == B * ctas * 2 * M
+            assert slots == ws.data_ptr()
+    assert lib.calls[3][4] == lib.calls[4][4] != lib.calls[2][4]
 
 
 @pytest.mark.parametrize("max_lm,kind", [(32, "smem"), (128, "cluster"), (400, "device")])

@@ -2,7 +2,8 @@
 on the CPU) against both JAX batched paths — the kernel-driven
 ``_replay_batch_kernel`` (interpret mode, PnP kernel on) and the vmapped
 ``_replay_batch_jit`` — at the measurement and corner levels: trajectory
-to atol 1e-4, n_landmarks / slot_ids / dropped exact."""
+to atol 1e-4, n_landmarks / slot_ids / dropped exact; and a zero-frame
+single-stream replay under every update backend against JAX's."""
 
 import dataclasses
 
@@ -11,10 +12,12 @@ import pytest
 import torch
 
 from aruco_slam_tpu import runner as jrunner
+from aruco_slam_tpu.models import ekf as jekf
 from aruco_slam_tpu.ops.camera import CameraIntrinsics as JCamera
 from aruco_slam_tpu.sim import synthetic as jsyn
 from aruco_slam_tpu.utils import config as jconfig
 from aruco_slam_tpu_torch import convert, runner
+from aruco_slam_tpu_torch.models import ekf
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.sim import synthetic
 
@@ -100,3 +103,33 @@ def test_lanes_independent_of_batch_size():
         np.testing.assert_array_equal(
             big.final_state.sigma[lanes].numpy(), small.final_state.sigma.numpy()
         )
+
+
+@pytest.mark.parametrize("backend,fused", [("auto", False), ("pallas", False), ("xla", False),
+                                           ("auto", True)])
+def test_zero_frame_replay_matches_jax(backend, fused):
+    """``replay`` of a sequence cut to 0 frames at obs level, under every
+    ``update_backend`` and with ``fused_update``, against JAX's
+    ``replay_sequence``: trajectory [0, 3], n_landmarks [0], and the final
+    state the initial one (no step is made for an empty replay)."""
+    jcfg = dataclasses.replace(JCFG, ekf=dataclasses.replace(
+        JCFG.ekf, update_backend=backend, fused_update=fused))
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    seq = jsyn.generate_sequence(jsyn.SimParams(duration=1.0, seed=0, max_obs=6), level="obs")
+    cut = dataclasses.replace(seq, enc_w=seq.enc_w[:0], enc_dt=seq.enc_dt[:0],
+                              obs_ids=seq.obs_ids[:0], obs_z=seq.obs_z[:0],
+                              obs_R=seq.obs_R[:0], obs_valid=seq.obs_valid[:0],
+                              true_pose_frames=seq.true_pose_frames[:0],
+                              true_pose_enc=seq.true_pose_enc[:0])
+    ours = runner.replay(runner.replay_data_from_sequence(cut, "obs", "cpu"), cfg)
+    ref = jrunner.replay_sequence(cut, jcfg, level="obs")
+    assert tuple(ours.trajectory.shape) == np.asarray(ref.trajectory).shape == (0, 3)
+    assert tuple(ours.pose_cov.shape) == np.asarray(ref.pose_cov).shape == (0, 3, 3)
+    assert tuple(ours.n_landmarks.shape) == np.asarray(ref.n_landmarks).shape == (0,)
+    init = ekf.init_state(cfg, 1, "cpu")
+    jinit = jekf.init_state(jcfg)
+    for name, got, want, jgot, jwant in zip(ekf.EkfState._fields, ours.final_state, init,
+                                            ref.final_state, jinit):
+        assert torch.equal(got, want), name
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(jgot), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(jgot), np.asarray(jwant), err_msg=name)

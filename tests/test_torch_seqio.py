@@ -3,7 +3,8 @@ the CPU, modelled on ``tests/test_native_seqio.py``:
 
 - the port's binding: round trip, prefetch in order and on a subrange, a
   corrupt file refused, the CRC catching a flipped payload byte, a build
-  without g++ raising and naming it;
+  without g++ raising and naming it, ``is_available`` as JAX's with and
+  without g++ and the source;
 - a file written by either package's ``write_frames`` is byte-identical to
   the other's and reads in both;
 - ``Sequence.save(image_format="asq")`` / ``load`` and an image-level
@@ -105,6 +106,29 @@ def test_build_without_gxx_names_the_compiler(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         native_seqio.write_frames(str(tmp_path / "f.asq"), np.zeros((1, 4, 4), np.uint8))
     assert not (tmp_path / "f.asq").exists()
+
+
+@pytest.mark.parametrize("missing", [None, "g++", "source"])
+def test_is_available_matches_jax(monkeypatch, tmp_path, missing):
+    """``is_available`` as JAX's: True where the library builds and loads;
+    False, without raising, where g++ or the source is missing (each
+    package made to build afresh in a temporary directory); the port's
+    ``_load`` still raises for the callers that need the library."""
+    if missing is not None:
+        monkeypatch.setattr(native_seqio, "_lib", None)
+        monkeypatch.setattr(native_seqio, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(jseqio, "_lib", None)
+        monkeypatch.setattr(jseqio, "_BUILD", str(tmp_path / "jbuild"))
+        monkeypatch.setattr(jseqio, "_LIB_PATH", str(tmp_path / "jbuild" / "libseqio.so"))
+    if missing == "g++":
+        monkeypatch.setenv("PATH", str(tmp_path))
+    elif missing == "source":
+        monkeypatch.setattr(native_seqio, "SOURCE", tmp_path / "seqio.cpp")
+        monkeypatch.setattr(jseqio, "_SRC", str(tmp_path))
+    assert native_seqio.is_available() is jseqio.is_available() is (missing is None)
+    if missing is not None:
+        with pytest.raises((RuntimeError, OSError)):
+            native_seqio._load()
 
 
 def test_asq_files_interchange_with_the_jax_package(tmp_path, rng):
