@@ -8,14 +8,15 @@ keeps its module names so each counterpart is easy to find:
 - ``ops.kernels`` — the CUDA kernels (``csrc/*.cu``) and their wrappers
 - ``models``    — the EKF-SLAM core (batch-first)
 - ``sim``, ``io``, ``utils`` — numpy-only copies of the generator, the
-  sequence container, map I/O and the config system; ``utils.device``
+  sequence container, map I/O, the config system and the float64
+  reference EKF; ``utils.device``
 - ``runner``    — batched and single-stream replay at every level, sharded
   replay and detection, ``.asq`` streaming
 - ``parallel``  — ``torch.distributed`` groups, the rank launcher, the
-  distributed BA and the multi-rank dry run
+  distributed BA, the multi-rank dry run and the single-chip entry step
 - ``system``, ``viz`` — the streaming ``SlamSystem`` and its output records
-- ``pipeline``, ``cli``, ``demo`` — filter -> smoother, the command line,
-  the end-to-end demo
+- ``pipeline``, ``cli``, ``demo``, ``bench`` — filter -> smoother, the
+  command line, the end-to-end demo, the benchmark harness
 - ``convert``   — state and config carried across from the JAX package
 
 It imports torch and numpy, never ``jax`` and never ``aruco_slam_tpu``.

@@ -8,9 +8,11 @@ Subcommands:
   optionally export the learned map (map.txt schema), a JSONL run log and
   a plot
 - ``ba``       — build a factor graph from a sequence and optimize it
+- ``bench``    — the benchmark harness (:mod:`aruco_slam_tpu_torch.bench`,
+  the root ``bench.py``'s legs); its last line is ``bench.py``'s JSON
 
-``--device`` names the torch device (replay, ba; simulate renders its frames
-there); the default is the card.
+``--device`` names the torch device (replay, ba, bench; simulate renders its
+frames there); the default is the card.
 
 Usage: python -m aruco_slam_tpu_torch.cli <subcommand> [options]
 """
@@ -165,6 +167,12 @@ def cmd_ba(args):
     )
 
 
+def cmd_bench(args):
+    from aruco_slam_tpu_torch import bench
+
+    bench.main(device=args.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="aruco_slam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -204,6 +212,11 @@ def main(argv=None):
                         "trajectory/map (filter -> smoother pipeline)")
     _add_common(p)
     p.set_defaults(fn=cmd_ba)
+
+    p = sub.add_parser("bench", help="run the benchmark harness")
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: the card, cuda)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -1,9 +1,12 @@
-"""One sharded step of every multi-rank path — counterpart of the JAX
-package's ``__graft_entry__.dryrun_multichip``, on ``n`` ranks of
-``torch.distributed`` (:func:`launch.run_ranks`) instead of an n-device
-mesh.
+"""The entry points of the JAX package's ``__graft_entry__``, ported:
 
-Each rank runs three legs:
+- :func:`entry`: one single-chip EKF-SLAM frame step and its example
+  inputs;
+- :func:`dryrun_multichip`: one sharded step of every multi-rank path, on
+  ``n`` ranks of ``torch.distributed`` (:func:`launch.run_ranks`) instead
+  of an n-device mesh.
+
+Each rank of the dry run runs three legs:
 
 (a) data-parallel batched replay (:func:`runner.replay_sharded`) of n
     synthetic 1 s sequences, one lane a rank;
@@ -23,12 +26,47 @@ import torch
 import torch.distributed as dist
 
 from aruco_slam_tpu_torch import runner
-from aruco_slam_tpu_torch.models import graph_builder
+from aruco_slam_tpu_torch.models import ekf, graph_builder
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.detector import DetectorConfig
+from aruco_slam_tpu_torch.ops.kernels import ekf_update
 from aruco_slam_tpu_torch.parallel import dist_ba, launch
 from aruco_slam_tpu_torch.sim import synthetic
 from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+from aruco_slam_tpu_torch.utils.device import resolve
+
+
+def _example_frame(m: int, rng: np.random.Generator, dev: torch.device) -> ekf.FrameObservations:
+    """A frame of ``m`` slots, the first 4 valid (markers 0-3), drawn as
+    the JAX package's ``__graft_entry__._example_frame`` draws it."""
+    ids = np.full((m,), -1, np.int32)
+    ids[:4] = np.arange(4)
+    z = rng.uniform(0.3, 2.0, size=(m, 3)).astype(np.float32)
+    R = np.tile(np.eye(3, dtype=np.float32) * 0.05, (m, 1, 1))
+    valid = np.zeros((m,), bool)
+    valid[:4] = True
+    return ekf.FrameObservations(*(torch.as_tensor(x, device=dev)[None]
+                                   for x in (ids, z, R, valid)))
+
+
+def entry(device=None) -> tuple:
+    """(fn, example_args): one EKF-SLAM frame step on ``device`` (None: the
+    card), a predict over 10 encoder ticks and then the sequential masked
+    update of 8 observation slots, on an initialized state of 32 landmark
+    slots. ``fn`` is :func:`ekf_update.frame_step` (K6 on the card, its
+    plain version on the CPU): ``fn(*example_args)`` returns the new
+    state. The inputs are those of the JAX package's ``entry()``, from
+    ``np.random.default_rng(0)`` in the same order."""
+    dev = resolve(device)
+    cfg = SlamConfig(ekf=EkfConfig(max_landmarks=32, max_observations_per_frame=8))
+    rng = np.random.default_rng(0)
+    state = ekf.init_state(cfg, 1, dev)
+    state = state._replace(initialized=torch.ones_like(state.initialized))
+    epf = 10
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, size=(epf, 2)).astype(np.float32), device=dev)
+    controls = ekf.Control(w[None, :, 0], w[None, :, 1],
+                           torch.full((1, epf), 0.01, device=dev))
+    return ekf_update.frame_step, (state, _example_frame(8, rng, dev), controls, cfg)
 
 
 class DryRun(NamedTuple):

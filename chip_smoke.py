@@ -15,9 +15,9 @@ SlamSystem (60 rendered frames, K3 + K6), the smoothing back-end (config
 2 through the filter -> smoother pipelines, K6 in their EKF pass; the BA
 solver alone on configs 4 and 5) and the multi-rank paths on this one card
 (config 5's distributed BA, the sharded replay and detection, over NCCL
-with one rank and gloo with four), .asq streaming and the demo — and
-checks each against its plain path, its single-process path and the
-ground truth.
+with one rank and gloo with four), .asq streaming, the demo and the
+benchmark harness through the command line — and checks each against its
+plain path, its single-process path and the ground truth.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -184,6 +184,18 @@ Phases (each raises on failure; the script then exits non-zero):
      written, ATE below 1 m), then parallel.dryrun.dryrun_multichip(1).
      No rank compiles a kernel: the parent builds them before it starts
      any (gate: the ranks' build reports are empty).
+  11. the port's benchmark harness as a user runs it: python -m
+     aruco_slam_tpu_torch.cli bench in a subprocess from the repository
+     root (bench.py's legs and sizes: the 256 x 600 corner-level replay,
+     the 32 x 60 image-level replay at the runner's default detector chunk
+     of 16, the numpy reference). Gate: exit code 0 within BENCH_TIMEOUT_S;
+     a last line with exactly bench.py's keys, value above 0 and an
+     image-level number; an earlier line naming the cuda device; K1 and K2
+     (smem) once a frame in every corner-level replay, K3 (cluster body)
+     once a 16-frame chunk and K1, K2 once a frame in every image-level
+     replay. Printed beside phase 3's frames/s. Then the single-chip entry
+     step parallel.dryrun.entry() on the card (K6's frame step, N = 99, 10
+     ticks, 4 new markers) against its plain version, as phase 6 holds K6.
 Every kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s (the H100 SXM data sheet), from this run's inputs.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -806,7 +818,7 @@ def phase3_main_path(cfg, dev):
           f"plain path {B * PLAIN_FRAMES / plain_s:.1f} frames/s ({plain_s:.3f} s for "
           f"{B}x{PLAIN_FRAMES})")
     _profile_replay("phase 3", lambda: runner.replay_batch(data, cfg, cam, "corners"), F)
-    return launches
+    return launches, fps
 
 
 def _reset_counts(pk, kb):
@@ -2459,6 +2471,84 @@ def _phase10_streams(dev, card):
           f"{time.perf_counter() - t0:.1f} s with the rank's start")
 
 
+# Phase 11: the seconds the harness may take (about 18 s on an H100 with
+# the process's start), and bench.py's keys.
+BENCH_TIMEOUT_S = 300
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "image_level_frames_per_sec_per_chip"}
+BENCH_REPLAYS = 4  # a warm replay and 3 timed ones in each leg
+BENCH_IMG_CHUNK = 16  # runner.replay_batch's default detector chunk
+IMG_FRAMES = 60  # frames of an image-level sequence: IMG_SECONDS at 10 Hz
+
+
+def _bench_launches(lines, leg):
+    """The launches the harness printed for the leg whose line starts with
+    ``leg``."""
+    line = next((ln for ln in lines if ln.startswith(leg)), None)
+    _require(line is not None, f"cli bench printed no line {leg!r}")
+    return json.loads(line.split(f"launches over {BENCH_REPLAYS} replays ", 1)[1])
+
+
+def phase11_bench_entry(main_fps):
+    """``python -m aruco_slam_tpu_torch.cli bench`` from the repository
+    root, then ``parallel.dryrun.entry()`` on the card against its plain
+    version."""
+    from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
+    from aruco_slam_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "aruco_slam_tpu_torch.cli", "bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1] + proc.stderr.strip().splitlines()[-10:]:
+        print(f"phase 11: | {line}")
+    _require(proc.returncode == 0 and lines, f"cli bench exited {proc.returncode}: "
+                                             f"{proc.stderr[-4000:]}")
+    last = json.loads(lines[-1])
+    _require(set(last) == BENCH_KEYS, f"cli bench's last line has keys {sorted(last)}")
+    _require(last["value"] > 0, f"cli bench's value {last['value']}")
+    img = last["image_level_frames_per_sec_per_chip"]
+    _require(img is not None and img > 0, f"cli bench's image-level number {img}")
+    _require(any(ln.startswith("bench: device cuda") for ln in lines[:-1]),
+             "no line of cli bench names the cuda device")
+    corner = _bench_launches(lines, "bench: corner level")
+    want = {"pnp_frontend": BENCH_REPLAYS * F, "ekf_frame_batched.smem": BENCH_REPLAYS * F}
+    _require(corner == want, f"corner-level leg: launches {corner}, expected {want}")
+    image = _bench_launches(lines, "bench: image level")
+    want = {"pnp_frontend": BENCH_REPLAYS * IMG_FRAMES,
+            "ekf_frame_batched.smem": BENCH_REPLAYS * IMG_FRAMES,
+            "threshold_label_union.cluster": BENCH_REPLAYS * -(-IMG_B * IMG_FRAMES
+                                                               // BENCH_IMG_CHUNK)}
+    _require(image == want, f"image-level leg: launches {image}, expected {want}")
+    print(f"phase 11: cli bench in {bench_s:.1f} s with the process's start: {lines[-1]}; "
+          f"phase 3's main path in this process {main_fps:.1f} frames/s")
+
+    fn, args = dryrun.entry()
+    _require(fn is k6.frame_step and args[0].mu.device.type == "cuda",
+             f"entry(): {fn} on {args[0].mu.device}")
+    plain = k6.frame_step_reference(*args)
+    torch.cuda.synchronize()
+    for k in k6.LAUNCHES:
+        k6.LAUNCHES[k] = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(k6.LAUNCHES)
+    _require(launches == {"cluster": 1, "grid": 0}, f"entry(): K6 launches {launches}")
+    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged", "dropped"):
+        _require(torch.equal(getattr(out, name), getattr(plain, name)),
+                 f"entry(): {name} differs from the plain version")
+    err = 0.0
+    for name in ("mu", "sigma", "last_obs"):
+        a, r = getattr(out, name), getattr(plain, name)
+        _require(torch.allclose(a, r, atol=5e-5, rtol=5e-3),
+                 f"entry(): {name} differs by {_max_err(a, r):.3e}")
+        err = max(err, _max_err(a, r))
+    _require(int(out.n_landmarks[0]) == 4,
+             f"entry(): {int(out.n_landmarks[0])} landmarks, not the frame's 4")
+    print(f"phase 11: entry() on {args[0].mu.device}: K6 launches {launches}, max |kernel - plain| "
+          f"{err:.3e} (atol 5e-5, rtol 5e-3), 4 landmarks")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2484,7 +2574,7 @@ def main() -> int:
     phase(0, phase0_card)
     k1_err, (k1_ms, k1_plain, k1_wrap), k1_bound = phase(1, phase1_k1, cfg, dev)
     k2_stats = phase(2, phase2_k2, dev)
-    launches = phase(3, phase3_main_path, cfg, dev)
+    launches, main_fps = phase(3, phase3_main_path, cfg, dev)
     c2_launches = phase("3b", phase3b_config2_batched, dev)
     ccl_stats = phase(4, phase4_ccl, dev)
     img_launches = phase(5, phase5_image_path, dev)
@@ -2493,6 +2583,7 @@ def main() -> int:
     phase(8, phase8_system, dev)
     phase(9, phase9_backend, dev)
     phase(10, phase10_ranks, cfg, dev)
+    phase(11, phase11_bench_entry, main_fps)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, n, err, ms, plain_ms, bound, **extra):

@@ -20,7 +20,7 @@ import numpy as np
 
 import aruco_slam_tpu_torch
 import torch_dist_ranks
-from aruco_slam_tpu_torch import convert, pipeline, runner
+from aruco_slam_tpu_torch import bench, convert, pipeline, runner
 from aruco_slam_tpu_torch.io import native_seqio
 from aruco_slam_tpu_torch.models import ekf, graph_builder, pose_graph
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_yaml():
         "aruco_slam_tpu_torch.cli, aruco_slam_tpu_torch.parallel.mesh, "
         "aruco_slam_tpu_torch.parallel.launch, aruco_slam_tpu_torch.parallel.dist_ba, "
         "aruco_slam_tpu_torch.parallel.dryrun, aruco_slam_tpu_torch.io.native_seqio, "
-        "aruco_slam_tpu_torch.demo\n"
+        "aruco_slam_tpu_torch.demo, aruco_slam_tpu_torch.bench, "
+        "aruco_slam_tpu_torch.utils.reference_ekf\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'yaml', 'aruco_slam_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'aruco_slam_tpu.'))]\n"
         "print(bad)\n"
@@ -684,6 +685,8 @@ ENTRY_POINTS = {
         runner.build_batch_data([_seq()], 2, device="cpu"), CFG),
     "detect_frames_asq": _detect_asq,
     "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
+    "entry": lambda: dryrun.entry()[1][0].mu,
+    "bench.build_data": lambda: bench.build_data(2, 0.5, CAM, distinct=1)[0].obs_ids,
     "replay_data_from_sequence": lambda: runner.replay_data_from_sequence(_seq()),
     "build_batch_data": lambda: runner.build_batch_data([_seq()], 2),
     "replay_sequence": lambda: runner.replay_sequence(_seq(), CFG),
