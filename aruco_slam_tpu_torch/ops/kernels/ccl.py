@@ -19,7 +19,11 @@ Counterpart of ``aruco_slam_tpu.ops.kernels.ccl``:
   detector's default, ``closing_union=True``);
 - K4 :func:`threshold_label` — threshold, then CCL;
 - K5 / K5s :func:`label_components` — CCL of a given mask, from scratch or
-  seeded with ``init``.
+  seeded with ``init``;
+- P1a :func:`threshold_only` — the probe
+  ``benchmarks/_ccl_fixed_probe.py:49`` ``thr_only_kernel``: K4's threshold
+  stage alone, foreground written as int32. It is K4's own code with the
+  labelling compiled out, so that its time is the stage's share of K4's.
 
 Each computes what its plain version beside it computes, bit for bit: the
 threshold is exact integer arithmetic in float32 until its two divisions
@@ -51,6 +55,7 @@ NAMES = (
     "threshold_label",  # K4
     "label_components",  # K5
     "label_components_seeded",  # K5s
+    "threshold_only",  # P1a
 )
 BODIES = ("cluster", "block")
 # Kernel launches by "entry point.body" since import (or since a caller
@@ -97,11 +102,12 @@ def _lib():
         lab = [_P, _P, _P] + [_I] * 4 + block
         lib.ccl_label_launch.argtypes = lab
         lib.ccl_label_seeded_launch.argtypes = lab
+        lib.ccl_threshold_only_launch.argtypes = [_P, _I, _P] + [_I] * 5 + [_F] + block
         lib.ccl_cluster_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
         lib.ccl_block_plan.argtypes = [_I, ctypes.POINTER(_I)]
         for fn in (lib.ccl_threshold_union_launch, lib.ccl_threshold_launch,
-                   lib.ccl_label_launch, lib.ccl_label_seeded_launch, lib.ccl_cluster_plan,
-                   lib.ccl_block_plan):
+                   lib.ccl_label_launch, lib.ccl_label_seeded_launch,
+                   lib.ccl_threshold_only_launch, lib.ccl_cluster_plan, lib.ccl_block_plan):
             fn.restype = _I
         lib.ccl_error_string.argtypes = [_I]
         lib.ccl_error_string.restype = ctypes.c_char_p
@@ -183,16 +189,35 @@ def block_scratch_words(h: int, w: int, plan: BlockPlan, stride: int | None = No
     return 2 * cells + 4 * plan.tiles_y * w + 4 * plan.tiles_x * h
 
 
+def _tile_columns(w: int) -> tuple[int, int]:
+    """(tiles across, tile width): tiles as wide as the frame up to 2048
+    pixels, wider frames in equal tiles, a multiple of 32 wide."""
+    tiles_x = -(-w // MAX_TILE_WIDTH)
+    return tiles_x, 32 * -(-(-(-w // tiles_x)) // 32)  # ceil(w / tiles_x) up to whole words
+
+
+def spilled_plan(h: int, w: int, sms: int = H100_SMS) -> BlockPlan:
+    """The block body's plan with the tiles' workspaces in device memory:
+    64-row tiles (a shorter frame in one tile row) as wide as
+    :func:`block_plan`'s, and one team of a CTA on each of ``sms`` SMs
+    that work through the tiles in turn. :func:`block_plan` falls back to
+    it where a frame's tiles cannot all be resident at once; passed to
+    ``threshold_label(..., plan=)`` it runs a smaller frame spilled too."""
+    tiles_x, width = _tile_columns(w)
+    rows = min(MAX_TILE_ROWS, h)
+    tiles_y = -(-h // rows)
+    return BlockPlan(rows, width, tiles_x, tiles_y, 1, sms, True, 0,
+                     tiles_x * tiles_y * block_tile_words(rows, width, shared=False))
+
+
 def block_plan(h: int, w: int, n: int, sms: int = H100_SMS) -> BlockPlan:
     """The block body's geometry for ``n`` h x w frames on a card of
     ``sms`` SMs, a CTA on each at most. Tiles as wide as the frame up to
     2048 pixels (wider frames in equal tiles, a multiple of 32 wide); the
     tile height that fills the card best: the fewest waves of frames times
     a wave's cost, a tile's pixels plus ``BARRIER_PIXELS``. Where no tile
-    height lets a frame's tiles fit the SMs at once, 64-row tiles whose
-    workspaces spill to device memory, one team on every SM."""
-    tiles_x = -(-w // MAX_TILE_WIDTH)
-    width = 32 * -(-(-(-w // tiles_x)) // 32)  # ceil(w / tiles_x) up to whole words
+    height lets a frame's tiles fit the SMs at once, :func:`spilled_plan`."""
+    tiles_x, width = _tile_columns(w)
     best = None
     for rows in range(1, min(MAX_TILE_ROWS, h) + 1):
         words = block_tile_words(rows, width)
@@ -207,12 +232,7 @@ def block_plan(h: int, w: int, n: int, sms: int = H100_SMS) -> BlockPlan:
         if best is None or cost < best[0]:
             best = (cost, BlockPlan(rows, width, tiles_x, tiles_y, teams, tiles, False,
                                     4 * words, 0))
-    if best is not None:
-        return best[1]
-    rows = min(MAX_TILE_ROWS, h)
-    tiles_y = -(-h // rows)
-    return BlockPlan(rows, width, tiles_x, tiles_y, 1, sms, True, 0,
-                     tiles_x * tiles_y * block_tile_words(rows, width, shared=False))
+    return best[1] if best is not None else spilled_plan(h, w, sms)
 
 
 def fused_threshold_ok(h: int, w: int, stride: int) -> bool:
@@ -302,6 +322,11 @@ def label_components_reference(fg, rounds, init=None):
     return detector.label_components(fg, rounds, init=init)
 
 
+def threshold_only_reference(img, radius, C, stride):
+    """P1a's plain version: fg [N, H, W] int32 (1 on the foreground)."""
+    return detector.adaptive_threshold(img, radius, C, stride).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Kernel entry points
 # ---------------------------------------------------------------------------
@@ -322,13 +347,48 @@ def threshold_label_union(img: Tensor, radius: int, C: float, stride: int, round
                              body(*img.shape[1:], stride))
 
 
-def threshold_label(img: Tensor, radius: int, C: float, stride: int, rounds: int):
-    """K4: threshold + CCL. Returns (fg [N, H, W] bool, labels [N, H*W] int32)."""
+def threshold_label(img: Tensor, radius: int, C: float, stride: int, rounds: int,
+                    plan: BlockPlan | None = None):
+    """K4: threshold + CCL. Returns (fg [N, H, W] bool, labels [N, H*W] int32).
+    ``plan``: the block body's plan (None: :func:`block_plan` on this
+    card), for a frame that takes the block body: a frame the cluster body
+    takes raises ValueError, and the launch refuses a plan the chunk cannot
+    take (csrc ``block_launch``; RuntimeError). The plan changes where the
+    tiles' workspaces live and which CTA works on which tile, not the
+    result."""
     _check_image(img, stride)
+    if plan is not None and body(*img.shape[1:], stride) != "block":
+        raise ValueError(f"a {img.shape[1]}x{img.shape[2]} frame takes the cluster body, "
+                         f"which reads no plan")
     if not _route(img):
         return threshold_label_reference(img, radius, C, stride, rounds)
     return _launch_threshold(img, radius, C, stride, rounds, 0, False,
-                             body(*img.shape[1:], stride))
+                             body(*img.shape[1:], stride), plan)
+
+
+def threshold_only(img: Tensor, radius: int, C: float, stride: int) -> Tensor:
+    """P1a: K4's threshold stage alone for a chunk ``img [N, H, W]`` (uint8
+    or float32), in the body K4 takes. Returns fg [N, H, W] int32."""
+    _check_image(img, stride)
+    if not _route(img):
+        return threshold_only_reference(img, radius, C, stride)
+    N, h, w = img.shape
+    kind = body(h, w, stride)
+    fg = torch.empty(N, h, w, dtype=torch.int32, device=img.device)
+    lib = _lib()
+    with torch.cuda.device(img.device):
+        if kind == "cluster":
+            _plan_cluster(lib, "threshold_only", h, w, stride)
+            block = _NO_BLOCK_ARGS
+        else:
+            block, _buffers = _block_args(lib, "threshold_only", img, stride)
+        err = lib.ccl_threshold_only_launch(
+            img.data_ptr(), int(img.dtype == torch.uint8), fg.data_ptr(), N, h, w, stride,
+            _window_radius(radius, stride) if stride > 1 else radius, float(C), *block,
+            int(kind == "cluster"), _stream(img.device))
+    _raise_on(err, lib, f"threshold_only ({kind} body)")
+    LAUNCHES[f"threshold_only.{kind}"] += 1
+    return fg
 
 
 def label_components(fg: Tensor, rounds: int, init: Tensor | None = None) -> Tensor:
@@ -376,13 +436,14 @@ def _barrier(dev: torch.device) -> Tensor:
     return bar
 
 
-def _block_args(lib, name: str, img: Tensor, stride: int | None):
+def _block_args(lib, name: str, img: Tensor, stride: int | None,
+                plan: BlockPlan | None = None):
     """The block body's launch arguments for the chunk ``img [N, H, W]``
     (tile geometry, team scratch, spilled workspaces, barrier words), from
-    its plan on this card: the SMs found once per device and entry point
-    (which also sets the kernel's shared-memory attribute). Also returns
-    the buffers the arguments point into, to be held until the launch is
-    queued."""
+    ``plan`` or else its plan on this card: the SMs found once per device
+    and entry point (which also sets the kernel's shared-memory attribute).
+    Also returns the buffers the arguments point into, to be held until the
+    launch is queued."""
     N, h, w = img.shape
     key = (torch.cuda.current_device(), name)
     sms = _block_sms.get(key)
@@ -394,7 +455,8 @@ def _block_args(lib, name: str, img: Tensor, stride: int | None):
             raise RuntimeError(f"{name}: the block body's CTA cannot be resident "
                                f"({count.value} SMs hold one)")
         sms = _block_sms[key] = count.value
-    plan = block_plan(h, w, N, sms)
+    if plan is None:
+        plan = block_plan(h, w, N, sms)
     words = block_scratch_words(h, w, plan, stride)
     scratch = torch.empty(plan.teams * words, dtype=torch.int32, device=img.device)
     work = (torch.empty(plan.work_words, dtype=torch.int32, device=img.device)
@@ -425,7 +487,7 @@ def _launch_label(fg, rounds, init, kind):
     return lab
 
 
-def _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union, kind):
+def _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union, kind, plan=None):
     N, h, w = img.shape
     dev = img.device
     name = "threshold_label_union" if union else "threshold_label"
@@ -440,7 +502,7 @@ def _launch_threshold(img, radius, C, stride, rounds, closed_rounds, union, kind
             _plan_cluster(lib, name, h, w, stride)
             block = _NO_BLOCK_ARGS
         else:
-            block, _buffers = _block_args(lib, name, img, stride)
+            block, _buffers = _block_args(lib, name, img, stride, plan)
         fn = lib.ccl_threshold_union_launch if union else lib.ccl_threshold_launch
         err = fn(
             img.data_ptr(), int(img.dtype == torch.uint8), fg.data_ptr(), lab.data_ptr(),

@@ -11,9 +11,12 @@
 //   K4  _threshold_ccl_kernel        threshold -> CCL
 //   K5  _ccl_kernel                  CCL of a given mask
 //   K5s _ccl_seeded_kernel           CCL of a given mask, seeded with init
-// as compile-time variants of each body, <kThreshold, kUnion, kSeeded>,
-// each with a C entry point below. Each computes what the Pallas body
-// computes, bit for bit:
+// and the probe benchmarks/_ccl_fixed_probe.py:49 thr_only_kernel (P1a):
+// the threshold stage alone, fg written as int32 (K4 with its labelling
+// compiled out, so that its time is the stage's share of K4's), as
+// compile-time variants of each body, <kThreshold, kUnion, kSeeded,
+// kLabels>, each with a C entry point below. Each computes what the Pallas
+// body computes, bit for bit:
 //   - threshold: s x s block sums (rows of each block column, then across
 //     the columns), block mean = sum * (1 / s^2) for a power-of-two s, a
 //     (2r+1)^2 window over the block grid clamped to its edge (columns, then
@@ -110,7 +113,7 @@ struct Args {
   const void* img;      // [N, H, W] uint8 or float32 (threshold variants)
   int img_u8;
   uint8_t* fg;          // [N, H, W] mask: written by the threshold, else read
-  int* lab;             // [N, H*W] labels of fg
+  int* lab;             // [N, H*W] labels of fg; the threshold alone: fg as int32
   uint8_t* fg_c;        // [N, H, W] closed mask (union)
   int* lab_c;           // [N, H*W] labels of fg_c (union)
   const int* init;      // [N, H, W] seed labels (seeded)
@@ -126,6 +129,16 @@ __device__ __forceinline__ float pixel(const Args& a, size_t i) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The threshold's fg output at pixel i: a byte, or, where the threshold
+// runs alone (kFg32), an int32 in lab.
+template <bool kFg32>
+__device__ __forceinline__ void store_fg(const Args& a, size_t i, bool on) {
+  if (kFg32)
+    a.lab[i] = on;
+  else
+    a.fg[i] = on;
 }
 
 // One chunk of a segmented inclusive min-scan over a warp: lane order is
@@ -318,6 +331,7 @@ struct Band {
 };
 
 // The band's threshold into the raw mask bits and the fg output.
+template <bool kFg32>
 __device__ void cl_threshold(const Args& a, const Band& b) {
   const int s = a.stride, ws = b.w / s, Rc = b.R / s, hs = b.h / s, cy0 = b.y0 / s;
   const int cells = Rc * ws, tid = threadIdx.x;
@@ -363,7 +377,7 @@ __device__ void cl_threshold(const Args& a, const Band& b) {
   for (int e = tid; e < b.R * b.w; e += kThreads) {  // whole warps: R * w % 32 == 0
     const int y = e / b.w, x = e - y * b.w;
     const bool on = pixel(a, b.band_px + e) < gm[(y / s) * ws + x / s] - a.C;
-    a.fg[b.band_px + e] = on;
+    store_fg<kFg32>(a, b.band_px + e, on);
     const uint32_t word = __ballot_sync(kFull, on);
     if ((threadIdx.x & 31) == 0) fgb[y * b.wq + (x >> 5)] = word;
   }
@@ -646,7 +660,7 @@ __device__ void cl_label(const Band& b, int moff, const int* init, bool from_lab
   for (int e = tid; e < R * w; e += kThreads) out[b.band_px + e] = lab[e];
 }
 
-template <bool kThreshold, bool kUnion, bool kSeeded>
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 __global__ void __launch_bounds__(kThreads, 1) ccl_cluster_kernel(Args a, Layout lay) {
   extern __shared__ int sm[];
   Band b{sm, lay, 0, a.h, a.w, a.w / 32, a.h / kClusterCtas, 0, 0};
@@ -655,10 +669,11 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_cluster_kernel(Args a, Layout
   // a cluster per frame: frame blockIdx.y
   b.band_px = (static_cast<size_t>(blockIdx.y) * a.h + b.y0) * a.w;
   if (kThreshold)
-    cl_threshold(a, b);
+    cl_threshold<!kLabels>(a, b);
   else
     cl_load_mask(a.fg, b);
   cluster_sync();  // every band's raw mask is in
+  if (!kLabels) return;  // the threshold alone: every peer read is behind the barrier
   if (kUnion) {
     cl_close(a, b);
     cl_label(b, lay.fgb, nullptr, false, a.rounds, a.lab);
@@ -904,6 +919,7 @@ __device__ void thr_vertical(const Args& a, const float* g0, float* g1, int rank
 // sums, in the workspace ahead of the masks (free until the labels start:
 // (TR / s + 2) x (TW / s + 2) cells fit its (TR + 2) x TW words), then the
 // pixels, kLoads a thread in flight.
+template <bool kFg32>
 __device__ void thr_tile(const Args& a, const Tile& T, const float* g1) {
   const int s = a.stride, ls = __ffs(s) - 1, ws = a.w / s, r = a.r, win = 2 * r + 1;
   const float area = static_cast<float>(win * win);
@@ -950,7 +966,7 @@ __device__ void thr_tile(const Args& a, const Tile& T, const float* g1) {
       bool on = false;
       if (gx < a.w) {
         on = v[u] < mean[((gy >> ls) - cy0) * nc + (gx >> ls) - cx0] - a.C;
-        a.fg[T.px + static_cast<size_t>(gy) * a.w + gx] = on;
+        store_fg<kFg32>(a, T.px + static_cast<size_t>(gy) * a.w + gx, on);
       }
       const uint32_t word = __ballot_sync(kFull, on);
       if ((threadIdx.x & 31) == 0) m[y * T.MW + (x >> 5)] = word;
@@ -1387,7 +1403,7 @@ __device__ void label_pass(const Args& a, const Grid& g, const Xchg& X, int* sme
   }
 }
 
-template <bool kThreshold, bool kUnion, bool kSeeded>
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) {
   extern __shared__ int smem[];
   const int team = blockIdx.x / g.ctas, rank = blockIdx.x - team * g.ctas;
@@ -1405,7 +1421,7 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) 
       thr_vertical(a, X.g0, X.g1, rank, g.ctas);
       grid_barrier(bar, g.ctas);  // every cell's vertical sum is in
       for (int t = rank; t < tiles; t += g.ctas) {
-        thr_tile(a, make_tile(a, g, t, frame, smem), X.g1);
+        thr_tile<!kLabels>(a, make_tile(a, g, t, frame, smem), X.g1);
         __syncthreads();
       }
       grid_barrier(bar, g.ctas);  // every tile's fg bytes are in
@@ -1415,6 +1431,7 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) 
         __syncthreads();
       }
     }
+    if (!kLabels) continue;  // the threshold alone
     for (int t = rank; t < tiles; t += g.ctas) {
       const Tile T = make_tile(a, g, t, frame, smem);
       fill_ring(a.fg, T, T.mask(L.fgb, 2), 2);
@@ -1440,12 +1457,12 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) 
 // Launches
 // ===========================================================================
 
-template <bool kThreshold, bool kUnion, bool kSeeded>
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int cluster_plan(int h, int w, int stride, int* smem_bytes, int* max_clusters) {
   Layout lay;
   if (!cluster_layout(h, w, stride, kThreshold ? 1 : 0, &lay))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* kern = ccl_cluster_kernel<kThreshold, kUnion, kSeeded>;
+  auto* kern = ccl_cluster_kernel<kThreshold, kUnion, kSeeded, kLabels>;
   const int bytes = lay.words * 4;
   // the most any shape needs, so that plans cached for other shapes stay valid
   cudaError_t err =
@@ -1471,9 +1488,9 @@ int cluster_plan(int h, int w, int stride, int* smem_bytes, int* max_clusters) {
 // The block body's plan for the card: the kernel's shared-memory attribute
 // set (the most any tile needs), and the SMs that hold one of its CTAs at
 // the most shared memory: the plan puts at most one CTA on each.
-template <bool kThreshold, bool kUnion, bool kSeeded>
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int block_plan(int* sms) {
-  auto* kern = ccl_block_kernel<kThreshold, kUnion, kSeeded>;
+  auto* kern = ccl_block_kernel<kThreshold, kUnion, kSeeded, kLabels>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1491,7 +1508,7 @@ int block_plan(int* sms) {
 // The block body's launch: the plan's geometry checked against the frame
 // and the buffers the wrapper sized (scratch_words a team, work_words in
 // all), then one cooperative launch of teams x ctas CTAs.
-template <bool kThreshold, bool kUnion, bool kSeeded>
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int block_launch(const Args& a, int n, int tile_rows, int tile_width, int teams, int ctas,
                  int* scratch, long long scratch_words, int* work, long long work_words,
                  unsigned* bar, cudaStream_t s) {
@@ -1522,25 +1539,25 @@ int block_launch(const Args& a, int n, int tile_rows, int tile_width, int teams,
   Args args_copy = a;
   void* params[] = {&args_copy, &g};
   const size_t smem = g.spilled ? 0 : static_cast<size_t>(L.words) * 4;
-  cudaError_t err = cudaLaunchCooperativeKernel(ccl_block_kernel<kThreshold, kUnion, kSeeded>,
-                                                dim3(teams * ctas), dim3(kThreads), params,
-                                                smem, s);
+  cudaError_t err =
+      cudaLaunchCooperativeKernel(ccl_block_kernel<kThreshold, kUnion, kSeeded, kLabels>,
+                                  dim3(teams * ctas), dim3(kThreads), params, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // body 0: the block body (geometry from the plan); body 1: the cluster
 // body, a cluster per frame.
-template <bool kThreshold, bool kUnion, bool kSeeded>
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int launch(const Args& a, int n_frames, int tile_rows, int tile_width, int teams, int ctas,
            int* scratch, long long scratch_words, int* work, long long work_words,
            unsigned* bar, int body, void* stream) {
   if (n_frames <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 0)
-    return block_launch<kThreshold, kUnion, kSeeded>(a, n_frames, tile_rows, tile_width, teams,
-                                                     ctas, scratch, scratch_words, work,
-                                                     work_words, bar, s);
+    return block_launch<kThreshold, kUnion, kSeeded, kLabels>(
+        a, n_frames, tile_rows, tile_width, teams, ctas, scratch, scratch_words, work, work_words,
+        bar, s);
   Layout lay;
   if (!cluster_layout(a.h, a.w, a.stride, kThreshold ? 1 : 0, &lay))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1557,23 +1574,24 @@ int launch(const Args& a, int n_frames, int tile_rows, int tile_width, int teams
   lc.attrs = attr;
   lc.numAttrs = 1;
   cudaError_t err =
-      cudaLaunchKernelEx(&lc, ccl_cluster_kernel<kThreshold, kUnion, kSeeded>, a, lay);
+      cudaLaunchKernelEx(&lc, ccl_cluster_kernel<kThreshold, kUnion, kSeeded, kLabels>, a, lay);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The cluster body's shared bytes for a variant (0 K3, 1 K4, 2 K5, 3 K5s)
-// at h x w, and how many of its clusters the card holds at once. Sets the
-// kernel's shared-memory attribute.
+// The cluster body's shared bytes for a variant (0 K3, 1 K4, 2 K5, 3 K5s, 4
+// the threshold alone) at h x w, and how many of its clusters the card
+// holds at once. Sets the kernel's shared-memory attribute.
 extern "C" int ccl_cluster_plan(int variant, int h, int w, int stride, int* smem_bytes,
                                 int* max_clusters) {
   switch (variant) {
-    case 0: return cluster_plan<true, true, false>(h, w, stride, smem_bytes, max_clusters);
-    case 1: return cluster_plan<true, false, false>(h, w, stride, smem_bytes, max_clusters);
-    case 2: return cluster_plan<false, false, false>(h, w, stride, smem_bytes, max_clusters);
-    case 3: return cluster_plan<false, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 0: return cluster_plan<true, true, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 1: return cluster_plan<true, false, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 2: return cluster_plan<false, false, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 3: return cluster_plan<false, false, true, true>(h, w, stride, smem_bytes, max_clusters);
+    case 4: return cluster_plan<true, false, false, false>(h, w, stride, smem_bytes, max_clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1582,10 +1600,11 @@ extern "C" int ccl_cluster_plan(int variant, int h, int w, int stride, int* smem
 // its CTAs at the most shared memory). Sets the kernel's attribute.
 extern "C" int ccl_block_plan(int variant, int* sms) {
   switch (variant) {
-    case 0: return block_plan<true, true, false>(sms);
-    case 1: return block_plan<true, false, false>(sms);
-    case 2: return block_plan<false, false, false>(sms);
-    case 3: return block_plan<false, false, true>(sms);
+    case 0: return block_plan<true, true, false, true>(sms);
+    case 1: return block_plan<true, false, false, true>(sms);
+    case 2: return block_plan<false, false, false, true>(sms);
+    case 3: return block_plan<false, false, true, true>(sms);
+    case 4: return block_plan<true, false, false, false>(sms);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1602,8 +1621,8 @@ extern "C" int ccl_threshold_union_launch(
     long long work_words, unsigned* bar, int body, void* stream) {
   const Args a{img, img_u8, fg, lab, fg_c, lab_c, nullptr, h, w, stride, r, C, rounds,
                closed_rounds};
-  return launch<true, true, false>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                   scratch_words, work, work_words, bar, body, stream);
+  return launch<true, true, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
+                                         scratch_words, work, work_words, bar, body, stream);
 }
 
 // K4 (fg_c and lab_c are unused)
@@ -1614,8 +1633,8 @@ extern "C" int ccl_threshold_launch(
     long long work_words, unsigned* bar, int body, void* stream) {
   const Args a{img, img_u8, fg, lab, fg_c, lab_c, nullptr, h, w, stride, r, C, rounds,
                closed_rounds};
-  return launch<true, false, false>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                    scratch_words, work, work_words, bar, body, stream);
+  return launch<true, false, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
+                                          scratch_words, work, work_words, bar, body, stream);
 }
 
 // K5 (init is unused)
@@ -1625,8 +1644,8 @@ extern "C" int ccl_label_launch(const uint8_t* fg, const int* init, int* lab, in
                                 long long work_words, unsigned* bar, int body, void* stream) {
   const Args a{nullptr, 0, const_cast<uint8_t*>(fg), lab, nullptr, nullptr, init, h, w, 1, 0,
                0.0f, rounds, 0};
-  return launch<false, false, false>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                     scratch_words, work, work_words, bar, body, stream);
+  return launch<false, false, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
+                                           scratch_words, work, work_words, bar, body, stream);
 }
 
 // K5s
@@ -1637,8 +1656,20 @@ extern "C" int ccl_label_seeded_launch(const uint8_t* fg, const int* init, int* 
                                        unsigned* bar, int body, void* stream) {
   const Args a{nullptr, 0, const_cast<uint8_t*>(fg), lab, nullptr, nullptr, init, h, w, 1, 0,
                0.0f, rounds, 0};
-  return launch<false, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                    scratch_words, work, work_words, bar, body, stream);
+  return launch<false, false, true, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
+                                          scratch_words, work, work_words, bar, body, stream);
+}
+
+// The threshold alone (P1a): fg as int32 [N, H, W]
+extern "C" int ccl_threshold_only_launch(const void* img, int img_u8, int* fg, int n, int h,
+                                         int w, int stride, int r, float C, int tile_rows,
+                                         int tile_width, int teams, int ctas, int* scratch,
+                                         long long scratch_words, int* work,
+                                         long long work_words, unsigned* bar, int body,
+                                         void* stream) {
+  const Args a{img, img_u8, nullptr, fg, nullptr, nullptr, nullptr, h, w, stride, r, C, 0, 0};
+  return launch<true, false, false, false>(a, n, tile_rows, tile_width, teams, ctas, scratch,
+                                           scratch_words, work, work_words, bar, body, stream);
 }
 
 extern "C" const char* ccl_error_string(int err) {

@@ -93,18 +93,21 @@ def run_ranks(fn, world: int, backend: str | None = None, device=None, args=(),
         try:
             deadline = time.monotonic() + timeout
             while True:
-                if any(p.exitcode not in (None, 0) for p in procs):
+                # one reading of the exit codes an iteration: a rank may exit
+                # between two readings
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
                     # the others fail in turn once a peer is gone: give them a
                     # moment, so that the report holds the rank that failed first
                     _join_all(procs, FAILURE_GRACE_S)
                     failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
                     raise RuntimeError(_failure(store, failed, procs))
-                if all(p.exitcode == 0 for p in procs):
+                if None not in codes:
                     break
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"ranks still running after {timeout} s: "
                                        f"{[r for r, p in enumerate(procs) if p.is_alive()]}")
-                next(p for p in procs if p.exitcode is None).join(0.05)
+                procs[codes.index(None)].join(0.05)
             results = []
             for r in range(world):
                 with open(f"{store}/result-{r}.pkl", "rb") as f:

@@ -7,7 +7,8 @@ arena at 128 and 512 landmarks, K2's cluster and device variants), batched
 image-level replay (32 lanes
 x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
 detection of rendered 1920x1080 frames (K3-K5s in their block body: a frame
-in tiles over many SMs),
+in tiles over many SMs), the probes of the CCL family's studies (the card's
+copy floor, the threshold stage alone, K4 at 1080p in both block plans),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
 frame step in its cluster variant, one launch a frame; 512 landmarks, its
 grid variant on the frame's active square), the streaming
@@ -23,7 +24,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero):
   0. the card: refuse without CUDA; print its name and power limit; build
-     the four kernel sources (nvcc, sm_90a, all at once) and print ptxas's
+     the five kernel sources (nvcc, sm_90a, all at once) and print ptxas's
      register report.
   1. K1 (PnP front-end) vs its plain version: B=256 x M=16 lanes of real
      corners, padded slots (not valid) and garbage slots (marked valid)
@@ -83,6 +84,25 @@ Phases (each raises on failure; the script then exits non-zero):
      frames, HD_CHUNK 1920x1080 frames) beside the plain version's, the
      cluster body at 16 640x480 frames and the block body at 1 1920x1080
      frame and HD_CHUNK 1280x720 frames too, each beside its bound.
+  4b. the probes P1-P3 of the JAX package's benchmarks/ on their kernels:
+     P1b probes.copy_to_int32 (float32 -> int32) on P1's 20 rendered 640x480
+     frames, P1a ccl.threshold_only (K4's threshold stage alone) on the
+     same frames in the cluster body, P1's rounds sweep on them (K4 at 1, 2,
+     4 and 8 rounds, K5 on the threshold's mask at 1, 4 and 8), P2
+     probes.scale_copy (x 1.0000001) on P2's 32, P1a on HD_CHUNK rendered
+     1920x1080 frames in the block body, and P3: K4 (3 rounds) on a
+     1920x1080 frame of random bytes in the resident plan (ccl.block_plan)
+     and the spilled plan (ccl.spilled_plan). Each once as the probes'
+     path, the launch counts set to 0 just before each call and read just
+     after (gate: one launch each); each result bit-identical to its plain
+     version, the copies also on a frame of fractional values in [-0.99,
+     256), the two plans' fg and labels equal. Timed: the kernel alone
+     (torch.profiler, 20 launches, one window), the wrapper and the plain
+     version (CUDA events), the copies' one PyTorch call
+     (img.to(torch.int32), img * 1.0000001) as their library time; each
+     with its bytes, achieved GB/s and share of 3.35 TB/s beside its
+     bound; K4's time on P1's frames split into the copy, the threshold,
+     the first round and a later one.
   5. the image-level path at bench.py's shape (BASELINE.md config 3b):
      runner.replay_batch(..., "images") over 2 rendered sequences (seeds 0
      and 1, 6 s at 10 Hz) tiled to 32 lanes, EkfConfig(max_landmarks=32,
@@ -209,7 +229,9 @@ import statistics
 import subprocess
 import sys
 import time
+from collections.abc import Callable
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -380,7 +402,7 @@ def phase0_card():
 
     from aruco_slam_tpu_torch.ops.kernels import _build
 
-    names = ("pnp_frontend", "ekf_frame_batched", "ccl", "ekf_frame_update")
+    names = ("pnp_frontend", "ekf_frame_batched", "ccl", "ekf_frame_update", "probes")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load, names))
     for name in names:
@@ -1184,6 +1206,250 @@ def phase4_ccl(dev):
             print(f"phase 4: {key} {ms:.4f} ms/launch ({what}), plain {plain_ms:.4f} ms/call, "
                   f"bound {bound[0]:.5f} ms ({bound[1]})")
         del fg, lab, fg_c, seed, runs
+    return out
+
+
+# The probes P1-P3 of the JAX package's studies: the threshold of
+# benchmarks/_ccl_fixed_probe.py (radius 7, C 7.0, stride 4) and its rounds
+# sweep (:87-102: K4 at P1_ROUNDS, K5 on the threshold's mask at
+# P1_K5_ROUNDS), the rounds of benchmarks/_p1080b_probe.py, and each row's
+# TPU kernel (a file of the JAX package's kernels, or a path from the root).
+PROBE_RADIUS, PROBE_C, PROBE_STRIDE, P3_ROUNDS = 7, 7.0, 4, 3
+P1_ROUNDS, P1_K5_ROUNDS = (1, 2, 4, 8), (1, 4, 8)
+PROBE_REPLACES = {
+    "probe_copy": "benchmarks/_ccl_fixed_probe.py:68",
+    "probe_scale": "benchmarks/_det_chain_probe.py:222",
+    "threshold_only.cluster": "benchmarks/_ccl_fixed_probe.py:49",
+    "threshold_only.block": "benchmarks/_ccl_fixed_probe.py:49",
+    "threshold_label.block.random": "benchmarks/_p1080b_probe.py:16",
+    "threshold_label.block.spilled": "benchmarks/_p1080b_probe.py:16",
+    **{f"threshold_label.cluster.rounds{k}": "ccl.py:217" for k in P1_ROUNDS},
+    **{f"label_components.cluster.rounds{k}": "ccl.py:200" for k in P1_K5_ROUNDS},
+}
+
+
+def _probe_frames(dev):
+    """The probes' inputs on the card: P1's 20 and P2's 32 rendered 640x480
+    frames (SimParams(duration=2.0 and 4.0, seed=0), fx = fy = 600) as
+    float32, as the probes cast them; HD_CHUNK rendered 1920x1080 frames
+    (the threshold in the block body); P3's 1920x1080 frame of random bytes
+    (default_rng(0)) as float32; a 640x480 frame of fractional values in
+    [-0.99, 256) (the copies' contract)."""
+    from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
+    from aruco_slam_tpu_torch.sim import synthetic
+
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+
+    def rendered(duration, n):
+        seq = synthetic.generate_sequence(synthetic.SimParams(duration=duration, seed=0),
+                                          level="images", camera=cam, device=dev)
+        return torch.as_tensor(np.asarray(seq.images[:n]), device=dev).float().contiguous()
+
+    rand = np.random.default_rng(0).integers(0, 256, (1080, 1920)).astype(np.uint8)
+    frac = np.random.default_rng(7).uniform(-0.99, 256.0, (1, 480, 640)).astype(np.float32)
+    return {"p1": rendered(2.0, 20), "p2": rendered(4.0, 32),
+            "hd": _render_hd(HD_CHUNK, dev).float().contiguous(),
+            "p3": torch.as_tensor(rand, device=dev)[None].float().contiguous(),
+            "frac": torch.as_tensor(frac, device=dev)}
+
+
+class ProbeStep(NamedTuple):
+    """One kernel call at its probe's shape: the call and its plain version,
+    the launch counts and the key the call adds one to, the kernel's name
+    in the profiler, the frames it reads, and its work: every input byte
+    read once and every output byte written once, the operations it does."""
+
+    call: Callable
+    plain: Callable
+    counts: dict
+    key: str
+    part: str
+    img: torch.Tensor
+    n_bytes: int
+    n_ops: int
+
+
+def _probe_step(op, call, plain, img, rounds=0):
+    """The ProbeStep of ``op`` ("copy", "scale", "threshold", "k4" or
+    "k5") on ``img``: float32 in; int32 out for the copy and the threshold,
+    float32 for the scale, a bool mask and int32 labels for K4, int32
+    labels of a bool mask for K5; one operation an element for the copies,
+    CCL_THRESHOLD_OPS for the threshold and CCL_ROUND_OPS a round."""
+    from aruco_slam_tpu_torch.ops.kernels import ccl, probes
+
+    px = img.numel()
+    if op in ("copy", "scale"):
+        return ProbeStep(call, plain, probes.LAUNCHES, f"probe_{op}", "probe_kernel", img,
+                         8 * px, px)
+    kind = ccl.body(*img.shape[1:], None if op == "k5" else PROBE_STRIDE)
+    key, n_bytes, n_ops = {
+        "threshold": ("threshold_only", 8 * px, CCL_THRESHOLD_OPS * px),
+        "k4": ("threshold_label", 9 * px, (CCL_THRESHOLD_OPS + rounds * CCL_ROUND_OPS) * px),
+        "k5": ("label_components", 5 * px, rounds * CCL_ROUND_OPS * px),
+    }[op]
+    return ProbeStep(call, plain, ccl.LAUNCHES, f"{key}.{kind}", "ccl_", img, n_bytes, n_ops)
+
+
+def _rounds_steps(img, with_k5):
+    """P1's rounds sweep on ``img``: K4 at P1_ROUNDS and, ``with_k5``, K5
+    on the threshold's mask at P1_K5_ROUNDS, by row."""
+    from aruco_slam_tpu_torch.ops.kernels import ccl
+
+    r, C, s = PROBE_RADIUS, PROBE_C, PROBE_STRIDE
+    kind = ccl.body(*img.shape[1:], s)
+    steps = {f"threshold_label.{kind}.rounds{k}": _probe_step(
+        "k4", lambda k=k: ccl.threshold_label(img, r, C, s, k),
+        lambda k=k: ccl.threshold_label_reference(img, r, C, s, k), img, k) for k in P1_ROUNDS}
+    if with_k5:
+        fg = ccl.threshold_only_reference(img, r, C, s).bool()
+        steps.update({f"label_components.{kind}.rounds{k}": _probe_step(
+            "k5", lambda k=k: ccl.label_components(fg, k),
+            lambda k=k: ccl.label_components_reference(fg, k), fg, k) for k in P1_K5_ROUNDS})
+    return steps
+
+
+def _probe_steps(frames, spilled):
+    """The probes' path, one kernel call each at its probe's shape, by row:
+    the copy and the threshold alone on P1's frames, P1's rounds sweep on
+    them, the scale on P2's, the threshold alone on HD_CHUNK 1920x1080
+    frames, and K4 on P3's frame in the planner's plan and in ``spilled``."""
+    from aruco_slam_tpu_torch.ops.kernels import ccl, probes
+
+    r, C, s, n = PROBE_RADIUS, PROBE_C, PROBE_STRIDE, P3_ROUNDS
+    p1, p2, hd, p3 = frames["p1"], frames["p2"], frames["hd"], frames["p3"]
+    return {
+        "probe_copy": _probe_step("copy", lambda: probes.copy_to_int32(p1),
+                                  lambda: probes.copy_to_int32_reference(p1), p1),
+        "probe_scale": _probe_step("scale", lambda: probes.scale_copy(p2),
+                                   lambda: probes.scale_copy_reference(p2), p2),
+        "threshold_only.cluster": _probe_step("threshold", lambda: ccl.threshold_only(p1, r, C, s),
+                                              lambda: ccl.threshold_only_reference(p1, r, C, s),
+                                              p1),
+        **_rounds_steps(p1, with_k5=True),
+        "threshold_only.block": _probe_step("threshold", lambda: ccl.threshold_only(hd, r, C, s),
+                                            lambda: ccl.threshold_only_reference(hd, r, C, s), hd),
+        "threshold_label.block.random": _probe_step(
+            "k4", lambda: ccl.threshold_label(p3, r, C, s, n),
+            lambda: ccl.threshold_label_reference(p3, r, C, s, n), p3, n),
+        "threshold_label.block.spilled": _probe_step(
+            "k4", lambda: ccl.threshold_label(p3, r, C, s, n, plan=spilled),
+            lambda: ccl.threshold_label_reference(p3, r, C, s, n), p3, n),
+    }
+
+
+def _probe_check(name, step):
+    """Runs the step's call and its plain version; raises unless every
+    output is equal bit for bit. Returns the outputs and their max |diff|."""
+    got, want = step.call(), step.plain()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for a, b in zip(got, want):
+        _require(a.dtype == b.dtype and torch.equal(a, b),
+                 f"{name} differs from its plain version")
+    return got, max(_max_err(a.to(torch.float64), b.to(torch.float64))
+                    for a, b in zip(got, want))
+
+
+def _probe_ms(step, pads=PROFILE_PADS_S):
+    """(device ms a launch, how): torch.profiler over 20 launches (windows
+    padded by ``pads`` in turn, as ``_kernel_ms``), or CUDA events over 20
+    back-to-back calls where it saw no event of the kernel."""
+    try:
+        return _kernel_ms(step.call, step.part, pads=pads)[0], "profiler"
+    except AssertionError:
+        return _cuda_time(step.call, 20), "CUDA events"
+
+
+def _probe_rate(n_bytes, ms):
+    """The bytes, the achieved GB/s and its share of 3.35 TB/s, as text."""
+    gbps = n_bytes / ms / 1e6
+    return (f"{n_bytes / 1e6:.2f} MB at {gbps:.1f} GB/s "
+            f"({gbps * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s)")
+
+
+def _probe_split(ms, kind, copy="probe_copy"):
+    """K4's time on P1's frames in ``kind``'s body, split: the copy, the
+    threshold over it, the first round, and a later round (1 to 8)."""
+    thr = ms[f"threshold_only.{kind}"]
+    k4 = [ms[f"threshold_label.{kind}.rounds{k}"] for k in P1_ROUNDS]
+    per = (k4[-1] - k4[0]) / (P1_ROUNDS[-1] - P1_ROUNDS[0])
+    split = {"copy": ms[copy], "threshold_over_copy": thr - ms[copy],
+             "first_round": k4[0] - thr, "per_round_1_to_8": per}
+    return split, (f"K4 ({kind} body) = copy {ms[copy]:.4f} + threshold {thr - ms[copy]:.4f} "
+                   f"+ first round {k4[0] - thr:.4f} + {per:.4f} ms a later round")
+
+
+def phase4b_probes(dev):
+    """The probes P1-P3 on their kernels: the path (each kernel once at its
+    probe's shape, the counts set to 0 just before each call and read just
+    after), each result against its plain version bit for bit, the copies
+    also on a frame of fractional values, K4's two plans against each other;
+    then each kernel timed (device ms by the profiler, the call through the
+    wrapper and the plain version by CUDA events, the one PyTorch call that
+    computes a copy as its library time) beside its bound and achieved
+    GB/s, and K4's time on P1's frames split by stage. Returns per row
+    (launches, max err, ms, plain ms, bound, library ms, wrapper ms)."""
+    from aruco_slam_tpu_torch.ops.kernels import ccl, probes
+
+    frames = _probe_frames(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spilled = ccl.spilled_plan(1080, 1920, sms)
+    resident = ccl.block_plan(1080, 1920, 1, sms)
+    _require(not resident.spilled, f"1920x1080 took a spilled plan: {resident}")
+    steps = _probe_steps(frames, spilled)
+    launches = {}
+    for name, step in steps.items():
+        for c in (probes.LAUNCHES, ccl.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        step.call()
+        torch.cuda.synchronize()
+        launches[name] = step.counts[step.key]
+    _require(all(v == 1 for v in launches.values()), f"probe path launches {launches}")
+    print(f"phase 4b: launches in the probes' path: {launches}")
+
+    outs, err = {}, {}
+    for name, step in steps.items():
+        outs[name], err[name] = _probe_check(name, step)
+    frac = frames["frac"]
+    for kern, plain, name in ((probes.copy_to_int32, probes.copy_to_int32_reference, "probe_copy"),
+                              (probes.scale_copy, probes.scale_copy_reference, "probe_scale")):
+        _require(torch.equal(kern(frac), plain(frac)),
+                 f"{name} differs from its plain version on fractional values")
+    for a, b in zip(outs["threshold_label.block.random"], outs["threshold_label.block.spilled"]):
+        _require(torch.equal(a, b), "K4's resident and spilled plans differ")
+    dens = float(outs["threshold_label.block.random"][0].float().mean())
+    print(f"phase 4b: every probe row bit-identical to its plain version (P1's 20 640x480 "
+          f"frames: the copy, the threshold alone, K4 at rounds {P1_ROUNDS}, K5 at rounds "
+          f"{P1_K5_ROUNDS}; P2's 32: the scale; {HD_CHUNK} frames 1920x1080: the threshold "
+          f"alone in the block body), the copies also on fractional values; K4 on P3's random "
+          f"1920x1080 frame (foreground {dens:.3f}) in the resident plan ({resident.tiles_y} "
+          f"tiles of {resident.tile_rows} rows on {resident.ctas} SMs) and the spilled plan "
+          f"({spilled.tiles_y} tiles of {spilled.tile_rows} rows, {spilled.ctas} CTAs)")
+
+    library = {"probe_copy": lambda: frames["p1"].to(torch.int32),
+               "probe_scale": lambda: frames["p2"] * 1.0000001}
+    # One profiler window a row: the time a launch over the events it kept.
+    # Here most windows keep 11-13 of 20 events, and the wider windows'
+    # retries took 40 s of the phase.
+    pads = PROFILE_PADS_S[:1]
+    out, dev_ms = {}, {}
+    for name, step in steps.items():
+        ms, how = _probe_ms(step, pads)
+        dev_ms[name] = ms
+        wrap_ms = _cuda_time(step.call, 10)
+        plain_ms = _cuda_time(step.plain, 2)
+        lib_ms = _kernel_ms(library[name], "", pads=pads)[0] if name in library else None
+        bound = _bound(step.n_bytes, step.n_ops)
+        out[name] = (launches[name], err[name], ms, plain_ms, bound, lib_ms, wrap_ms)
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"phase 4b: {name} {ms:.4f} ms/launch on the device ({how}; "
+              f"{tuple(step.img.shape)}), {_probe_rate(step.n_bytes, ms)}, bound "
+              f"{bound[0]:.5f} ms ({bound[1]}); wrapper {wrap_ms:.4f} ms/call, plain "
+              f"{plain_ms:.4f} ms/call{lib}")
+    print(f"phase 4b: P1's 20 frames: {_probe_split(dev_ms, 'cluster')[1]}")
+    res, spl = dev_ms["threshold_label.block.random"], dev_ms["threshold_label.block.spilled"]
+    print(f"phase 4b: P3's two plans: resident {res:.4f} ms, spilled {spl:.4f} ms "
+          f"({spl / res:.2f}x)")
     return out
 
 
@@ -2577,6 +2843,7 @@ def main() -> int:
     launches, main_fps = phase(3, phase3_main_path, cfg, dev)
     c2_launches = phase("3b", phase3b_config2_batched, dev)
     ccl_stats = phase(4, phase4_ccl, dev)
+    probe_stats = phase("4b", phase4b_probes, dev)
     img_launches = phase(5, phase5_image_path, dev)
     k6_err, _, k6_step, k6_wide = phase(6, phase6_k6, dev)
     k6_launches = phase(7, phase7_single_stream, dev)
@@ -2586,13 +2853,17 @@ def main() -> int:
     phase(11, phase11_bench_entry, main_fps)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
-    def row(name, source, replaces, n, err, ms, plain_ms, bound, **extra):
-        # library_ms: no single PyTorch call computes any of these functions
+    def row(name, source, replaces, n, err, ms, plain_ms, bound, library_ms=None, **extra):
+        # replaces: a file of the JAX package's kernels, or a path from the
+        # repository's root. library_ms: the one PyTorch call that computes
+        # the same function (the probes' copies); none computes the others.
+        if "/" not in replaces:
+            replaces = f"aruco_slam_tpu/ops/kernels/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"aruco_slam_tpu_torch/ops/kernels/csrc/{source}",
-                "replaces": f"aruco_slam_tpu/ops/kernels/{replaces}", "launches": n,
+                "replaces": replaces, "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None, **extra}
+                "bound_by": bound[1], "library_ms": library_ms, **extra}
 
     # K1 and K2: ms is the device time per launch (the profiler), wrapper_ms
     # the host-bound time per call through the wrapper
@@ -2615,6 +2886,12 @@ def main() -> int:
             err, ms, plain_ms, bound = ccl_stats[key]
             kernels.append(row(key, "ccl.cu", f"ccl.py:{line}", img_launches[key], err, ms,
                                plain_ms, bound))
+    # the probes P1-P3 on their path (phase 4b): ms is the device time per
+    # launch (the profiler), wrapper_ms the call through the wrapper
+    for name, (n, err, ms, plain_ms, bound, lib_ms, wrap_ms) in probe_stats.items():
+        source = "probes.cu" if name.startswith("probe_") else "ccl.cu"
+        kernels.append(row(name, source, PROBE_REPLACES[name], n, err, ms, plain_ms, bound,
+                           library_ms=lib_ms, wrapper_ms=wrap_ms))
     # K6's frame step at its paths' shapes: config 2's map at 128 slots (N =
     # 387, cluster) and at 512 (N = 1,539, grid; its full square beside it).
     # ms is the kernel alone in place (the profiler), wrapper_ms the call

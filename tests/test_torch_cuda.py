@@ -20,6 +20,7 @@ from aruco_slam_tpu_torch.ops.kernels import ccl
 from aruco_slam_tpu_torch.ops.kernels import ekf_update as k6
 from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
 from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
+from aruco_slam_tpu_torch.ops.kernels import probes
 from aruco_slam_tpu_torch.sim import renderer, synthetic
 from aruco_slam_tpu_torch.system import SlamSystem
 from aruco_slam_tpu_torch.utils.config import CompatConfig, EkfConfig, SlamConfig
@@ -141,8 +142,8 @@ def _frames(dev, shape):
 ])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_ccl_family_matches_plain(dev, shape, stride, radius, dtype):
-    """K3, K4, K5 and K5s against their plain versions, bit for bit (every
-    shape here takes the cluster body)."""
+    """K3, K4, K5, K5s and the threshold alone against their plain
+    versions, bit for bit (every shape here takes the cluster body)."""
     img = _frames(dev, shape).to(dtype).contiguous()
     kind = ccl.body(*shape, stride)
     assert kind == "cluster"
@@ -154,9 +155,11 @@ def test_ccl_family_matches_plain(dev, shape, stride, radius, dtype):
     fg, lab, fg_c = ref[0], ref[1], ref[2]
     k5 = ccl.label_components(fg, 4)
     k5s = ccl.label_components(fg_c, 2, init=lab.reshape(fg.shape))
+    thr = ccl.threshold_only(img, radius, 7.0, stride)
     torch.cuda.synchronize()
     for a, b in zip(out + (fg4, lab4), ref + (fg4r, lab4r)):
         assert torch.equal(a, b)
+    assert torch.equal(thr, ccl.threshold_only_reference(img, radius, 7.0, stride))
     assert torch.equal(k5, detector.label_components(fg, 4))
     assert torch.equal(k5s, detector.label_components(fg_c, 2, init=lab.reshape(fg.shape)))
     assert bool(fg.any()) and not bool(fg.all())
@@ -216,9 +219,10 @@ def _hd_frames(dev, h, w, n):
 @pytest.mark.parametrize("frames", [1, 16])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_ccl_block_body_at_hd(dev, h, w, frames, dtype):
-    """K3, K4, K5 and K5s in the block body on rendered HD frames, one
-    frame (spread over the card) and a 16-frame chunk (several frames in
-    flight), against their plain versions, bit for bit."""
+    """K3, K4, K5, K5s and the threshold alone in the block body on
+    rendered HD frames, one frame (spread over the card) and a 16-frame
+    chunk (several frames in flight), against their plain versions, bit for
+    bit."""
     img = _hd_frames(dev, h, w, frames).to(dtype).contiguous()
     assert ccl.body(h, w, 4) == ccl.body(h, w) == "block"
     before = dict(ccl.LAUNCHES)
@@ -228,9 +232,11 @@ def test_ccl_block_body_at_hd(dev, h, w, frames, dtype):
     fg, lab, fg_c = ref[0], ref[1], ref[2]
     k5 = ccl.label_components(fg_c, 3)
     k5s = ccl.label_components(fg_c, 2, init=lab.reshape(fg.shape))
+    thr = ccl.threshold_only(img, 7, 7.0, 4)
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    assert torch.equal(thr, fg.to(torch.int32))
     assert torch.equal(fg4, fg) and torch.equal(lab4, ccl.label_components_reference(fg, 3))
     assert torch.equal(k5, ccl.label_components_reference(fg_c, 3))
     assert torch.equal(k5s, ccl.label_components_reference(fg_c, 2, init=lab.reshape(fg.shape)))
@@ -265,6 +271,87 @@ def test_ccl_block_body_spills_frames_larger_than_the_card(dev):
     lab = ccl.label_components(fg, 3)
     torch.cuda.synchronize()
     assert torch.equal(lab, ccl.label_components_reference(fg, 3))
+
+
+def _probe_frames(dev, n):
+    """n rendered 480x640 frames as float32 (the probes' input) and a frame
+    of fractional values in [-0.99, 256)."""
+    poses = [(2.55, -2.0, 1.2), (2.0, -2.5, 2.5), (1.0, -1.0, 0.3)] * (-(-n // 3))
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    img = renderer.render_poses(poses[:n], synthetic.make_arena(n_markers=20), cam, device=dev)
+    frac = np.random.default_rng(6).uniform(-0.99, 256.0, (1, 480, 640)).astype(np.float32)
+    return torch.cat([img.float(), torch.as_tensor(frac, device=dev)]).contiguous()
+
+
+@pytest.mark.parametrize("name", ["copy_to_int32", "scale_copy"])
+def test_probe_kernels_match_plain(dev, name):
+    """P1b and P2 bit for bit: the 16-byte path on a chunk, and the
+    element path on a chunk that starts 4 bytes past an aligned address
+    and whose length is no multiple of 4."""
+    kern, plain = getattr(probes, name), getattr(probes, f"{name}_reference")
+    img = _probe_frames(dev, 20)
+    key = {"copy_to_int32": "probe_copy", "scale_copy": "probe_scale"}[name]
+    before = probes.LAUNCHES[key]
+    odd = img.reshape(-1)[1: 1 + 3 * 7 * 33].view(3, 7, 33)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 4
+    got = (kern(img), kern(odd))
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[key] == before + 2
+    for a, x in zip(got, (img, odd)):
+        b = plain(x)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_threshold_only_in_both_bodies(dev):
+    """The threshold alone against its plain version in the cluster body
+    (the probe's 20 frames of 480x640) and the block body (16 rendered
+    1920x1080 frames), and against K4's own fg."""
+    for img in (_probe_frames(dev, 20)[:20].contiguous(), _hd_frames(dev, 1080, 1920, 16)):
+        kind = ccl.body(*img.shape[1:], 4)
+        before = ccl.LAUNCHES[f"threshold_only.{kind}"]
+        thr = ccl.threshold_only(img, 7, 7.0, 4)
+        fg4, _ = ccl.threshold_label(img, 7, 7.0, 4, 1)
+        torch.cuda.synchronize()
+        assert ccl.LAUNCHES[f"threshold_only.{kind}"] == before + 1
+        assert torch.equal(thr, ccl.threshold_only_reference(img, 7, 7.0, 4))
+        assert torch.equal(thr, fg4.to(torch.int32))
+
+
+def test_k4_on_random_bytes_in_both_plans(dev):
+    """P3: K4 at 3 rounds on a 1920x1080 frame of random bytes in the
+    resident plan (the planner's) and the spilled plan: fg and labels equal
+    to the plain version's and to each other's."""
+    img = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (1, 1080, 1920)),
+                          device=dev).to(torch.uint8).float().contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = (None, ccl.spilled_plan(1080, 1920, sms))
+    before = ccl.LAUNCHES["threshold_label.block"]
+    outs = [ccl.threshold_label(img, 7, 7.0, 4, 3, plan=plan) for plan in plans]
+    ref = ccl.threshold_label_reference(img, 7, 7.0, 4, 3)
+    torch.cuda.synchronize()
+    assert ccl.LAUNCHES["threshold_label.block"] == before + 2
+    for fg, lab in outs:
+        assert torch.equal(fg, ref[0]) and torch.equal(lab, ref[1])
+    assert 0.3 < float(ref[0].float().mean()) < 0.7
+
+
+def test_k4_refuses_a_plan_the_chunk_cannot_take(dev):
+    """csrc ``block_launch`` refuses a plan that does not fit the chunk
+    (another frame's tiles, two spilled teams, a short workspace, a CTA
+    short of the tiles, a tile past shared memory) and launches nothing."""
+    img = torch.zeros(2, 1080, 1920, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spilled, resident = ccl.spilled_plan(1080, 1920, sms), ccl.block_plan(1080, 1920, 2, sms)
+    bad = (ccl.spilled_plan(720, 1280, sms), spilled._replace(teams=2),
+           spilled._replace(work_words=spilled.work_words - 1),
+           resident._replace(ctas=resident.ctas - 1),
+           resident._replace(tile_rows=64, tiles_y=17, ctas=17))
+    before = dict(ccl.LAUNCHES)
+    for plan in bad:
+        with pytest.raises(RuntimeError, match="block body"):
+            ccl.threshold_label(img, 7, 7.0, 4, 3, plan=plan)
+    torch.cuda.synchronize()
+    assert ccl.LAUNCHES == before
 
 
 def test_image_replay_kernels_match_plain(dev):

@@ -24,6 +24,7 @@ once.
 """
 
 import dataclasses
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -220,6 +221,44 @@ def test_dryrun_multichip_runs():
 def test_run_ranks_raises_a_rank_failure():
     with pytest.raises(RuntimeError, match="rank 1 failed on purpose"):
         launch.run_ranks(ranks.fail_at, 2, device="cpu", args=(1,), timeout=120)
+
+
+class _LateExit:
+    """A stand-in rank process that writes its result at start and reads as
+    running for the first ``running_reads`` readings of its exit code, then
+    as exited with 0."""
+
+    def __init__(self, target, daemon, args, running_reads):
+        self.args, self.reads, self.running_reads = args, 0, running_reads
+
+    def start(self):
+        _, rank, _, _, _, store, _, _ = self.args
+        with open(f"{store}/result-{rank}.pkl", "wb") as f:
+            pickle.dump(rank, f)
+
+    @property
+    def exitcode(self):
+        self.reads += 1
+        return None if self.reads <= self.running_reads else 0
+
+    def join(self, timeout=None):
+        pass
+
+    def is_alive(self):
+        return False
+
+
+@pytest.mark.parametrize("running_reads", [1, 2, 3])
+def test_run_ranks_returns_when_the_last_rank_exits_between_readings(monkeypatch,
+                                                                    running_reads):
+    # the launcher once read the exit codes three times an iteration and
+    # failed when the last rank exited between the second and third reading
+    class Ctx:
+        def Process(self, target, daemon, args):
+            return _LateExit(target, daemon, args, running_reads)
+
+    monkeypatch.setattr(launch.torch.multiprocessing, "get_context", lambda method: Ctx())
+    assert launch.run_ranks(ranks.hang, 2, device="cpu", args=(0,), timeout=60) == [0, 1]
 
 
 def test_run_ranks_stops_a_hung_rank():

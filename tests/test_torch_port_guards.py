@@ -25,7 +25,7 @@ from aruco_slam_tpu_torch.io import native_seqio
 from aruco_slam_tpu_torch.models import ekf, graph_builder, pose_graph
 from aruco_slam_tpu_torch.ops.camera import CameraIntrinsics
 from aruco_slam_tpu_torch.ops.kernels import (
-    _build, ccl, ekf_update, ekf_update_batched, pnp_frontend,
+    _build, ccl, ekf_update, ekf_update_batched, pnp_frontend, probes,
 )
 from aruco_slam_tpu_torch.parallel import dryrun, launch, mesh
 from aruco_slam_tpu_torch.sim import renderer, synthetic
@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_yaml():
         "import aruco_slam_tpu_torch, aruco_slam_tpu_torch.runner, "
         "aruco_slam_tpu_torch.sim.synthetic, aruco_slam_tpu_torch.convert, "
         "aruco_slam_tpu_torch.ops.detector, aruco_slam_tpu_torch.ops.dictionary, "
-        "aruco_slam_tpu_torch.ops.kernels.ccl, aruco_slam_tpu_torch.sim.renderer, "
+        "aruco_slam_tpu_torch.ops.kernels.ccl, aruco_slam_tpu_torch.ops.kernels.probes, "
+        "aruco_slam_tpu_torch.sim.renderer, "
         "aruco_slam_tpu_torch.system, aruco_slam_tpu_torch.viz, "
         "aruco_slam_tpu_torch.ops.kernels.ekf_update, aruco_slam_tpu_torch.utils.device, "
         "aruco_slam_tpu_torch.models.ba, aruco_slam_tpu_torch.models.graph_builder, "
@@ -83,7 +84,7 @@ def test_build_without_nvcc_names_the_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
-    for name in ("pnp_frontend", "ccl", "ekf_frame_update"):
+    for name in ("pnp_frontend", "ccl", "ekf_frame_update", "probes"):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
     assert not (tmp_path / "build").exists()
@@ -250,6 +251,57 @@ def test_ccl_wrappers_reject_bad_inputs():
         ccl.label_components(fg, 2, init=torch.zeros(2, 64 * 128, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("call", [
+    probes.copy_to_int32, probes.scale_copy, lambda img: ccl.threshold_only(img, 7, 7.0, 4),
+], ids=["copy_to_int32", "scale_copy", "threshold_only"])
+def test_probe_wrappers_reject_bad_inputs(call):
+    """The probes' wrappers raise on a wrong type, a wrong rank, a
+    non-contiguous chunk and a tensor that is neither on the CPU nor on a
+    card, before any launch."""
+    img = torch.zeros(2, 64, 128)
+    before = (dict(probes.LAUNCHES), dict(ccl.LAUNCHES))
+    with pytest.raises(TypeError, match="float32"):
+        call(img.to(torch.float64))
+    with pytest.raises(ValueError, match=r"\[N, H, W\]"):
+        call(img[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(img.transpose(1, 2))
+    with pytest.raises(ValueError, match="no kernel"):
+        call(torch.zeros(2, 64, 128, device="meta"))
+    assert (probes.LAUNCHES, ccl.LAUNCHES) == before
+
+
+def test_threshold_label_refuses_a_plan_the_frame_cannot_take(monkeypatch):
+    """K4's plan argument. On the CPU the plain version runs and reads no
+    plan. On the card the plan's geometry reaches csrc ``block_launch`` as
+    it is, and its refusal of a plan the chunk cannot take raises with no
+    launch counted (the card's own refusals: ``test_torch_cuda.py``). A
+    frame the cluster body takes refuses a plan before any launch."""
+    img = torch.zeros(2, 48, 40, dtype=torch.uint8)  # the block body's
+    assert ccl.body(48, 40, 4) == "block"
+    bad = ccl.spilled_plan(48, 40)._replace(teams=2)
+    want = ccl.threshold_label_reference(img, 7, 7.0, 4, 3)
+    got = ccl.threshold_label(img, 7, 7.0, 4, 3, plan=bad)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    lib = _RefusingCcl()
+    _as_if_on_the_card(monkeypatch, ccl, lib)
+    monkeypatch.setattr(ccl, "_route", lambda t: True)
+    monkeypatch.setattr(ccl, "_block_sms", {})
+    monkeypatch.setattr(ccl, "_barriers", {})
+    before = dict(ccl.LAUNCHES)
+    with pytest.raises(RuntimeError, match="block body.*out of memory"):
+        ccl.threshold_label(img, 7, 7.0, 4, 3, plan=bad)
+    rows, width, teams, ctas, _, _, _, work_words, _ = lib.block_args[-1]
+    assert (rows, width, teams, ctas, work_words) == (
+        bad.tile_rows, bad.tile_width, bad.teams, bad.ctas, bad.work_words)
+    with pytest.raises(ValueError, match="cluster body"):
+        ccl.threshold_label(torch.zeros(2, 64, 256, dtype=torch.uint8), 7, 7.0, 4, 3,
+                            plan=ccl.spilled_plan(64, 256))
+    assert lib.bodies == [0]
+    assert ccl.LAUNCHES == before
+
+
 def test_ccl_wrappers_never_fall_back():
     """Off the CPU the CCL family launches its kernel or raises."""
     before = dict(ccl.LAUNCHES)
@@ -259,6 +311,8 @@ def test_ccl_wrappers_never_fall_back():
         ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
     with pytest.raises(ValueError, match="no kernel"):
         ccl.threshold_label(img, 7, 7.0, 4, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        ccl.threshold_only(img, 7, 7.0, 4)
     with pytest.raises(ValueError, match="no kernel"):
         ccl.label_components(fg, 3)
     with pytest.raises(ValueError, match="init on"):
@@ -293,7 +347,7 @@ class _RefusingCcl:
     """The CCL family's library: plans succeed, launches are refused."""
 
     def __init__(self):
-        self.bodies = []
+        self.bodies, self.block_args = [], []
 
     def ccl_cluster_plan(self, variant, h, w, stride, smem, count):
         smem._obj.value, count._obj.value = 1024, 4
@@ -304,10 +358,11 @@ class _RefusingCcl:
         return 0
 
     def _launch(self, *args):
-        self.bodies.append(args[-2])  # ..., body, stream
+        self.bodies.append(args[-2])  # ..., the block body's 9 arguments, body, stream
+        self.block_args.append(args[-11:-2])
         return 2
 
-    ccl_threshold_union_launch = ccl_threshold_launch = _launch
+    ccl_threshold_union_launch = ccl_threshold_launch = ccl_threshold_only_launch = _launch
     ccl_label_launch = ccl_label_seeded_launch = _launch
 
     def ccl_error_string(self, err):
@@ -577,11 +632,12 @@ def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, k
         lambda: ccl.threshold_label(img, 7, 7.0, 4, 3),
         lambda: ccl.label_components(fg, 3),
         lambda: ccl.label_components(fg, 2, init=torch.zeros(2, *shape, dtype=torch.int32)),
+        lambda: ccl.threshold_only(img, 7, 7.0, 4),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match=f"{kind} body.*out of memory"):
             call()
-    assert lib.bodies == [int(kind == "cluster")] * 4
+    assert lib.bodies == [int(kind == "cluster")] * 5
     assert ccl.LAUNCHES == before
 
 
