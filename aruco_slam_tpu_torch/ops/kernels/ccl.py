@@ -160,7 +160,7 @@ class BlockPlan(NamedTuple):
     tiles_x: int
     tiles_y: int
     teams: int  # frames in flight, a team of CTAs each
-    ctas: int  # CTAs a team: its tiles, or every SM where the tiles spill
+    ctas: int  # CTAs a team: its tiles, or ceil(tiles / k) taking k tiles each where spilled
     spilled: bool  # the tiles' workspaces in device memory (more tiles than SMs)
     smem_bytes: int  # a CTA's shared memory (0 where spilled)
     work_words: int  # the spilled workspaces (0 where resident)
@@ -197,17 +197,29 @@ def _tile_columns(w: int) -> tuple[int, int]:
 
 
 def spilled_plan(h: int, w: int, sms: int = H100_SMS) -> BlockPlan:
-    """The block body's plan with the tiles' workspaces in device memory:
-    64-row tiles (a shorter frame in one tile row) as wide as
-    :func:`block_plan`'s, and one team of a CTA on each of ``sms`` SMs
-    that work through the tiles in turn. :func:`block_plan` falls back to
-    it where a frame's tiles cannot all be resident at once; passed to
-    ``threshold_label(..., plan=)`` it runs a smaller frame spilled too."""
+    """The block body's plan with the tiles' workspaces in device memory,
+    one team of at most ``sms`` CTAs that work through the tiles in turn
+    (the kernel's rule: CTA r takes tiles r, r + ctas, ...). Tiles as wide
+    as :func:`block_plan`'s; the tile height that gives the busiest CTA the
+    least work: its ``k = ceil(tiles / sms)`` tiles times a tile's pixels
+    plus ``BARRIER_PIXELS``, the fixed cost that keeps the plan off 1-row
+    tiles. The team is ``ceil(tiles / k)`` CTAs, so that each takes k tiles
+    or k - 1 and no CTA without a tile meets the barriers. A frame whose
+    tiles fit the SMs gets the resident plan's geometry. :func:`block_plan`
+    falls back to it where a frame's tiles cannot all be resident at once;
+    passed to ``threshold_label(..., plan=)`` it runs a smaller frame
+    spilled too."""
     tiles_x, width = _tile_columns(w)
-    rows = min(MAX_TILE_ROWS, h)
-    tiles_y = -(-h // rows)
-    return BlockPlan(rows, width, tiles_x, tiles_y, 1, sms, True, 0,
-                     tiles_x * tiles_y * block_tile_words(rows, width, shared=False))
+    best = None
+    for rows in range(1, min(MAX_TILE_ROWS, h) + 1):
+        tiles = tiles_x * -(-h // rows)
+        k = -(-tiles // sms)
+        cost = k * (rows * width + BARRIER_PIXELS)
+        if best is None or cost < best[0]:
+            best = (cost, rows, tiles, k)
+    _, rows, tiles, k = best
+    return BlockPlan(rows, width, tiles_x, tiles // tiles_x, 1, -(-tiles // k), True, 0,
+                     tiles * block_tile_words(rows, width, shared=False))
 
 
 def block_plan(h: int, w: int, n: int, sms: int = H100_SMS) -> BlockPlan:

@@ -73,7 +73,10 @@
 // pixel, with a ring of the neighbours' bits) stay in its CTA's shared
 // memory for the whole frame, as in the cluster body; the tiles of a
 // larger frame keep the same workspace in device memory and each CTA works
-// through several of them in turn. Inside a tile the Jacobi step runs in
+// through several of them in turn: CTA r of the team takes tiles r, r +
+// ctas, ..., and the plan (ccl.py spilled_plan) cuts the frame into tiles
+// and sizes the team so that every CTA takes k tiles or k - 1, none of them
+// idle at the barriers. Inside a tile the Jacobi step runs in
 // place, a warp sweeping each column of 32-pixel words down the tile (each
 // row's horizontal 3-min formed once). Across tiles, through the team's
 // exchange scratch in device memory (read through L2 with __ldcg, after a
@@ -743,7 +746,7 @@ __host__ __device__ inline bool tile_layout(int TR, int TW, bool shared, TileLay
 struct Grid {
   int n;                  // frames in the chunk
   int TR, TW, TX, TY;     // tile rows and width; tiles across and down a frame
-  int teams, ctas;        // teams in flight; CTAs a team (its tiles, or every SM)
+  int teams, ctas;        // teams in flight; CTAs a team (its tiles; spilled: k or k - 1 each)
   int spilled;            // workspaces in device memory (work), not shared memory
   int cells;              // the threshold's block cells a frame (0: no threshold)
   long long team_words;   // a team's exchange scratch
@@ -1526,8 +1529,10 @@ int block_launch(const Args& a, int n, int tile_rows, int tile_width, int teams,
   g.TX = (a.w + tile_width - 1) / tile_width;
   g.TY = (a.h + tile_rows - 1) / tile_rows;
   const int tiles = g.TX * g.TY;
-  // resident: a CTA a tile; spilled: one team of CTAs working through the tiles
-  if (g.spilled ? (teams != 1 || work_words != static_cast<long long>(tiles) * L.words)
+  // resident: a CTA a tile; spilled: one team of CTAs working through the
+  // tiles, none of them without a tile
+  if (g.spilled ? (teams != 1 || ctas > tiles ||
+                   work_words != static_cast<long long>(tiles) * L.words)
                 : ctas != tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   g.cells = kThreshold ? (a.h / a.stride) * (a.w / a.stride) : 0;

@@ -12,11 +12,15 @@
 // once, and does one operation an element: what bounds it on Hopper is the
 // card's memory rate alone, and its time over its bytes is the card's
 // achieved copy rate at the image path's shapes. So each kernel is as plain
-// as a copy can be: a grid-stride loop over all N*H*W elements of the
-// chunk, 16-byte loads and stores (float4 / int4), kUnroll of them in flight
-// a thread before the first store, then the tail (and a buffer not aligned
-// to 16 bytes) an element at a time. kBlocksPerSm blocks of kThreads on
-// each SM fill its 2,048 threads. One launch a chunk.
+// as a copy can be: a thread a 16-byte vector (float4 in, float4 / int4
+// out), a block of kThreads a contiguous span of the chunk, as many blocks
+// as the chunk needs, as PyTorch's elementwise launch lays out its work;
+// the elements past the last vector (all of them where a buffer is not
+// aligned to 16 bytes) a thread each after the vectors. One launch a chunk.
+// Of the loops tools/probe_copy_variants.py times on an H100 (a grid-stride
+// loop of 8 blocks an SM, streaming cache hints, a TMA ring through shared
+// memory), this one alone ran the scaled copy level with PyTorch's
+// img * 1.0000001 (0.0276 ms on P2's 78.6 MB).
 //
 // The int32 of a value outside int32's range, or of NaN, differs between
 // XLA, cvt.rzi and torch's CPU cast; the probes never feed one, and the
@@ -28,8 +32,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
-constexpr int kUnroll = 4;
 
 struct ToInt32 {
   using Out = int;
@@ -49,44 +51,31 @@ struct Scale {
   }
 };
 
-// n elements; the first 4 * n4 as n4 16-byte vectors (n4 = 0 where a buffer
-// is not aligned to 16 bytes), the rest one by one.
+// n elements: thread t < n4 converts the 16-byte vector t (n4 = 0 where a
+// buffer is not aligned to 16 bytes), thread n4 + e the element 4 n4 + e.
 template <class Op>
 __global__ void __launch_bounds__(kThreads) probe_kernel(const float* __restrict__ in,
                                                          typename Op::Out* __restrict__ out,
                                                          long long n, long long n4) {
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  const long long t0 = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const float4* in4 = reinterpret_cast<const float4*>(in);
-  auto* out4 = reinterpret_cast<typename Op::Out4*>(out);
-  long long i = t0;
-  for (; i + (kUnroll - 1) * step < n4; i += kUnroll * step) {
-    float4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = in4[i + u * step];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) out4[i + u * step] = Op::four(v[u]);
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t < n4) {
+    reinterpret_cast<typename Op::Out4*>(out)[t] =
+        Op::four(reinterpret_cast<const float4*>(in)[t]);
+  } else {
+    const long long j = 3 * n4 + t;
+    if (j < n) out[j] = Op::one(in[j]);
   }
-  for (; i < n4; i += step) out4[i] = Op::four(in4[i]);
-  for (long long j = 4 * n4 + t0; j < n; j += step) out[j] = Op::one(in[j]);
 }
 
 template <class Op>
 int launch(const float* in, typename Op::Out* out, long long n, void* stream) {
   if (n <= 0) return 0;
   if (in == nullptr || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const long long n4 = aligned ? n / 4 : 0;
-  const long long items = n4 > 0 ? n4 : n;
-  long long blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > static_cast<long long>(sms) * kBlocksPerSm)
-    blocks = static_cast<long long>(sms) * kBlocksPerSm;
+  const long long blocks = (n - 3 * n4 + kThreads - 1) / kThreads;  // n4 vectors, then elements
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   probe_kernel<Op><<<static_cast<unsigned>(blocks), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(in, out, n, n4);
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,8 @@ arena at 128 and 512 landmarks, K2's cluster and device variants), batched
 image-level replay (32 lanes
 x 60 rendered 640x480 frames, K3-K5s in their cluster body + K1 + K2),
 detection of rendered 1920x1080 frames (K3-K5s in their block body: a frame
-in tiles over many SMs), the probes of the CCL family's studies (the card's
+in tiles over many SMs) and of 3840x2160 frames (its spilled plan, as K5 on
+a 7680x4320 mask), the probes of the CCL family's studies (the card's
 copy floor, the threshold stage alone, K4 at 1080p in both block plans),
 single-stream replay of BASELINE config 2 (2,100 frames, 128 landmarks, K6's
 frame step in its cluster variant, one launch a frame; 512 landmarks, its
@@ -103,6 +104,17 @@ Phases (each raises on failure; the script then exits non-zero):
      with its bytes, achieved GB/s and share of 3.35 TB/s beside its
      bound; K4's time on P1's frames split into the copy, the threshold,
      the first round and a later one.
+  4c. the block body's spilled plan (ccl.spilled_plan: the frame's tiles
+     cannot all be resident on the SMs at once; every CTA of the team takes
+     as many tiles as the busiest or one fewer) on users' frames: the path
+     (counts set to 0 just before, read just after) is runner.detect_frames
+     on SPILL_FRAMES rendered 3840x2160 frames in the detector's three
+     branches (K3; closing_union=False: K4; mean_stride=3: K5 and K5s),
+     each detection equal to the plain detector's, then K5 on one 7680x4320
+     random mask at 3 rounds (gate: one launch each). Each kernel bit for
+     bit against its plain version on those inputs (K5 on K3's raw mask,
+     K5s on the closed one seeded with its labels), timed as phase 4b's
+     rows beside its bound; detect_frames' ms a frame at 3840x2160.
   5. the image-level path at bench.py's shape (BASELINE.md config 3b):
      runner.replay_batch(..., "images") over 2 rendered sequences (seeds 0
      and 1, 6 s at 10 Hz) tiled to 32 lanes, EkfConfig(max_landmarks=32,
@@ -1395,6 +1407,8 @@ def phase4b_probes(dev):
     spilled = ccl.spilled_plan(1080, 1920, sms)
     resident = ccl.block_plan(1080, 1920, 1, sms)
     _require(not resident.spilled, f"1920x1080 took a spilled plan: {resident}")
+    _require(spilled.ctas <= spilled.tiles_x * spilled.tiles_y,
+             f"a CTA of the spilled plan has no tile: {spilled}")
     steps = _probe_steps(frames, spilled)
     launches = {}
     for name, step in steps.items():
@@ -1450,6 +1464,130 @@ def phase4b_probes(dev):
     res, spl = dev_ms["threshold_label.block.random"], dev_ms["threshold_label.block.spilled"]
     print(f"phase 4b: P3's two plans: resident {res:.4f} ms, spilled {spl:.4f} ms "
           f"({spl / res:.2f}x)")
+    return out
+
+
+# The frames that take the block body's spilled plan (their tiles cannot
+# all be resident on the card's SMs at once) at the detector's own route: a
+# 4K camera's (SPILL_FRAMES rendered 3840x2160 frames a detector call; a 12
+# MP camera's 4000x3000 likewise) and, K5 alone, one 7680x4320 random mask
+# (default_rng(8), foreground 0.6) at DetectorConfig().ccl_rounds.
+SPILL_FRAMES = 4
+UHD, UHD8 = (2160, 3840), (4320, 7680)
+# the CCL entry points' TPU kernels: aruco_slam_tpu/ops/kernels/ccl.py lines
+CCL_LINES = {"threshold_label_union": 229, "threshold_label": 217, "label_components": 200,
+             "label_components_seeded": 207}
+SPILL_ROWS = {  # row of the kernels line: its entry point
+    "threshold_label_union.block.2160p": "threshold_label_union",
+    "threshold_label.block.2160p": "threshold_label",
+    "label_components.block.2160p": "label_components",
+    "label_components_seeded.block.2160p": "label_components_seeded",
+    "label_components.block.4320p": "label_components",
+}
+
+
+def phase4c_spilled(dev):
+    """The block body's spilled plan on users' frames: the plans (every CTA
+    of the team with a tile); the path (the counts set to 0 just before and
+    read just after): runner.detect_frames on SPILL_FRAMES 3840x2160 frames
+    in the detector's three branches (K3; K4; K5 and K5s), then K5 on the
+    8K mask, each detection equal to the plain detector's; each row bit for
+    bit against its plain version and timed as phase 4b's rows (device ms
+    by the profiler, the wrapper and the plain version by CUDA events)
+    beside its bound; detect_frames' ms a frame at 3840x2160. Returns per
+    row (launches, max err, ms, plain ms, bound, wrapper ms)."""
+    import dataclasses
+
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.ops.detector import DetectorConfig
+    from aruco_slam_tpu_torch.ops.kernels import ccl
+
+    cfg = DetectorConfig()
+    r, C, s, r1, r2 = cfg.adaptive_radius, cfg.adaptive_C, cfg.mean_stride, cfg.ccl_rounds, \
+        cfg.closed_ccl_rounds
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for h, w in (UHD, UHD8):
+        plan = ccl.block_plan(h, w, 1, sms)
+        tiles = plan.tiles_x * plan.tiles_y
+        _require(plan.spilled and plan == ccl.spilled_plan(h, w, sms)
+                 and plan.ctas <= min(tiles, sms), f"{w}x{h}: plan {plan}")
+        print(f"phase 4c: {w}x{h} spills: {tiles} tiles of {plan.tile_rows}x{plan.tile_width} "
+              f"on a team of {plan.ctas} CTAs, {-(-tiles // plan.ctas)} or fewer each; "
+              f"workspaces {4 * plan.work_words / 1e6:.1f} MB in device memory")
+    img = _render_hd(SPILL_FRAMES, dev, *UHD)
+    mask8 = torch.as_tensor(np.random.default_rng(8).random((1, *UHD8)) < 0.6, device=dev)
+
+    branches = {"K3": (cfg, {"threshold_label_union.block": 1}),
+                "closing_union=False": (dataclasses.replace(cfg, closing_union=False),
+                                        {"threshold_label.block": 1}),
+                "mean_stride=3": (dataclasses.replace(cfg, mean_stride=3),
+                                  {"label_components.block": 1,
+                                   "label_components_seeded.block": 1})}
+    for bcfg, _ in branches.values():
+        runner.detect_frames(img, bcfg, SPILL_FRAMES)  # warm: the plans
+    ccl.label_components(mask8, r1)
+    torch.cuda.synchronize()
+    for k in ccl.LAUNCHES:
+        ccl.LAUNCHES[k] = 0
+    dets = {what: runner.detect_frames(img, bcfg, SPILL_FRAMES)
+            for what, (bcfg, _) in branches.items()}
+    torch.cuda.synchronize()
+    uhd_launches = {k: v for k, v in ccl.LAUNCHES.items() if v}
+    for k in ccl.LAUNCHES:
+        ccl.LAUNCHES[k] = 0
+    ccl.label_components(mask8, r1)
+    torch.cuda.synchronize()
+    uhd8_launches = {k: v for k, v in ccl.LAUNCHES.items() if v}
+    want = {k: v for _, e in branches.values() for k, v in e.items()}
+    _require(uhd_launches == want and uhd8_launches == {"label_components.block": 1},
+             f"spilled path launches {uhd_launches}, {uhd8_launches}")
+    print(f"phase 4c: launches in the spilled path: {SPILL_FRAMES} 3840x2160 frames "
+          f"{uhd_launches}; the 7680x4320 mask {uhd8_launches}")
+    for what, (bcfg, _) in branches.items():
+        c_err = _check_detections(dets[what], runner.detect_frames(img, bcfg, SPILL_FRAMES,
+                                                                   reference=True), what)
+        n_det = int(dets[what][2].sum())
+        _require(n_det > 0, f"3840x2160 {what}: no detection")
+        print(f"phase 4c: 3840x2160 detection ({what}): {n_det} detections equal to the plain "
+              f"detector (max |corner diff| {c_err:.3e} px)")
+    t = [_timed(lambda: runner.detect_frames(img, cfg, SPILL_FRAMES)) for _ in range(3)]
+    print(f"phase 4c: runner.detect_frames on {SPILL_FRAMES} 3840x2160 frames: "
+          f"{1e3 * statistics.median(t) / SPILL_FRAMES:.4f} ms/frame (median of 3: "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in t)} ms a call)")
+
+    fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+    seed = lab.reshape(fg.shape)
+    runs = {
+        "threshold_label_union.block.2160p": (
+            lambda: ccl.threshold_label_union(img, r, C, s, r1, r2),
+            lambda: ccl.threshold_label_union_reference(img, r, C, s, r1, r2), img),
+        "threshold_label.block.2160p": (lambda: ccl.threshold_label(img, r, C, s, r1),
+                                        lambda: ccl.threshold_label_reference(img, r, C, s, r1),
+                                        img),
+        "label_components.block.2160p": (lambda: ccl.label_components(fg, r1),
+                                         lambda: ccl.label_components_reference(fg, r1), fg),
+        "label_components_seeded.block.2160p": (
+            lambda: ccl.label_components(fg_c, r2, init=seed),
+            lambda: ccl.label_components_reference(fg_c, r2, init=seed), fg_c),
+        "label_components.block.4320p": (lambda: ccl.label_components(mask8, r1),
+                                         lambda: ccl.label_components_reference(mask8, r1),
+                                         mask8),
+    }
+    out = {}
+    for key, (kern, plain, x) in runs.items():
+        name = SPILL_ROWS[key]
+        step = ProbeStep(kern, plain, ccl.LAUNCHES, f"{name}.block", "ccl_", x, 0, 0)
+        _, err = _probe_check(key, step)
+        ms, how = _probe_ms(step, PROFILE_PADS_S[:1])
+        wrap_ms = _cuda_time(kern, 10)
+        plain_ms = _cuda_time(plain, 2)
+        n_bytes, n_ops = _ccl_work(name, r1, r2)
+        bound = _bound(x.numel() * n_bytes, x.numel() * n_ops)
+        n = (uhd8_launches if key.endswith("4320p") else uhd_launches)[f"{name}.block"]
+        out[key] = (n, err, ms, plain_ms, bound, wrap_ms)
+        print(f"phase 4c: {key} {ms:.4f} ms/launch on the device ({how}; {tuple(x.shape)}), "
+              f"bound {bound[0]:.5f} ms ({bound[1]}); wrapper {wrap_ms:.4f} ms/call, plain "
+              f"{plain_ms:.4f} ms/call")
     return out
 
 
@@ -2844,6 +2982,7 @@ def main() -> int:
     c2_launches = phase("3b", phase3b_config2_batched, dev)
     ccl_stats = phase(4, phase4_ccl, dev)
     probe_stats = phase("4b", phase4b_probes, dev)
+    spill_stats = phase("4c", phase4c_spilled, dev)
     img_launches = phase(5, phase5_image_path, dev)
     k6_err, _, k6_step, k6_wide = phase(6, phase6_k6, dev)
     k6_launches = phase(7, phase7_single_stream, dev)
@@ -2879,8 +3018,7 @@ def main() -> int:
         kernels.append(row(f"ekf_frame_batched.{kind}", "ekf_frame_batched.cu",
                            "ekf_update_batched.py:77", k2_launches[kind], err, ms, plain_ms,
                            bound, wrapper_ms=wrap_ms, m300_ms=wide_ms))
-    for name, line in (("threshold_label_union", 229), ("threshold_label", 217),
-                       ("label_components", 200), ("label_components_seeded", 207)):
+    for name, line in CCL_LINES.items():
         for kind in ("cluster", "block"):
             key = f"{name}.{kind}"
             err, ms, plain_ms, bound = ccl_stats[key]
@@ -2892,6 +3030,11 @@ def main() -> int:
         source = "probes.cu" if name.startswith("probe_") else "ccl.cu"
         kernels.append(row(name, source, PROBE_REPLACES[name], n, err, ms, plain_ms, bound,
                            library_ms=lib_ms, wrapper_ms=wrap_ms))
+    # the spilled plan on users' frames (phase 4c): ms is the device time per
+    # launch (the profiler), wrapper_ms the call through the wrapper
+    for key, (n, err, ms, plain_ms, bound, wrap_ms) in spill_stats.items():
+        kernels.append(row(key, "ccl.cu", f"ccl.py:{CCL_LINES[SPILL_ROWS[key]]}", n, err, ms,
+                           plain_ms, bound, wrapper_ms=wrap_ms))
     # K6's frame step at its paths' shapes: config 2's map at 128 slots (N =
     # 387, cluster) and at 512 (N = 1,539, grid; its full square beside it).
     # ms is the kernel alone in place (the profiler), wrapper_ms the call

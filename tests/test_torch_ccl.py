@@ -266,9 +266,42 @@ def test_block_tile_layout():
 
 def test_block_plan_spills_frames_larger_than_the_card():
     """A 2160x3840 frame needs more tiles than an H100 has SMs at any tile
-    height: 64-row tiles, two across, their workspaces in device memory,
-    one team on every SM."""
+    height that fits shared memory: two tiles across, their workspaces in
+    device memory, 33-row tiles so that the team's 132 CTAs take one each."""
     plan = ccl.block_plan(2160, 3840, 1)
-    assert plan == ccl.BlockPlan(64, 1920, 2, 34, 1, ccl.H100_SMS, True, 0,
-                                 68 * ccl.block_tile_words(64, 1920, shared=False))
+    assert plan == ccl.BlockPlan(33, 1920, 2, 66, 1, ccl.H100_SMS, True, 0,
+                                 132 * ccl.block_tile_words(33, 1920, shared=False))
     assert ccl.body(2160, 3840) == "block"
+
+
+@pytest.mark.parametrize("sms", [ccl.H100_SMS, 114])
+@pytest.mark.parametrize("h,w", [(1080, 1920), (2160, 3840), (2160, 4096), (3000, 4000),
+                                 (4320, 7680)])
+def test_spilled_plan_balances_the_team(h, w, sms):
+    """The spilled plan at 1080p and at the 4K, 12 MP and 8K frames that
+    spill, on an H100 SXM's 132 SMs and a PCIe card's 114: tiles of at most
+    64 rows, at most a CTA an SM, every CTA of the team taking
+    ceil(tiles / ctas) tiles or one fewer under the kernel's rule (CTA r
+    takes tiles r, r + ctas, ...), none without a tile, the busiest as few
+    as the SMs allow, and the workspaces of every tile in device memory.
+    Where the frame spills, the planner's plan is this one; where it does
+    not, this one has the resident plan's tiles and team."""
+    plan = ccl.spilled_plan(h, w, sms)
+    tiles = plan.tiles_x * plan.tiles_y
+    assert plan.spilled and plan.teams == 1 and plan.smem_bytes == 0
+    assert 1 <= plan.tile_rows <= ccl.MAX_TILE_ROWS
+    assert plan.tiles_y == -(-h // plan.tile_rows)
+    assert (plan.tiles_x, plan.tile_width) == ccl._tile_columns(w)
+    assert plan.ctas <= sms
+    busiest = -(-tiles // plan.ctas)
+    per_cta = [len(range(r, tiles, plan.ctas)) for r in range(plan.ctas)]
+    assert set(per_cta) <= {busiest, busiest - 1} and min(per_cta) >= 1
+    assert busiest == -(-tiles // sms)
+    assert plan.work_words == tiles * ccl.block_tile_words(plan.tile_rows, plan.tile_width,
+                                                           shared=False)
+    resident = ccl.block_plan(h, w, 1, sms)
+    if resident.spilled:
+        assert resident == plan
+    else:
+        assert (resident.tile_rows, resident.tiles_y, resident.ctas) == (
+            plan.tile_rows, plan.tiles_y, plan.ctas)

@@ -265,12 +265,49 @@ def test_ccl_block_body_on_tile_crossing_mask(dev, frames):
 
 def test_ccl_block_body_spills_frames_larger_than_the_card(dev):
     """A 2160x3840 mask: more tiles than SMs, their workspaces in device
-    memory, one team on every SM."""
+    memory, one team of a CTA a tile."""
     fg = torch.as_tensor(np.random.default_rng(5).random((1, 2160, 3840)) < 0.6, device=dev)
     assert ccl.block_plan(2160, 3840, 1).spilled
     lab = ccl.label_components(fg, 3)
     torch.cuda.synchronize()
     assert torch.equal(lab, ccl.label_components_reference(fg, 3))
+
+
+def test_k3_on_4k_frames_in_the_spilled_plan(dev):
+    """K3 on rendered 3840x2160 frames (a 4K camera's, the spilled plan's
+    frame: a team of 132 CTAs, one 33-row tile each) bit for bit, its
+    launch counted."""
+    img = _hd_frames(dev, 2160, 3840, 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ccl.block_plan(2160, 3840, 2, sms) == ccl.spilled_plan(2160, 3840, sms)
+    before = ccl.LAUNCHES["threshold_label_union.block"]
+    out = ccl.threshold_label_union(img, 7, 7.0, 4, 3, 2)
+    ref = ccl.threshold_label_union_reference(img, 7, 7.0, 4, 3, 2)
+    torch.cuda.synchronize()
+    assert ccl.LAUNCHES["threshold_label_union.block"] == before + 1
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert bool(ref[0].any()) and not bool(ref[0].all())
+
+
+def test_k5s_on_an_8k_mask_in_the_spilled_plan(dev):
+    """K5s seeded with K5's labels on a 7680x4320 random mask (the spilled
+    plan's 396 tiles, three a CTA) bit for bit, each launch counted."""
+    fg = torch.as_tensor(np.random.default_rng(8).random((1, 4320, 7680)) < 0.6, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ccl.block_plan(4320, 7680, 1, sms)
+    assert plan.spilled and plan.tiles_x * plan.tiles_y > plan.ctas
+    before = dict(ccl.LAUNCHES)
+    lab = ccl.label_components(fg, 3)
+    seed = lab.reshape(fg.shape)
+    seeded = ccl.label_components(fg, 2, init=seed)
+    torch.cuda.synchronize()
+    assert ccl.LAUNCHES["label_components.block"] == before["label_components.block"] + 1
+    assert (ccl.LAUNCHES["label_components_seeded.block"]
+            == before["label_components_seeded.block"] + 1)
+    ref = ccl.label_components_reference(fg, 3)
+    assert torch.equal(lab, ref)
+    assert torch.equal(seeded, ccl.label_components_reference(fg, 2, init=ref.reshape(fg.shape)))
 
 
 def _probe_frames(dev, n):
@@ -319,17 +356,20 @@ def test_threshold_only_in_both_bodies(dev):
 
 def test_k4_on_random_bytes_in_both_plans(dev):
     """P3: K4 at 3 rounds on a 1920x1080 frame of random bytes in the
-    resident plan (the planner's) and the spilled plan: fg and labels equal
-    to the plain version's and to each other's."""
+    resident plan (the planner's), the spilled plan and a spilled team of
+    50 CTAs that take 3 or 2 of the 120 tiles each: fg and labels equal to
+    the plain version's and to each other's."""
     img = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (1, 1080, 1920)),
                           device=dev).to(torch.uint8).float().contiguous()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plans = (None, ccl.spilled_plan(1080, 1920, sms))
+    spilled = ccl.spilled_plan(1080, 1920, sms)
+    plans = (None, spilled, spilled._replace(tile_rows=9, tiles_y=120, ctas=50, work_words=120 * (
+        ccl.block_tile_words(9, 1920, shared=False))))
     before = ccl.LAUNCHES["threshold_label.block"]
     outs = [ccl.threshold_label(img, 7, 7.0, 4, 3, plan=plan) for plan in plans]
     ref = ccl.threshold_label_reference(img, 7, 7.0, 4, 3)
     torch.cuda.synchronize()
-    assert ccl.LAUNCHES["threshold_label.block"] == before + 2
+    assert ccl.LAUNCHES["threshold_label.block"] == before + 3
     for fg, lab in outs:
         assert torch.equal(fg, ref[0]) and torch.equal(lab, ref[1])
     assert 0.3 < float(ref[0].float().mean()) < 0.7
@@ -337,13 +377,16 @@ def test_k4_on_random_bytes_in_both_plans(dev):
 
 def test_k4_refuses_a_plan_the_chunk_cannot_take(dev):
     """csrc ``block_launch`` refuses a plan that does not fit the chunk
-    (another frame's tiles, two spilled teams, a short workspace, a CTA
-    short of the tiles, a tile past shared memory) and launches nothing."""
+    (another frame's tiles, two spilled teams, a short workspace, a
+    spilled CTA without a tile, a CTA short of the tiles, a tile past
+    shared memory) and launches nothing."""
     img = torch.zeros(2, 1080, 1920, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     spilled, resident = ccl.spilled_plan(1080, 1920, sms), ccl.block_plan(1080, 1920, 2, sms)
+    tiles = spilled.tiles_x * spilled.tiles_y
     bad = (ccl.spilled_plan(720, 1280, sms), spilled._replace(teams=2),
            spilled._replace(work_words=spilled.work_words - 1),
+           spilled._replace(ctas=tiles + 1),
            resident._replace(ctas=resident.ctas - 1),
            resident._replace(tile_rows=64, tiles_y=17, ctas=17))
     before = dict(ccl.LAUNCHES)

@@ -160,10 +160,10 @@ def test_k4_plain_on_random_bytes_matches_pallas():
 
 
 def test_spilled_plan_at_1080p():
-    """P3's second plan on an H100: 17 tiles of 64 rows, their workspaces in
-    device memory, one team on all 132 SMs (115 of them with no tile)."""
+    """P3's second plan on an H100: the resident plan's 120 tiles of 9
+    rows, a CTA each on 120 SMs, their workspaces in device memory."""
     assert ccl.spilled_plan(1080, 1920, 132) == ccl.BlockPlan(
-        64, 1920, 1, 17, 1, 132, True, 0, 17 * ccl.block_tile_words(64, 1920, shared=False))
+        9, 1920, 1, 120, 1, 120, True, 0, 120 * ccl.block_tile_words(9, 1920, shared=False))
     # the plan block_plan falls back to is the same function's
     assert ccl.block_plan(2160, 3840, 1) == ccl.spilled_plan(2160, 3840)
 

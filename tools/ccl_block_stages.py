@@ -11,15 +11,23 @@ raw mask) through the port's wrappers on rendered 1920x1080 frames, and
 prints for each segment between two marks the median and the largest time
 over the team's CTAs, and which tile took the largest. A ``wait`` segment
 is a barrier's: the time from a CTA's arrival to its release, that is how
-long the slowest tile kept it waiting. The labels are checked against the
-plain version, so the marks change no result. Its marks anchor on lines
-of ``csrc/ccl.cu`` and ``csrc/grid_barrier.cuh``: edit them together.
+long the slowest tile kept it waiting. With ``--p3`` it runs instead K4
+(3 rounds, the probes' threshold) on P3's 1920x1080 frame of random bytes
+in the planner's resident plan and in ``ccl.spilled_plan``, and reads the
+team's CTAs that hold a tile; ``TREE`` (default: this checkout) is the
+root of the checkout whose port, kernel source and ``chip_smoke.py`` run,
+so that two trees' spilled plans compare on one card. The labels are
+checked against the plain version, so the marks change no result. Its
+marks anchor on lines of ``csrc/ccl.cu`` and ``csrc/grid_barrier.cuh``:
+edit them together. The last line is a JSON object of every segment.
 Needs one CUDA card and nvcc.
 
     python3 tools/ccl_block_stages.py [FRAMES]   (default 1)
+    python3 tools/ccl_block_stages.py --p3 [TREE]
 """
 
 import ctypes
+import json
 import subprocess
 import sys
 import tempfile
@@ -92,10 +100,44 @@ def marked_source(csrc: Path) -> str:
     return src + READER
 
 
+def _segments(name, plan, marks, count, what):
+    """Prints and returns the segments of the first team's CTAs that hold a
+    tile (ranks below the frame's tiles)."""
+    import numpy as np
+
+    ctas = min(plan.ctas, plan.tiles_x * plan.tiles_y)
+    n = int(count[:ctas].min())
+    raw = marks.reshape(MAX_CTAS, MAX_MARKS)[:ctas, :n]
+    t = (raw >> np.uint64(4)).astype(np.int64)
+    tags = (raw & np.uint64(15)).astype(int)
+    seg = np.diff(t, axis=1) / 1e3
+    total = (t[:, -1].max() - t[:, 0].min()) / 1e3
+    print(f"{name} on {what}: tiles of {plan.tile_rows}x{plan.tile_width}, "
+          f"{plan.tiles_x * plan.tiles_y} a frame, {plan.ctas} CTAs a team "
+          f"({'spilled' if plan.spilled else 'resident'}), {plan.teams} team(s); the first "
+          f"team's first frame, {total:.1f} us in all")
+    rows = []
+    for i in range(seg.shape[1]):
+        rows.append({"tag": TAGS[tags[0, i + 1]], "median_us": float(np.median(seg[:, i])),
+                     "largest_us": float(seg[:, i].max()), "tile": int(seg[:, i].argmax())})
+        print(f"  {i:2d} {rows[-1]['tag']:13s} median {rows[-1]['median_us']:6.1f} us, "
+              f"largest {rows[-1]['largest_us']:6.1f} us (tile {rows[-1]['tile']})")
+    waits = sum(r["median_us"] for r in rows if r["tag"] == "wait")
+    print(f"  barrier waits (medians) {waits:.1f} us of {total:.1f}")
+    return {"plan": plan._asdict(), "total_us": float(total), "wait_us": float(waits),
+            "segments": rows}
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    args = sys.argv[1:]
+    p3 = args[:1] == ["--p3"]
+    if p3:
+        args = args[1:]
+        if args:
+            sys.path.insert(0, str(Path(args[0]).resolve()))
     import chip_smoke as cs
     from aruco_slam_tpu_torch.ops.detector import DetectorConfig
     from aruco_slam_tpu_torch.ops.kernels import _build, ccl
@@ -103,10 +145,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ccl_block_stages: needs a CUDA card", file=sys.stderr)
         return 2
-    frames = int(sys.argv[1]) if len(sys.argv) > 1 else 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())
+    print(f"kernel source: {_build.CSRC}")
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "ccl.cu"
         src.write_text(marked_source(_build.CSRC))
@@ -116,35 +158,40 @@ def main() -> int:
     _build._loaded["ccl"] = lib  # the wrappers launch the marked build
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cfg = DetectorConfig()
-    r, C, s, r1, r2 = (cfg.adaptive_radius, cfg.adaptive_C, cfg.mean_stride, cfg.ccl_rounds,
-                       cfg.closed_ccl_rounds)
-    img = cs._render_hd(frames, dev)
-    ref = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
     marks = np.zeros(MAX_CTAS * MAX_MARKS, np.uint64)
     count = np.zeros(MAX_CTAS, np.int32)
-    plan = ccl.block_plan(1080, 1920, frames)
-    calls = {"K3": (lambda: ccl.threshold_label_union(img, r, C, s, r1, r2), ref),
-             "K5": (lambda: (ccl.label_components(ref[0], r1),),
-                    (ccl.label_components_reference(ref[0], r1),))}
-    for name, (call, want) in calls.items():
+    if p3:
+        r, C, s, n = cs.PROBE_RADIUS, cs.PROBE_C, cs.PROBE_STRIDE, cs.P3_ROUNDS
+        img = cs._probe_frames(dev)["p3"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plans = {"resident": ccl.block_plan(1080, 1920, 1, sms),
+                 "spilled": ccl.spilled_plan(1080, 1920, sms)}
+        ref = ccl.threshold_label_reference(img, r, C, s, n)
+        calls = {f"K4 {kind}": (lambda p=p: ccl.threshold_label(img, r, C, s, n, plan=p), ref, p)
+                 for kind, p in plans.items()}
+        what = "P3's 1920x1080 frame of random bytes, 3 rounds"
+    else:
+        frames = int(args[0]) if args else 1
+        cfg = DetectorConfig()
+        r, C, s, r1, r2 = (cfg.adaptive_radius, cfg.adaptive_C, cfg.mean_stride, cfg.ccl_rounds,
+                           cfg.closed_ccl_rounds)
+        img = cs._render_hd(frames, dev)
+        ref = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+        plan = ccl.block_plan(1080, 1920, frames)
+        calls = {"K3": (lambda: ccl.threshold_label_union(img, r, C, s, r1, r2), ref, plan),
+                 "K5": (lambda: (ccl.label_components(ref[0], r1),),
+                        (ccl.label_components_reference(ref[0], r1),), plan)}
+        what = f"{frames} 1920x1080 frame(s)"
+    out = {"card": smi.stdout.strip()}
+    for name, (call, want, plan) in calls.items():
         for _ in range(2):  # the second launch is read: the first builds the plan
             got = call()
             torch.cuda.synchronize()
             lib.ccl_marks(marks.ctypes.data, count.ctypes.data)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise SystemExit(f"{name}: the marked build differs from the plain version")
-        n = int(count[:plan.ctas].min())
-        raw = marks.reshape(MAX_CTAS, MAX_MARKS)[:plan.ctas, :n]
-        t = (raw >> np.uint64(4)).astype(np.int64)
-        tags = (raw & np.uint64(15)).astype(int)
-        seg = np.diff(t, axis=1) / 1e3
-        print(f"{name} on {frames} 1920x1080 frame(s): tiles of {plan.tile_rows} rows, "
-              f"{plan.ctas} CTAs a team, {plan.teams} team(s); the first team's first frame, "
-              f"{(t[:, -1].max() - t[:, 0].min()) / 1e3:.1f} us in all")
-        for i in range(seg.shape[1]):
-            print(f"  {i:2d} {TAGS[tags[0, i + 1]]:13s} median {np.median(seg[:, i]):6.1f} us, "
-                  f"largest {seg[:, i].max():6.1f} us (tile {seg[:, i].argmax()})")
+        out[name] = _segments(name, plan, marks, count, what)
+    print(json.dumps(out))
     return 0
 
 

@@ -53,7 +53,17 @@ renderer, from this tree; DetectorConfig()'s threshold and rounds):
   - ``det_1080p_ms_per_frame``: ``runner.detect_frames`` over the 16
     1920x1080 frames in one call, ms a frame (CUDA events, median of 3);
   - ``k3_vga128_ms`` / ``k3_vga16_ms``: K3 alone in the cluster body at
-    128 and 16 rendered 640x480 frames.
+    128 and 16 rendered 640x480 frames;
+  - ``k3_2160p4_ms`` ... ``k5s_2160p4_ms`` (and ``_call_ms``): K3, K4, K5
+    and K5s as above on 4 rendered 3840x2160 frames, and ``k5_4320p1_ms``
+    K5 on a 7680x4320 random mask (``default_rng(8)``, foreground 0.6):
+    frames whose tiles spill (each tree's ``ccl.block_plan``);
+    ``det_2160p_ms_per_frame``: ``runner.detect_frames`` over the 4
+    3840x2160 frames in one call;
+  - ``p3_resident_ms`` / ``p3_spilled_ms``: P3, K4 at 3 rounds on a
+    1920x1080 frame of random bytes (``default_rng(0)``) in the planner's
+    plan and in the tree's own ``ccl.spilled_plan``; ``p3_spilled_ctas`` /
+    ``p3_spilled_tiles`` that plan's team and tiles.
 
 With ``--k6`` it measures the single-stream path (chip_smoke.py phase 7,
 and phase 6's K6 states, 10 encoder ticks a frame, every observation
@@ -319,6 +329,7 @@ def measure_k6(root):
 def measure_ccl(root):
     """One ``--ccl`` run's numbers for the checkout at ``root``."""
     sys.path.insert(0, str(root))
+    import numpy as np
     import torch
 
     from aruco_slam_tpu_torch import runner
@@ -356,6 +367,30 @@ def measure_ccl(root):
         img = vga[:n].contiguous()
         out[f"k3_vga{n}_ms"] = cs._kernel_ms(
             lambda: ccl.threshold_label_union(img, r, C, s, r1, r2), "ccl_")[0]
+    del hd, vga, fg, lab, fg_c, seed, calls
+    uhd = cs._render_hd(4, dev, 2160, 3840)
+    fg, lab, fg_c, _ = ccl.threshold_label_union_reference(uhd, r, C, s, r1, r2)
+    seed = lab.reshape(fg.shape)
+    mask8 = torch.as_tensor(np.random.default_rng(8).random((1, 4320, 7680)) < 0.6, device=dev)
+    for tag, call in (("k3_2160p4", lambda: ccl.threshold_label_union(uhd, r, C, s, r1, r2)),
+                      ("k4_2160p4", lambda: ccl.threshold_label(uhd, r, C, s, r1)),
+                      ("k5_2160p4", lambda: ccl.label_components(fg, r1)),
+                      ("k5s_2160p4", lambda: ccl.label_components(fg_c, r2, init=seed)),
+                      ("k5_4320p1", lambda: ccl.label_components(mask8, r1))):
+        out[f"{tag}_ms"] = cs._kernel_ms(call, "ccl_")[0]
+        out[f"{tag}_call_ms"] = cs._cuda_time(call, 10)
+    runner.detect_frames(uhd, cfg, 4)  # warm
+    times = [cs._timed(lambda: runner.detect_frames(uhd, cfg, 4)) for _ in range(3)]
+    out["det_2160p_ms_per_frame"] = 1e3 * statistics.median(times) / 4
+    p3 = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (1, 1080, 1920)).astype(
+        np.uint8), device=dev).float().contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spilled = ccl.spilled_plan(1080, 1920, sms)
+    for tag, plan in (("resident", None), ("spilled", spilled)):
+        out[f"p3_{tag}_ms"] = cs._kernel_ms(
+            lambda: ccl.threshold_label(p3, 7, 7.0, 4, 3, plan=plan), "ccl_")[0]
+    out["p3_spilled_ctas"] = spilled.ctas
+    out["p3_spilled_tiles"] = spilled.tiles_x * spilled.tiles_y
     return out
 
 
