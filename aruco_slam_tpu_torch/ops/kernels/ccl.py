@@ -26,8 +26,9 @@ Counterpart of ``aruco_slam_tpu.ops.kernels.ccl``:
   labelling compiled out, so that its time is the stage's share of K4's.
 
 Each computes what its plain version beside it computes, bit for bit: the
-threshold is exact integer arithmetic in float32 until its two divisions
-(for integer-valued images), and the labelling is integer min-propagation.
+threshold adds in the plain version's order and divides as it does (exact
+integer arithmetic in float32 until its two divisions for integer-valued
+images), and the labelling is integer min-propagation.
 The plain versions are built from ``ops.detector``'s ``adaptive_threshold``,
 ``binary_close3`` and ``label_components``.
 
@@ -170,9 +171,14 @@ def block_tile_words(rows: int, width: int, shared: bool = True) -> int | None:
     """4-byte words of a ``rows x width`` tile's workspace in the block
     body, or None where the tile does not take it: at most 64 rows, a width
     that is a multiple of 32 and at most 2048 and, in shared memory, within
-    227 KB. The tile's labels, the halo rows and columns, three bit masks
-    with a ring of the neighbours' bits, and each 32-pixel word's first and
-    last pre-step label (the Jacobi step's). Mirrors csrc ``tile_layout``."""
+    227 KB. The tile's labels (its pixels while the threshold runs), three
+    bit masks with a ring of the neighbours' bits, the halo rows and
+    columns, and each 32-pixel word's first and last pre-step label (the
+    Jacobi step's); the threshold's window sums and means take the words
+    past the raw mask until the labels start, a chunk of cell rows at a
+    time (a launch whose tiles hold not even one row's raises: a window
+    radius of hundreds of cells at stride 1). Mirrors csrc
+    ``tile_layout``."""
     if not (1 <= rows <= MAX_TILE_ROWS and 32 <= width <= MAX_TILE_WIDTH and width % 32 == 0):
         return None
     wq = width // 32
@@ -181,10 +187,11 @@ def block_tile_words(rows: int, width: int, shared: bool = True) -> int | None:
 
 
 def block_scratch_words(h: int, w: int, plan: BlockPlan, stride: int | None = None) -> int:
-    """A team's exchange scratch in 4-byte words: the threshold's two cell
-    grids (``stride``: the fused threshold's, None for K5 / K5s), each tile
-    row's edge rows and run summaries, each tile column's edge columns and
-    run summaries. Mirrors csrc ``team_words``."""
+    """A team's exchange scratch in 4-byte words: the threshold's two grids
+    of block means, for the team's even and odd frames (``stride``: the
+    fused threshold's, None for K5 / K5s), each tile row's edge rows and
+    run summaries, each tile column's edge columns and run summaries.
+    Mirrors csrc ``team_words``."""
     cells = (h // stride) * (w // stride) if stride else 0
     return 2 * cells + 4 * plan.tiles_y * w + 4 * plan.tiles_x * h
 

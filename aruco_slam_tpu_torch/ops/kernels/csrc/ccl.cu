@@ -14,8 +14,9 @@
 // and the probe benchmarks/_ccl_fixed_probe.py:49 thr_only_kernel (P1a):
 // the threshold stage alone, fg written as int32 (K4 with its labelling
 // compiled out, so that its time is the stage's share of K4's), as
-// compile-time variants of each body, <kThreshold, kUnion, kSeeded,
-// kLabels>, each with a C entry point below. Each computes what the Pallas
+// compile-time variants of each body, <pixel type, kThreshold, kUnion,
+// kSeeded, kLabels> (the pixel type uint8 or float32; K5 and K5s read no
+// image), each with a C entry point below. Each computes what the Pallas
 // body computes, bit for bit:
 //   - threshold: s x s block sums (rows of each block column, then across
 //     the columns), block mean = sum * (1 / s^2) for a power-of-two s, a
@@ -23,7 +24,8 @@
 //     rows, each in index order), one IEEE division by (2r+1)^2,
 //     nearest-upsample, fg = x < mean - C. For an integer-valued image every
 //     sum is exact in float32; no fast-math (ops/kernels/_build.py), so the
-//     division is IEEE.
+//     division is IEEE, and the additions keep this order, so float32
+//     frames of any values give the plain version's bits too.
 //   - close: dilation reads out-of-image pixels as background, erosion as
 //     foreground.
 //   - CCL: per round a Jacobi 8-neighbour min (every pixel reads the
@@ -37,13 +39,20 @@
 // about 11 bytes a pixel: 0.1 ms for 128 frames at 480x640) but the ~25
 // dependent passes over a frame's label image, each ended by a barrier.
 // Both bodies keep a frame's labels and masks on chip between the passes.
+// The threshold alone (P1a) is bound by bytes: the image in and fg out.
+// In both bodies each CTA reads its band's or tile's pixels from device
+// memory once, as 16-byte cp.async copies into its shared memory (where
+// the labels go later), forms the block means of the cells that start
+// there from that copy, and after one barrier the window means of its
+// cells, then compares the copy, four pixels a thread: fg stored 4 or 16
+// bytes at a time, eight threads' bits a mask word.
 //
 // The cluster body: one frame per cluster of 8 CTAs (1024 threads each);
 // CTA r owns a band of h / 8 whole rows, and the band's labels (int32), its
 // raw, dilated and closed masks (one bit a pixel) and, while the threshold
-// runs, its block-mean cells stay in the CTA's shared memory for the whole
-// frame. Only the image is read from device memory, and only the outputs
-// are written to it. Across bands:
+// runs, its pixels and block-mean cells stay in the CTA's shared memory for
+// the whole frame. Only the image is read from device memory, and only the
+// outputs are written to it. Across bands:
 //   - the threshold's vertical window and the 3x3 closing read the peers'
 //     cells and mask rows through distributed shared memory after a
 //     hardware cluster barrier;
@@ -76,13 +85,22 @@
 // through several of them in turn: CTA r of the team takes tiles r, r +
 // ctas, ..., and the plan (ccl.py spilled_plan) cuts the frame into tiles
 // and sizes the team so that every CTA takes k tiles or k - 1, none of them
-// idle at the barriers. Inside a tile the Jacobi step runs in
-// place, a warp sweeping each column of 32-pixel words down the tile (each
-// row's horizontal 3-min formed once). Across tiles, through the team's
-// exchange scratch in device memory (read through L2 with __ldcg, after a
-// team barrier):
-//   - the threshold's block means and vertical window sums, one grid per
-//     frame computed by the whole team;
+// idle at the barriers (there the threshold reads each tile's pixels from
+// device memory twice: a copy in device memory would save nothing). The two
+// plans are two kernels (template flag kSpilled, chosen at launch): each
+// holds one copy of the threshold, and the resident plan's reads and
+// writes of its workspace compile to shared-memory instructions. Inside
+// a tile the Jacobi step runs in place, a warp sweeping each column of
+// 32-pixel words down the tile (each row's horizontal 3-min formed once).
+// Across tiles, through the team's exchange scratch in device memory (read
+// through L2 with __ldcg, after a team barrier):
+//   - the threshold's block means: each tile writes those of the cells
+//     that start in it (reading a cell's rows past the tile's last one
+//     from device memory), and after one team barrier reads the grid rows
+//     its window needs and forms the window sums itself. Two grids, for
+//     the team's even and odd frames, so that the threshold alone needs
+//     one team barrier a frame; a second follows where labels do (the
+//     masks' rings read the neighbours' fg bytes);
 //   - the masks' rings, read from the mask bytes the neighbours wrote;
 //   - the Jacobi step's halo: each tile's edge rows and columns;
 //   - the row and column scans run within the tile; a run that crosses a
@@ -110,11 +128,11 @@ constexpr int kAllFg = 1 << 30;          // column summary flag; labels < 2^30
 // and a lane's part of a row (w / 32 pixels) in one 32-bit register.
 constexpr int kMaxBandRows = 64;
 constexpr int kMaxRowPixels = 1024;
-constexpr int kLoads = 4;  // label loads a thread issues before it uses them
+constexpr int kLoads = 4;  // loads a thread issues before it uses them
+constexpr int kRun = 4;    // the threshold's vertical window sums a thread forms
 
 struct Args {
-  const void* img;      // [N, H, W] uint8 or float32 (threshold variants)
-  int img_u8;
+  const void* img;      // [N, H, W] the kernel's pixel type (threshold variants)
   uint8_t* fg;          // [N, H, W] mask: written by the threshold, else read
   int* lab;             // [N, H*W] labels of fg; the threshold alone: fg as int32
   uint8_t* fg_c;        // [N, H, W] closed mask (union)
@@ -124,11 +142,6 @@ struct Args {
   float C;
   int rounds, closed_rounds;
 };
-
-__device__ __forceinline__ float pixel(const Args& a, size_t i) {
-  return a.img_u8 ? static_cast<float>(static_cast<const uint8_t*>(a.img)[i])
-                  : static_cast<const float*>(a.img)[i];
-}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -159,6 +172,205 @@ __device__ __forceinline__ int warp_seg_min(int v, int f, int lane, int carry) {
   return f ? v : min(v, carry);
 }
 
+// The (row, column) of a thread's elements e = threadIdx.x, + kThreads, ...
+// of a row-major array `width` wide, stepped without a division.
+struct Walk {
+  int y, x, dy, dx, width;
+  __device__ explicit Walk(int w) : width(w) {
+    y = threadIdx.x / w;
+    x = threadIdx.x - y * w;
+    dy = kThreads / w;
+    dx = kThreads - dy * w;
+  }
+  __device__ void next() {
+    x += dx;
+    y += dy;
+    if (x >= width) {
+      x -= width;
+      ++y;
+    }
+  }
+};
+
+// ---- the threshold's pixels, in both bodies: a CTA's region (a band or a
+// tile) of the frame, copied once into its shared memory ----
+
+// 16-byte copies from device to shared memory that bypass the registers
+// (cp.async): each thread issues its own, then waits for them before a
+// __syncthreads.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four consecutive pixels as floats, from a 4-pixel aligned address.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const uint8_t* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_float4(static_cast<float>(v & 255u), static_cast<float>((v >> 8) & 255u),
+                     static_cast<float>((v >> 16) & 255u), static_cast<float>(v >> 24));
+}
+
+// Whether the image's pixels 4k .. 4k + 3 of every row lie 4-pixel aligned.
+template <typename P>
+__device__ __forceinline__ bool quad_aligned(const Args& a) {
+  return (a.w & 3) == 0 && (reinterpret_cast<uintptr_t>(a.img) & (4 * sizeof(P) - 1)) == 0;
+}
+
+// The first n <= 4 of four pixels of the image at p (the rest 0): one load
+// where all four are wanted and aligned.
+template <typename P>
+__device__ __forceinline__ float4 load_upto4(const P* p, int n, bool quad) {
+  if (quad && n == 4) return load4(p);
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = j < n ? static_cast<float>(p[j]) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The region of rows x cols pixels from (y0, x0) of the frame at px into
+// shared memory st (row stride sw), as they are (uint8 or float32): 16-byte
+// copies where every row of the region starts 16-byte aligned and holds
+// whole vectors, else pixel by pixel.
+template <typename P>
+__device__ void thr_stage(const Args& a, size_t px, int y0, int x0, int rows, int cols, P* st,
+                          int sw) {
+  const P* img = static_cast<const P*>(a.img) + px + static_cast<size_t>(y0) * a.w + x0;
+  constexpr int kVec = 16 / sizeof(P);  // pixels a vector
+  const size_t pitch = static_cast<size_t>(a.w) * sizeof(P);
+  if (((reinterpret_cast<uintptr_t>(img) | pitch | cols * sizeof(P)) & 15) == 0) {
+    const int per_row = cols / kVec;
+    Walk q(per_row);
+    for (int e = threadIdx.x; e < rows * per_row; e += kThreads, q.next())
+      copy16_async(st + q.y * sw + q.x * kVec, img + static_cast<size_t>(q.y) * a.w + q.x * kVec);
+    copy_async_wait();
+  } else {
+    Walk q(cols);
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads, q.next())
+      st[q.y * sw + q.x] = img[static_cast<size_t>(q.y) * a.w + q.x];
+  }
+}
+
+// The block means of the cells whose first pixel lies in the region of
+// rows x cols pixels from (y0, x0) of the frame at px (kStaged: copied to
+// st, row stride sw), into g0 (cell (cy, cx) at (cy - gy0) * ws + cx):
+// each cell's rows added in order down each of its columns, the columns'
+// sums in order, times 1 / s^2; four columns at a time where s is a
+// multiple of 4. A cell's rows past the region's last (a tile height that
+// is no multiple of s) are read from device memory.
+template <typename P, bool kStaged>
+__device__ void thr_block_means(const Args& a, size_t px, const P* st, int sw, int y0, int x0,
+                                int rows, int cols, float* g0, int gy0) {
+  const int s = a.stride, ls = __ffs(s) - 1, ws = a.w >> ls;
+  const int cy0 = (y0 + s - 1) >> ls, ny = ((y0 + rows + s - 1) >> ls) - cy0;
+  const int cx0 = (x0 + s - 1) >> ls, nx = ((x0 + cols + s - 1) >> ls) - cx0;
+  if (ny <= 0 || nx <= 0) return;
+  const P* img = static_cast<const P*>(a.img) + px;
+  const bool quad = quad_aligned<P>(a);
+  const float inv_ss = 1.0f / static_cast<float>(s * s);  // exact: s is a power of two
+  Walk q(nx);
+  for (int c = threadIdx.x; c < ny * nx; c += kThreads, q.next()) {
+    const int cy = cy0 + q.y, cx = cx0 + q.x, y = cy << ls, x = cx << ls;
+    float acc = 0.0f;
+    if ((s & 3) == 0) {
+      for (int dx = 0; dx < s; dx += 4) {
+        float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int dy = 0; dy < s; ++dy) {
+          const int ty = y + dy - y0, tx = x + dx - x0;
+          const float4 v = kStaged && ty < rows && tx < cols
+                               ? load4(st + ty * sw + tx)
+                               : load_upto4(img + static_cast<size_t>(y + dy) * a.w + x + dx, 4,
+                                            quad);
+          if (dy == 0) {
+            t = v;
+          } else {
+            t.x += v.x;
+            t.y += v.y;
+            t.z += v.z;
+            t.w += v.w;
+          }
+        }
+        acc = dx == 0 ? t.x : acc + t.x;
+        acc += t.y;
+        acc += t.z;
+        acc += t.w;
+      }
+    } else {
+      for (int dx = 0; dx < s; ++dx) {
+        float t = 0.0f;
+        for (int dy = 0; dy < s; ++dy) {
+          const int ty = y + dy - y0, tx = x + dx - x0;
+          const float v = kStaged && ty < rows && tx < cols
+                              ? static_cast<float>(st[ty * sw + tx])
+                              : static_cast<float>(img[static_cast<size_t>(y + dy) * a.w + x + dx]);
+          t = dy == 0 ? v : t + v;
+        }
+        acc = dx == 0 ? t : acc + t;
+      }
+    }
+    g0[(cy - gy0) * ws + cx] = acc * inv_ss;
+  }
+}
+
+// Rows ya .. yb - 1 of a region `width` pixels wide (a multiple of 32,
+// cols of them in the frame) from (y0, x0) of the frame at px (kStaged:
+// copied to st, row stride sw), compared with their cells' window means
+// (cell (cy, cx) at mean[(cy - my0) * mw + cx - mx0]): fg = x < mean - C
+// to the fg output and to the mask words bits[y * bw + k] (bit j of word
+// k: pixel 32 k + j; 0 past cols). Four pixels a thread: one 16-byte
+// (int32 fg) or 4-byte (fg bytes) store where w is a multiple of 4, and
+// the eight threads of a mask word OR their bits together.
+template <typename P, bool kStaged, bool kFg32>
+__device__ void thr_compare(const Args& a, size_t px, const P* st, int sw, int y0, int x0, int ya,
+                            int yb, int width, int cols, const float* mean, int mw, int my0,
+                            int mx0, uint32_t* bits, int bw) {
+  const int ls = __ffs(a.stride) - 1, lane = threadIdx.x & 31, quads = width >> 2;
+  const int n = (yb - ya) * quads;  // a multiple of 8: whole mask words
+  if (n <= 0) return;
+  const P* img = static_cast<const P*>(a.img) + px;
+  const bool quad = quad_aligned<P>(a), w4 = (a.w & 3) == 0;
+  Walk q(quads);
+  for (int i0 = 0; i0 < n; i0 += kThreads, q.next()) {
+    const bool item = i0 + static_cast<int>(threadIdx.x) < n;
+    const int y = ya + q.y, x = q.x << 2, gy = y0 + y, gx = x0 + x;
+    const int k = item ? min(4, cols - x) : 0;  // of the four, the pixels in the frame
+    unsigned nib = 0u;
+    if (k > 0) {
+      const float4 p4 = kStaged ? load4(st + y * sw + x)
+                                : load_upto4(img + static_cast<size_t>(gy) * a.w + gx, k, quad);
+      const float v[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float* mrow = mean + ((gy >> ls) - my0) * mw - mx0;
+      const float cut = mrow[gx >> ls] - a.C;  // the four's cell where s >= 4
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < k && v[j] < (ls >= 2 ? cut : mrow[(gx + j) >> ls] - a.C)) nib |= 1u << j;
+      const size_t o = px + static_cast<size_t>(gy) * a.w + gx;
+      if (k == 4 && w4) {
+        if (kFg32)
+          *reinterpret_cast<int4*>(a.lab + o) =
+              make_int4(nib & 1u, (nib >> 1) & 1u, (nib >> 2) & 1u, nib >> 3);
+        else
+          *reinterpret_cast<uint32_t*>(a.fg + o) =
+              (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) | ((nib & 8u) << 21);
+      } else {
+        for (int j = 0; j < k; ++j) store_fg<kFg32>(a, o + j, (nib >> j) & 1u);
+      }
+    }
+    uint32_t word = nib << ((lane & 7) << 2);
+    word |= __shfl_xor_sync(kFull, word, 1);
+    word |= __shfl_xor_sync(kFull, word, 2);
+    word |= __shfl_xor_sync(kFull, word, 4);
+    if (item && (lane & 7) == 0) bits[y * bw + (x >> 5)] = word;
+  }
+}
+
 // ===========================================================================
 // The cluster body: one frame per cluster, a band of rows per CTA, the
 // band's working state in shared memory
@@ -168,7 +380,7 @@ __device__ __forceinline__ int warp_seg_min(int v, int f, int lane, int carry) {
 struct Layout {
   int K;  // rows per in-place Jacobi chunk
   int words;
-  int lab;              // [R, w] the band's labels
+  int lab;              // [R, w] the band's labels; its pixels while the threshold runs
   int prev;             // [w] the last pre-step row of the chunk above
   int halo_t, halo_b;   // [w] pre-step labels of the rows just outside the band
   int edge_t, edge_b;   // [w] the band's first and last label rows, for the peers
@@ -333,36 +545,37 @@ struct Band {
   }
 };
 
-// The band's threshold into the raw mask bits and the fg output.
-template <bool kFg32>
+// The band's threshold into the raw mask bits and the fg output: the
+// band's pixels copied into its labels' words (free until the labels
+// start), its block means from the copy, then, after a cluster barrier,
+// the window's vertical sums from the peers' cells, its horizontal sums
+// and means, and the copy compared with them.
+template <typename P, bool kFg32>
 __device__ void cl_threshold(const Args& a, const Band& b) {
-  const int s = a.stride, ws = b.w / s, Rc = b.R / s, hs = b.h / s, cy0 = b.y0 / s;
-  const int cells = Rc * ws, tid = threadIdx.x;
+  const int ls = __ffs(a.stride) - 1, ws = b.w >> ls, Rc = b.R >> ls, hs = b.h >> ls;
+  const int cy0 = b.y0 >> ls, cells = Rc * ws, tid = threadIdx.x;
+  const size_t px = b.band_px - static_cast<size_t>(b.y0) * b.w;  // the frame's first pixel
   float* g0 = reinterpret_cast<float*>(b.sm + b.lay.tmp);  // [Rc, ws] block means
   float* g1 = g0 + cells;                                   // [Rc, ws] vertical sums
   float* gm = g1 + cells;                                   // [Rc, ws] window means
-  const float inv_ss = 1.0f / static_cast<float>(s * s);    // exact: s is a power of two
-  for (int c = tid; c < cells; c += kThreads) {
-    const int cy = c / ws, bx = c - cy * ws;
-    const size_t row0 = b.band_px + static_cast<size_t>(cy * s) * b.w + bx * s;
-    float acc = 0.0f;
-    for (int dx = 0; dx < s; ++dx) {
-      float t = pixel(a, row0 + dx);
-      for (int dy = 1; dy < s; ++dy) t += pixel(a, row0 + static_cast<size_t>(dy) * b.w + dx);
-      acc = dx == 0 ? t : acc + t;
-    }
-    g0[c] = acc * inv_ss;
-  }
+  P* st = reinterpret_cast<P*>(b.lab());
+  thr_stage<P>(a, px, b.y0, 0, b.R, b.w, st, b.w);
+  __syncthreads();
+  thr_block_means<P, true>(a, px, st, b.w, b.y0, 0, b.R, b.w, g0, cy0);
   cluster_sync();  // every band's block means are in
   const int r = a.r, win = 2 * r + 1;
   for (int c = tid; c < cells; c += kThreads) {
     const int cy = c / ws, bx = c - cy * ws;
     float acc = 0.0f;
     for (int k = 0; k < win; ++k) {
-      const int gy = clampi(cy0 + cy - r + k, 0, hs - 1);
-      const int owner = gy / Rc;
-      const float* src = peer(g0, owner);
-      const float v = src[(gy - owner * Rc) * ws + bx];
+      const int gy = clampi(cy0 + cy - r + k, 0, hs - 1), ly = gy - cy0;
+      float v;
+      if (ly >= 0 && ly < Rc) {
+        v = g0[ly * ws + bx];
+      } else {  // a peer's cell row
+        const int owner = gy / Rc;
+        v = peer(g0, owner)[(gy - owner * Rc) * ws + bx];
+      }
       acc = k == 0 ? v : acc + v;
     }
     g1[c] = acc;
@@ -376,14 +589,8 @@ __device__ void cl_threshold(const Args& a, const Band& b) {
     gm[c] = acc / area;
   }
   __syncthreads();
-  uint32_t* fgb = b.bits(b.lay.fgb);
-  for (int e = tid; e < b.R * b.w; e += kThreads) {  // whole warps: R * w % 32 == 0
-    const int y = e / b.w, x = e - y * b.w;
-    const bool on = pixel(a, b.band_px + e) < gm[(y / s) * ws + x / s] - a.C;
-    store_fg<kFg32>(a, b.band_px + e, on);
-    const uint32_t word = __ballot_sync(kFull, on);
-    if ((threadIdx.x & 31) == 0) fgb[y * b.wq + (x >> 5)] = word;
-  }
+  thr_compare<P, true, kFg32>(a, px, st, b.w, b.y0, 0, 0, b.R, b.w, b.w, gm, ws, cy0, 0,
+                              b.bits(b.lay.fgb), b.wq);
 }
 
 // The band's mask bits from a given mask in device memory.
@@ -663,7 +870,7 @@ __device__ void cl_label(const Band& b, int moff, const int* init, bool from_lab
   for (int e = tid; e < R * w; e += kThreads) out[b.band_px + e] = lab[e];
 }
 
-template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+template <typename P, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 __global__ void __launch_bounds__(kThreads, 1) ccl_cluster_kernel(Args a, Layout lay) {
   extern __shared__ int sm[];
   Band b{sm, lay, 0, a.h, a.w, a.w / 32, a.h / kClusterCtas, 0, 0};
@@ -671,8 +878,8 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_cluster_kernel(Args a, Layout
   b.y0 = b.rank * b.R;
   // a cluster per frame: frame blockIdx.y
   b.band_px = (static_cast<size_t>(blockIdx.y) * a.h + b.y0) * a.w;
-  if (kThreshold)
-    cl_threshold<!kLabels>(a, b);
+  if constexpr (kThreshold)
+    cl_threshold<P, !kLabels>(a, b);
   else
     cl_load_mask(a.fg, b);
   cluster_sync();  // every band's raw mask is in
@@ -702,10 +909,11 @@ constexpr unsigned kVal = 0x7fffffffu;
 
 // A tile's workspace, in 4-byte words from its start.
 struct TileLayout {
-  int lab;              // [TR, TW] the tile's labels
+  int lab;              // [TR, TW] the tile's labels; its pixels while the threshold runs
+  int fgb;              // [TR + 4, TW/32 + 2] raw mask bits, a ring of 2 rows and a word
+  int thr;              // the rest, the threshold's window sums and means until the labels:
   int halo_t, halo_b;   // [TW + 2] pre-step labels of the rows just outside, x = -1 .. TW
   int halo_l, halo_r;   // [TR] pre-step labels of the columns just outside
-  int fgb;              // [TR + 4, TW/32 + 2] raw mask bits, a ring of 2 rows and a word
   int fgcb, dilb;       // [TR + 2, TW/32 + 2] closed and dilated mask bits, a ring of 1
   int ends;             // [TR, TW/32, 2] pre-step labels of each word's first and last pixel
   int words;
@@ -721,6 +929,9 @@ __host__ __device__ inline bool tile_layout(int TR, int TW, bool shared, TileLay
   long long at = 0;
   L->lab = 0;
   at += static_cast<long long>(TR) * TW;
+  L->fgb = static_cast<int>(at);
+  at += (TR + 4) * MW;
+  L->thr = static_cast<int>(at);
   L->halo_t = static_cast<int>(at);
   at += TW + 2;
   L->halo_b = static_cast<int>(at);
@@ -729,8 +940,6 @@ __host__ __device__ inline bool tile_layout(int TR, int TW, bool shared, TileLay
   at += TR;
   L->halo_r = static_cast<int>(at);
   at += TR;
-  L->fgb = static_cast<int>(at);
-  at += (TR + 4) * MW;
   L->fgcb = static_cast<int>(at);
   at += (TR + 2) * MW;
   L->dilb = static_cast<int>(at);
@@ -747,7 +956,6 @@ struct Grid {
   int n;                  // frames in the chunk
   int TR, TW, TX, TY;     // tile rows and width; tiles across and down a frame
   int teams, ctas;        // teams in flight; CTAs a team (its tiles; spilled: k or k - 1 each)
-  int spilled;            // workspaces in device memory (work), not shared memory
   int cells;              // the threshold's block cells a frame (0: no threshold)
   long long team_words;   // a team's exchange scratch
   int* scratch;           // [teams, team_words]
@@ -757,8 +965,7 @@ struct Grid {
 
 // A team's exchange scratch in device memory.
 struct Xchg {
-  float* g0;          // [cells] block means
-  float* g1;          // [cells] vertical window sums
+  float* g0;          // [2, cells] block means: the team's even frames, then its odd ones
   int* row_edge;      // [TY, 2, w] each tile row's first (0) and last (1) label row
   int* col_edge;      // [TX, 2, h] each tile column's first (0) and last (1) label column
   unsigned* row_sum;  // [TX, 2, h] each tile row's left (0) and right (1) run summary
@@ -774,7 +981,6 @@ __device__ Xchg exchange(const Grid& g, int h, int w, int team) {
   int* base = g.scratch + static_cast<size_t>(team) * g.team_words;
   Xchg X;
   X.g0 = reinterpret_cast<float*>(base);
-  X.g1 = X.g0 + g.cells;
   X.row_edge = base + 2 * static_cast<size_t>(g.cells);
   X.col_edge = X.row_edge + 2 * static_cast<size_t>(g.TY) * w;
   X.row_sum = reinterpret_cast<unsigned*>(X.col_edge + 2 * static_cast<size_t>(g.TX) * h);
@@ -799,9 +1005,10 @@ struct Tile {
   }
 };
 
+template <bool kSpilled>
 __device__ Tile make_tile(const Args& a, const Grid& g, int t, size_t frame, int* smem) {
   Tile T;
-  tile_layout(g.TR, g.TW, !g.spilled, &T.L);
+  tile_layout(g.TR, g.TW, !kSpilled, &T.L);
   T.h = a.h;
   T.w = a.w;
   T.TW = g.TW;
@@ -816,29 +1023,9 @@ __device__ Tile make_tile(const Args& a, const Grid& g, int t, size_t frame, int
   T.rows = min(g.TR, a.h - T.y0);
   T.cols = min(g.TW, a.w - T.x0);
   T.px = frame * static_cast<size_t>(a.h) * a.w;
-  T.ws = g.spilled ? g.work + static_cast<size_t>(t) * T.L.words : smem;
+  T.ws = kSpilled ? g.work + static_cast<size_t>(t) * T.L.words : smem;
   return T;
 }
-
-// The (row, column) of a thread's elements e = threadIdx.x, + kThreads, ...
-// of a row-major array `width` wide, stepped without a division.
-struct Walk {
-  int y, x, dy, dx, width;
-  __device__ explicit Walk(int w) : width(w) {
-    y = threadIdx.x / w;
-    x = threadIdx.x - y * w;
-    dy = kThreads / w;
-    dx = kThreads - dy * w;
-  }
-  __device__ void next() {
-    x += dx;
-    y += dy;
-    if (x >= width) {
-      x -= width;
-      ++y;
-    }
-  }
-};
 
 // The bits of word kk (pixels x0 + 32 kk ..) that lie inside the frame.
 __device__ __forceinline__ uint32_t in_frame_bits(const Tile& T, int kk) {
@@ -888,93 +1075,113 @@ __device__ __forceinline__ int chain_min(const unsigned* p, long long step, int 
 
 // ---- the threshold, over the team ----
 
-// Block means of every cell of the frame at px, the team's threads in turn.
-__device__ void thr_block_means(const Args& a, size_t px, float* g0, int rank, int ctas) {
-  const int s = a.stride, ws = a.w / s, cells = (a.h / s) * ws;
-  const float inv_ss = 1.0f / static_cast<float>(s * s);  // exact: s is a power of two
-  for (int c = rank * kThreads + threadIdx.x; c < cells; c += ctas * kThreads) {
-    const int by = c / ws, bx = c - by * ws;
-    const size_t row0 = px + static_cast<size_t>(by * s) * a.w + bx * s;
-    float b = 0.0f;
-    for (int dx = 0; dx < s; ++dx) {
-      float t = pixel(a, row0 + dx);
-      for (int dy = 1; dy < s; ++dy) t += pixel(a, row0 + static_cast<size_t>(dy) * a.w + dx);
-      b = dx == 0 ? t : b + t;
-    }
-    g0[c] = b * inv_ss;
-  }
+// The cell columns of a tile's pixels x0 .. x0 + cols - 1 at cell width
+// 2^ls (ws cells a grid row): the first (cx0) and their count (nc), and the
+// grid columns their windows of radius r reach (vlo, vw of them).
+struct ThrCols {
+  int cx0, nc, vlo, vw;
+};
+
+__host__ __device__ inline ThrCols thr_cols(int x0, int cols, int ls, int ws, int r) {
+  ThrCols c;
+  c.cx0 = x0 >> ls;
+  c.nc = ((x0 + cols - 1) >> ls) - c.cx0 + 1;
+  c.vlo = c.cx0 - r > 0 ? c.cx0 - r : 0;
+  const int vhi = c.cx0 + c.nc - 1 + r;
+  c.vw = (vhi < ws - 1 ? vhi : ws - 1) - c.vlo + 1;
+  return c;
 }
 
-// The window's vertical sums of every cell (after a team barrier).
-__device__ void thr_vertical(const Args& a, const float* g0, float* g1, int rank, int ctas) {
-  const int s = a.stride, ws = a.w / s, hs = a.h / s, cells = hs * ws;
-  const int r = a.r, win = 2 * r + 1;
-  for (int c = rank * kThreads + threadIdx.x; c < cells; c += ctas * kThreads) {
-    const int by = c / ws, bx = c - by * ws;
-    float acc = __ldcg(g0 + clampi(by - r, 0, hs - 1) * ws + bx);
-    for (int k = 1; k < win; ++k) acc += __ldcg(g0 + clampi(by - r + k, 0, hs - 1) * ws + bx);
-    g1[c] = acc;
-  }
+// The cell rows of a tile's threshold chunk: its vertical window sums (vw
+// a row) and window means (nc a row) in the room past the raw mask. The
+// launch refuses a plan where a tile has room for no row.
+__host__ __device__ inline int thr_chunk_rows(const TileLayout& L, const ThrCols& c) {
+  return (L.words - L.thr) / (c.vw + c.nc);
 }
 
 // The tile's threshold into its raw mask bits and the fg output (after a
-// team barrier): the window means of the tile's cells from the vertical
-// sums, in the workspace ahead of the masks (free until the labels start:
-// (TR / s + 2) x (TW / s + 2) cells fit its (TR + 2) x TW words), then the
-// pixels, kLoads a thread in flight.
-template <bool kFg32>
-__device__ void thr_tile(const Args& a, const Tile& T, const float* g1) {
-  const int s = a.stride, ls = __ffs(s) - 1, ws = a.w / s, r = a.r, win = 2 * r + 1;
+// team barrier that follows every block mean of the frame in g0, which
+// other CTAs wrote: read through L2), chunk by chunk of the cell rows its
+// pixels lie in, in the workspace past the raw mask (free until the labels
+// start): the vertical window sums of the grid columns the chunk's windows
+// reach, from their grid rows in g0 (a thread a column and kRun sums down
+// it, each grid row loaded once for all of them); the chunk's window
+// means over those sums; then its pixels compared.
+template <typename P, bool kStaged, bool kFg32>
+__device__ void thr_tile(const Args& a, const Tile& T, const float* g0) {
+  const int ls = __ffs(a.stride) - 1, ws = a.w >> ls, hs = a.h >> ls, r = a.r;
+  const int win = 2 * r + 1;
   const float area = static_cast<float>(win * win);
-  const int cy0 = T.y0 >> ls, cx0 = T.x0 >> ls;
-  const int nr = ((T.y0 + T.rows - 1) >> ls) - cy0 + 1;
-  const int nc = ((T.x0 + T.cols - 1) >> ls) - cx0 + 1;
-  float* mean = reinterpret_cast<float*>(T.ws);
-  Walk q(nc);
-  for (int c = threadIdx.x; c < nr * nc; c += kThreads, q.next()) {
-    const float* row = g1 + (cy0 + q.y) * ws;
-    const int cx = cx0 + q.x;
-    float acc = 0.0f;
-    for (int k0 = 0; k0 < win; k0 += kLoads) {
-      float v[kLoads];
+  const int cy0 = T.y0 >> ls, nr = ((T.y0 + T.rows - 1) >> ls) - cy0 + 1;
+  const ThrCols c = thr_cols(T.x0, T.cols, ls, ws, r);
+  const int m = min(nr, thr_chunk_rows(T.L, c));
+  float* room = reinterpret_cast<float*>(T.ws + T.L.thr);
+  const P* st = reinterpret_cast<const P*>(T.lab());
+  for (int i0 = 0; i0 < nr; i0 += m) {
+    const int mi = min(m, nr - i0), cy = cy0 + i0;
+    float* V = room;                 // [mi, vw] vertical window sums, grid columns vlo ..
+    float* mean = room + mi * c.vw;  // [mi, nc] the window means
+    Walk p(c.vw);
+    for (int e = threadIdx.x; e < (mi + kRun - 1) / kRun * c.vw; e += kThreads, p.next()) {
+      const int j0 = p.y * kRun, n = min(kRun, mi - j0) + 2 * r;  // sums j0 .., grid rows
+      const float* col = g0 + c.vlo + p.x;
+      const int y = cy + j0 - r;
+      float acc[kRun] = {};
+      for (int k0 = 0; k0 < n; k0 += kLoads) {
+        float v[kLoads];
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u)
-        v[u] = k0 + u < win ? __ldcg(row + clampi(cx - r + k0 + u, 0, ws - 1)) : 0.0f;
+        for (int u = 0; u < kLoads; ++u)
+          v[u] = k0 + u < n ? __ldcg(col + clampi(y + k0 + u, 0, hs - 1) * ws) : 0.0f;
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u)
-        if (k0 + u < win) acc = k0 + u == 0 ? v[u] : acc + v[u];
-    }
-    mean[c] = acc / area;
-  }
-  __syncthreads();
-  uint32_t* m = T.mask(T.L.fgb, 2);
-  const int n = T.rows * T.TW;
-  Walk p(T.TW);
-  for (int e0 = 0; e0 < n; e0 += kLoads * kThreads) {
-    float v[kLoads];
-    Walk pu = p;
+        for (int u = 0; u < kLoads; ++u) {
+          const int k = k0 + u;  // grid row k adds to sums k - 2r .. k, in order
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * kThreads + threadIdx.x, gx = T.x0 + pu.x;
-      v[u] = e < n && gx < a.w ? pixel(a, T.px + static_cast<size_t>(T.y0 + pu.y) * a.w + gx)
-                               : 0.0f;
-      pu.next();
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * kThreads + threadIdx.x;
-      if (e - (threadIdx.x & 31) >= n) break;  // whole warps: n is a multiple of 32
-      const int y = p.y, x = p.x, gy = T.y0 + y, gx = T.x0 + x;
-      p.next();
-      bool on = false;
-      if (gx < a.w) {
-        on = v[u] < mean[((gy >> ls) - cy0) * nc + (gx >> ls) - cx0] - a.C;
-        store_fg<kFg32>(a, T.px + static_cast<size_t>(gy) * a.w + gx, on);
+          for (int j = 0; j < kRun; ++j)
+            if (k < n && k >= j && k <= j + 2 * r) acc[j] = k == j ? v[u] : acc[j] + v[u];
+        }
       }
-      const uint32_t word = __ballot_sync(kFull, on);
-      if ((threadIdx.x & 31) == 0) m[y * T.MW + (x >> 5)] = word;
+#pragma unroll
+      for (int j = 0; j < kRun; ++j)
+        if (j0 + j < mi) V[(j0 + j) * c.vw + p.x] = acc[j];
     }
+    __syncthreads();
+    Walk q(c.nc);
+    for (int e = threadIdx.x; e < mi * c.nc; e += kThreads, q.next()) {
+      const float* row = V + q.y * c.vw - c.vlo;
+      const int cx = c.cx0 + q.x;
+      float acc = row[clampi(cx - r, 0, ws - 1)];
+      for (int k = 1; k < win; ++k) acc += row[clampi(cx - r + k, 0, ws - 1)];
+      mean[e] = acc / area;
+    }
+    __syncthreads();
+    thr_compare<P, kStaged, kFg32>(a, T.px, st, T.TW, T.y0, T.x0, max(0, (cy << ls) - T.y0),
+                                   min(T.rows, ((cy + mi) << ls) - T.y0), T.TW, T.cols, mean,
+                                   c.nc, cy, c.cx0, T.mask(T.L.fgb, 2), T.MW);
+    __syncthreads();  // the chunk's sums and means are read before the next overwrites them
   }
+}
+
+// The frame's threshold over the team, one team barrier: each of the
+// CTA's tiles (the resident plan: its one tile, copied into its labels'
+// words) read and the block means of the cells that start in it written to
+// g0; then, after the barrier, each tile's window means and pixels.
+template <typename P, bool kSpilled, bool kFg32>
+__device__ void thr_frame(const Args& a, const Grid& g, size_t frame, int* smem, int rank,
+                          unsigned* bar, float* g0) {
+  constexpr bool kStaged = !kSpilled;
+  const int tiles = g.TX * g.TY;
+  for (int t = rank; t < tiles; t += g.ctas) {
+    const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
+    P* st = reinterpret_cast<P*>(T.lab());
+    if (kStaged) {
+      thr_stage<P>(a, T.px, T.y0, T.x0, T.rows, T.cols, st, T.TW);
+      __syncthreads();
+    }
+    thr_block_means<P, kStaged>(a, T.px, st, T.TW, T.y0, T.x0, T.rows, T.cols, g0, 0);
+  }
+  grid_barrier(bar, g.ctas);  // every cell's block mean is in
+  for (int t = rank; t < tiles; t += g.ctas)
+    thr_tile<P, kStaged, kFg32>(a, make_tile<kSpilled>(a, g, t, frame, smem), g0);
 }
 
 // The tile's raw mask bits from a given mask in device memory.
@@ -1365,12 +1572,13 @@ __device__ void round_join(const Tile& T, const uint32_t* m, const Xchg& X, int 
 // One label pass over the team's frame: the mask at workspace offset moff
 // (hr ring rows; with ring_src, its ring is read from those mask bytes
 // first), `rounds` rounds, the labels written to out.
+template <bool kSpilled>
 __device__ void label_pass(const Args& a, const Grid& g, const Xchg& X, int* smem, size_t frame,
                            int rank, unsigned* bar, int moff, int hr, const uint8_t* ring_src,
                            const int* init, bool from_lab, int rounds, int* out) {
   const int tiles = g.TX * g.TY, big = a.h * a.w;
   for (int t = rank; t < tiles; t += g.ctas) {
-    const Tile T = make_tile(a, g, t, frame, smem);
+    const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
     const uint32_t* m = T.mask(moff, hr);
     if (ring_src != nullptr) {
       fill_ring(ring_src, T, T.mask(moff, hr), hr);
@@ -1381,23 +1589,23 @@ __device__ void label_pass(const Args& a, const Grid& g, const Xchg& X, int* sme
   grid_barrier(bar, g.ctas);  // initial labels and edges are in everywhere
   for (int it = 0; it < rounds; ++it) {
     for (int t = rank; t < tiles; t += g.ctas) {
-      const Tile T = make_tile(a, g, t, frame, smem);
+      const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
       round_rows(T, T.mask(moff, hr), X, big);
     }
     if (g.TX > 1) grid_barrier(bar, g.ctas);  // every tile's row summaries are in
     for (int t = rank; t < tiles; t += g.ctas) {
-      const Tile T = make_tile(a, g, t, frame, smem);
+      const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
       round_cols(T, T.mask(moff, hr), X, big);
     }
     grid_barrier(bar, g.ctas);  // every tile's column summaries are in
     for (int t = rank; t < tiles; t += g.ctas) {
-      const Tile T = make_tile(a, g, t, frame, smem);
+      const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
       round_join(T, T.mask(moff, hr), X, big, it + 1 < rounds);
     }
     if (it + 1 < rounds) grid_barrier(bar, g.ctas);  // every tile's edges are in
   }
   for (int t = rank; t < tiles; t += g.ctas) {
-    const Tile T = make_tile(a, g, t, frame, smem);
+    const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
     const int* lab = T.lab();
     Walk p(T.TW);
     for (int e = threadIdx.x; e < T.rows * T.TW; e += kThreads, p.next())
@@ -1406,7 +1614,9 @@ __device__ void label_pass(const Args& a, const Grid& g, const Xchg& X, int* sme
   }
 }
 
-template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+// kSpilled: the plan's tiles' workspaces in device memory (spilled_plan),
+// else in shared memory; each plan has its own kernel.
+template <typename P, bool kSpilled, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) {
   extern __shared__ int smem[];
   const int team = blockIdx.x / g.ctas, rank = blockIdx.x - team * g.ctas;
@@ -1414,29 +1624,25 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) 
   unsigned* bar = g.bar + 2 * team;
   const Xchg X = exchange(g, a.h, a.w, team);
   TileLayout L;
-  tile_layout(g.TR, g.TW, !g.spilled, &L);
+  tile_layout(g.TR, g.TW, !kSpilled, &L);
   for (int f = team; f < g.n; f += g.teams) {
     const size_t frame = static_cast<size_t>(f);
-    const size_t px = frame * a.h * a.w;
-    if (kThreshold) {
-      thr_block_means(a, px, X.g0, rank, g.ctas);
-      grid_barrier(bar, g.ctas);  // every cell's block mean is in
-      thr_vertical(a, X.g0, X.g1, rank, g.ctas);
-      grid_barrier(bar, g.ctas);  // every cell's vertical sum is in
-      for (int t = rank; t < tiles; t += g.ctas) {
-        thr_tile<!kLabels>(a, make_tile(a, g, t, frame, smem), X.g1);
-        __syncthreads();
-      }
-      grid_barrier(bar, g.ctas);  // every tile's fg bytes are in
+    if constexpr (kThreshold) {
+      // the team's next frame writes its block means to the other grid;
+      // the frame after it writes this one again only past the next
+      // frame's barrier, which no CTA reaches before it has read these
+      float* g0 = X.g0 + static_cast<size_t>(((f - team) / g.teams) & 1) * g.cells;
+      thr_frame<P, kSpilled, !kLabels>(a, g, frame, smem, rank, bar, g0);
+      if (kLabels) grid_barrier(bar, g.ctas);  // every tile's fg bytes are in
     } else {
       for (int t = rank; t < tiles; t += g.ctas) {
-        load_mask(a.fg, make_tile(a, g, t, frame, smem));
+        load_mask(a.fg, make_tile<kSpilled>(a, g, t, frame, smem));
         __syncthreads();
       }
     }
     if (!kLabels) continue;  // the threshold alone
     for (int t = rank; t < tiles; t += g.ctas) {
-      const Tile T = make_tile(a, g, t, frame, smem);
+      const Tile T = make_tile<kSpilled>(a, g, t, frame, smem);
       fill_ring(a.fg, T, T.mask(L.fgb, 2), 2);
       __syncthreads();
       if (kUnion) {
@@ -1445,12 +1651,12 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) 
       }
     }
     if (kUnion) {
-      label_pass(a, g, X, smem, frame, rank, bar, L.fgb, 2, nullptr, nullptr, false, a.rounds,
+      label_pass<kSpilled>(a, g, X, smem, frame, rank, bar, L.fgb, 2, nullptr, nullptr, false, a.rounds,
                  a.lab);
-      label_pass(a, g, X, smem, frame, rank, bar, L.fgcb, 1, a.fg_c, nullptr, true,
+      label_pass<kSpilled>(a, g, X, smem, frame, rank, bar, L.fgcb, 1, a.fg_c, nullptr, true,
                  a.closed_rounds, a.lab_c);
     } else {
-      label_pass(a, g, X, smem, frame, rank, bar, L.fgb, 2, nullptr, kSeeded ? a.init : nullptr,
+      label_pass<kSpilled>(a, g, X, smem, frame, rank, bar, L.fgb, 2, nullptr, kSeeded ? a.init : nullptr,
                  false, a.rounds, a.lab);
     }
   }
@@ -1460,12 +1666,12 @@ __global__ void __launch_bounds__(kThreads, 1) ccl_block_kernel(Args a, Grid g) 
 // Launches
 // ===========================================================================
 
-template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+template <typename P, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int cluster_plan(int h, int w, int stride, int* smem_bytes, int* max_clusters) {
   Layout lay;
   if (!cluster_layout(h, w, stride, kThreshold ? 1 : 0, &lay))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* kern = ccl_cluster_kernel<kThreshold, kUnion, kSeeded, kLabels>;
+  auto* kern = ccl_cluster_kernel<P, kThreshold, kUnion, kSeeded, kLabels>;
   const int bytes = lay.words * 4;
   // the most any shape needs, so that plans cached for other shapes stay valid
   cudaError_t err =
@@ -1491,9 +1697,9 @@ int cluster_plan(int h, int w, int stride, int* smem_bytes, int* max_clusters) {
 // The block body's plan for the card: the kernel's shared-memory attribute
 // set (the most any tile needs), and the SMs that hold one of its CTAs at
 // the most shared memory: the plan puts at most one CTA on each.
-template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+template <typename P, bool kSpilled, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int block_plan(int* sms) {
-  auto* kern = ccl_block_kernel<kThreshold, kUnion, kSeeded, kLabels>;
+  auto* kern = ccl_block_kernel<P, kSpilled, kThreshold, kUnion, kSeeded, kLabels>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1508,10 +1714,47 @@ int block_plan(int* sms) {
   return 0;
 }
 
+// Both bodies' plans for each pixel type a variant reads (a threshold
+// variant has a kernel for uint8 frames and one for float32 frames, K5 and
+// K5s one), and in the block body for each of its plans. The clusters and
+// SMs of the card: the fewer of its kernels'.
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+int cluster_plans(int h, int w, int stride, int* smem_bytes, int* max_clusters) {
+  int err = cluster_plan<uint8_t, kThreshold, kUnion, kSeeded, kLabels>(h, w, stride, smem_bytes,
+                                                                        max_clusters);
+  if constexpr (kThreshold) {
+    int other = 0;
+    if (err == 0)
+      err = cluster_plan<float, kThreshold, kUnion, kSeeded, kLabels>(h, w, stride, smem_bytes,
+                                                                      &other);
+    if (other < *max_clusters) *max_clusters = other;
+  }
+  return err;
+}
+
+template <typename P, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+int block_plans_of(int* sms) {
+  int err = block_plan<P, false, kThreshold, kUnion, kSeeded, kLabels>(sms), other = 0;
+  if (err == 0) err = block_plan<P, true, kThreshold, kUnion, kSeeded, kLabels>(&other);
+  if (other < *sms) *sms = other;
+  return err;
+}
+
+template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+int block_plans(int* sms) {
+  int err = block_plans_of<uint8_t, kThreshold, kUnion, kSeeded, kLabels>(sms);
+  if constexpr (kThreshold) {
+    int other = 0;
+    if (err == 0) err = block_plans_of<float, kThreshold, kUnion, kSeeded, kLabels>(&other);
+    if (other < *sms) *sms = other;
+  }
+  return err;
+}
+
 // The block body's launch: the plan's geometry checked against the frame
 // and the buffers the wrapper sized (scratch_words a team, work_words in
 // all), then one cooperative launch of teams x ctas CTAs.
-template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+template <typename P, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int block_launch(const Args& a, int n, int tile_rows, int tile_width, int teams, int ctas,
                  int* scratch, long long scratch_words, int* work, long long work_words,
                  unsigned* bar, cudaStream_t s) {
@@ -1521,20 +1764,28 @@ int block_launch(const Args& a, int n, int tile_rows, int tile_width, int teams,
   g.TW = tile_width;
   g.teams = teams;
   g.ctas = ctas;
-  g.spilled = work != nullptr ? 1 : 0;
+  const bool spilled = work != nullptr;
   TileLayout L;
   if (a.h <= 0 || a.w <= 0 || teams < 1 || ctas < 1 || bar == nullptr || scratch == nullptr ||
-      !tile_layout(tile_rows, tile_width, !g.spilled, &L))
+      !tile_layout(tile_rows, tile_width, !spilled, &L))
     return static_cast<int>(cudaErrorInvalidValue);
   g.TX = (a.w + tile_width - 1) / tile_width;
   g.TY = (a.h + tile_rows - 1) / tile_rows;
   const int tiles = g.TX * g.TY;
   // resident: a CTA a tile; spilled: one team of CTAs working through the
   // tiles, none of them without a tile
-  if (g.spilled ? (teams != 1 || ctas > tiles ||
-                   work_words != static_cast<long long>(tiles) * L.words)
-                : ctas != tiles)
+  if (spilled ? (teams != 1 || ctas > tiles ||
+                 work_words != static_cast<long long>(tiles) * L.words)
+              : ctas != tiles)
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kThreshold) {  // each tile column's threshold chunk holds a cell row
+    const int ls = __builtin_ctz(static_cast<unsigned>(a.stride)), ws = a.w >> ls;
+    for (int tx = 0; tx < g.TX; ++tx) {
+      const int x0 = tx * tile_width, cols = a.w - x0 < tile_width ? a.w - x0 : tile_width;
+      if (thr_chunk_rows(L, thr_cols(x0, cols, ls, ws, a.r)) < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   g.cells = kThreshold ? (a.h / a.stride) * (a.w / a.stride) : 0;
   g.team_words = team_words(a.h, a.w, g.TX, g.TY, g.cells);
   if (scratch_words != g.team_words) return static_cast<int>(cudaErrorInvalidValue);
@@ -1543,24 +1794,25 @@ int block_launch(const Args& a, int n, int tile_rows, int tile_width, int teams,
   g.bar = bar;
   Args args_copy = a;
   void* params[] = {&args_copy, &g};
-  const size_t smem = g.spilled ? 0 : static_cast<size_t>(L.words) * 4;
-  cudaError_t err =
-      cudaLaunchCooperativeKernel(ccl_block_kernel<kThreshold, kUnion, kSeeded, kLabels>,
-                                  dim3(teams * ctas), dim3(kThreads), params, smem, s);
+  const size_t smem = spilled ? 0 : static_cast<size_t>(L.words) * 4;
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      spilled ? ccl_block_kernel<P, true, kThreshold, kUnion, kSeeded, kLabels>
+              : ccl_block_kernel<P, false, kThreshold, kUnion, kSeeded, kLabels>,
+      dim3(teams * ctas), dim3(kThreads), params, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // body 0: the block body (geometry from the plan); body 1: the cluster
 // body, a cluster per frame.
-template <bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
+template <typename P, bool kThreshold, bool kUnion, bool kSeeded, bool kLabels>
 int launch(const Args& a, int n_frames, int tile_rows, int tile_width, int teams, int ctas,
            int* scratch, long long scratch_words, int* work, long long work_words,
            unsigned* bar, int body, void* stream) {
   if (n_frames <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 0)
-    return block_launch<kThreshold, kUnion, kSeeded, kLabels>(
+    return block_launch<P, kThreshold, kUnion, kSeeded, kLabels>(
         a, n_frames, tile_rows, tile_width, teams, ctas, scratch, scratch_words, work, work_words,
         bar, s);
   Layout lay;
@@ -1578,38 +1830,56 @@ int launch(const Args& a, int n_frames, int tile_rows, int tile_width, int teams
   lc.stream = s;
   lc.attrs = attr;
   lc.numAttrs = 1;
-  cudaError_t err =
-      cudaLaunchKernelEx(&lc, ccl_cluster_kernel<kThreshold, kUnion, kSeeded, kLabels>, a, lay);
+  cudaError_t err = cudaLaunchKernelEx(
+      &lc, ccl_cluster_kernel<P, kThreshold, kUnion, kSeeded, kLabels>, a, lay);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A threshold variant's launch for uint8 (img_u8) or float32 frames. Its
+// fg output (the wrapper's own allocation, written 4 or 16 bytes at a
+// time) must be 16-byte aligned.
+template <bool kUnion, bool kLabels>
+int launch_image(const Args& a, int img_u8, int n_frames, int tile_rows, int tile_width,
+                 int teams, int ctas, int* scratch, long long scratch_words, int* work,
+                 long long work_words, unsigned* bar, int body, void* stream) {
+  if (((reinterpret_cast<uintptr_t>(a.fg) | reinterpret_cast<uintptr_t>(a.lab)) & 15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (img_u8)
+    return launch<uint8_t, true, kUnion, false, kLabels>(a, n_frames, tile_rows, tile_width,
+                                                        teams, ctas, scratch, scratch_words, work,
+                                                        work_words, bar, body, stream);
+  return launch<float, true, kUnion, false, kLabels>(a, n_frames, tile_rows, tile_width, teams,
+                                                    ctas, scratch, scratch_words, work,
+                                                    work_words, bar, body, stream);
 }
 
 }  // namespace
 
 // The cluster body's shared bytes for a variant (0 K3, 1 K4, 2 K5, 3 K5s, 4
 // the threshold alone) at h x w, and how many of its clusters the card
-// holds at once. Sets the kernel's shared-memory attribute.
+// holds at once. Sets its kernels' shared-memory attribute.
 extern "C" int ccl_cluster_plan(int variant, int h, int w, int stride, int* smem_bytes,
                                 int* max_clusters) {
   switch (variant) {
-    case 0: return cluster_plan<true, true, false, true>(h, w, stride, smem_bytes, max_clusters);
-    case 1: return cluster_plan<true, false, false, true>(h, w, stride, smem_bytes, max_clusters);
-    case 2: return cluster_plan<false, false, false, true>(h, w, stride, smem_bytes, max_clusters);
-    case 3: return cluster_plan<false, false, true, true>(h, w, stride, smem_bytes, max_clusters);
-    case 4: return cluster_plan<true, false, false, false>(h, w, stride, smem_bytes, max_clusters);
+    case 0: return cluster_plans<true, true, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 1: return cluster_plans<true, false, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 2: return cluster_plans<false, false, false, true>(h, w, stride, smem_bytes, max_clusters);
+    case 3: return cluster_plans<false, false, true, true>(h, w, stride, smem_bytes, max_clusters);
+    case 4: return cluster_plans<true, false, false, false>(h, w, stride, smem_bytes, max_clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The block body's SMs for a variant (0 when the card cannot hold one of
-// its CTAs at the most shared memory). Sets the kernel's attribute.
+// its CTAs at the most shared memory). Sets its kernels' attribute.
 extern "C" int ccl_block_plan(int variant, int* sms) {
   switch (variant) {
-    case 0: return block_plan<true, true, false, true>(sms);
-    case 1: return block_plan<true, false, false, true>(sms);
-    case 2: return block_plan<false, false, false, true>(sms);
-    case 3: return block_plan<false, false, true, true>(sms);
-    case 4: return block_plan<true, false, false, false>(sms);
+    case 0: return block_plans<true, true, false, true>(sms);
+    case 1: return block_plans<true, false, false, true>(sms);
+    case 2: return block_plans<false, false, false, true>(sms);
+    case 3: return block_plans<false, false, true, true>(sms);
+    case 4: return block_plans<true, false, false, false>(sms);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1624,10 +1894,9 @@ extern "C" int ccl_threshold_union_launch(
     int w, int stride, int r, float C, int rounds, int closed_rounds, int tile_rows,
     int tile_width, int teams, int ctas, int* scratch, long long scratch_words, int* work,
     long long work_words, unsigned* bar, int body, void* stream) {
-  const Args a{img, img_u8, fg, lab, fg_c, lab_c, nullptr, h, w, stride, r, C, rounds,
-               closed_rounds};
-  return launch<true, true, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                         scratch_words, work, work_words, bar, body, stream);
+  const Args a{img, fg, lab, fg_c, lab_c, nullptr, h, w, stride, r, C, rounds, closed_rounds};
+  return launch_image<true, true>(a, img_u8, n, tile_rows, tile_width, teams, ctas, scratch,
+                                  scratch_words, work, work_words, bar, body, stream);
 }
 
 // K4 (fg_c and lab_c are unused)
@@ -1636,10 +1905,9 @@ extern "C" int ccl_threshold_launch(
     int w, int stride, int r, float C, int rounds, int closed_rounds, int tile_rows,
     int tile_width, int teams, int ctas, int* scratch, long long scratch_words, int* work,
     long long work_words, unsigned* bar, int body, void* stream) {
-  const Args a{img, img_u8, fg, lab, fg_c, lab_c, nullptr, h, w, stride, r, C, rounds,
-               closed_rounds};
-  return launch<true, false, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                          scratch_words, work, work_words, bar, body, stream);
+  const Args a{img, fg, lab, fg_c, lab_c, nullptr, h, w, stride, r, C, rounds, closed_rounds};
+  return launch_image<false, true>(a, img_u8, n, tile_rows, tile_width, teams, ctas, scratch,
+                                   scratch_words, work, work_words, bar, body, stream);
 }
 
 // K5 (init is unused)
@@ -1647,10 +1915,11 @@ extern "C" int ccl_label_launch(const uint8_t* fg, const int* init, int* lab, in
                                 int rounds, int tile_rows, int tile_width, int teams, int ctas,
                                 int* scratch, long long scratch_words, int* work,
                                 long long work_words, unsigned* bar, int body, void* stream) {
-  const Args a{nullptr, 0, const_cast<uint8_t*>(fg), lab, nullptr, nullptr, init, h, w, 1, 0,
+  const Args a{nullptr, const_cast<uint8_t*>(fg), lab, nullptr, nullptr, init, h, w, 1, 0,
                0.0f, rounds, 0};
-  return launch<false, false, false, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                           scratch_words, work, work_words, bar, body, stream);
+  return launch<uint8_t, false, false, false, true>(a, n, tile_rows, tile_width, teams, ctas,
+                                                    scratch, scratch_words, work, work_words, bar,
+                                                    body, stream);
 }
 
 // K5s
@@ -1659,10 +1928,11 @@ extern "C" int ccl_label_seeded_launch(const uint8_t* fg, const int* init, int* 
                                        int teams, int ctas, int* scratch,
                                        long long scratch_words, int* work, long long work_words,
                                        unsigned* bar, int body, void* stream) {
-  const Args a{nullptr, 0, const_cast<uint8_t*>(fg), lab, nullptr, nullptr, init, h, w, 1, 0,
+  const Args a{nullptr, const_cast<uint8_t*>(fg), lab, nullptr, nullptr, init, h, w, 1, 0,
                0.0f, rounds, 0};
-  return launch<false, false, true, true>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                          scratch_words, work, work_words, bar, body, stream);
+  return launch<uint8_t, false, false, true, true>(a, n, tile_rows, tile_width, teams, ctas,
+                                                   scratch, scratch_words, work, work_words, bar,
+                                                   body, stream);
 }
 
 // The threshold alone (P1a): fg as int32 [N, H, W]
@@ -1672,9 +1942,9 @@ extern "C" int ccl_threshold_only_launch(const void* img, int img_u8, int* fg, i
                                          long long scratch_words, int* work,
                                          long long work_words, unsigned* bar, int body,
                                          void* stream) {
-  const Args a{img, img_u8, nullptr, fg, nullptr, nullptr, nullptr, h, w, stride, r, C, 0, 0};
-  return launch<true, false, false, false>(a, n, tile_rows, tile_width, teams, ctas, scratch,
-                                           scratch_words, work, work_words, bar, body, stream);
+  const Args a{img, nullptr, fg, nullptr, nullptr, nullptr, h, w, stride, r, C, 0, 0};
+  return launch_image<false, false>(a, img_u8, n, tile_rows, tile_width, teams, ctas, scratch,
+                                    scratch_words, work, work_words, bar, body, stream);
 }
 
 extern "C" const char* ccl_error_string(int err) {

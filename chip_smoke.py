@@ -369,21 +369,29 @@ def _kernel_ms(call, part, reps=20, pads=PROFILE_PADS_S):
     after a warm-up call: the kernel's own time, without the host time
     that separates back-to-back calls. A profile that saw fewer than
     ``reps`` device events dropped some, and runs again in a wider window
-    (the next of ``pads``; one pad: the time over the events it kept)."""
+    (the next of ``pads``; after the last: the time over the events it
+    kept). Where no window of ``pads`` kept an event of the kernel, the
+    wider windows of PROFILE_PADS_S are tried too, and where none of them
+    did either, the time is CUDA events' over ``reps`` back-to-back calls
+    and the events per call are None (unknown)."""
     call()
-    for pad in pads:
+    tries = (*pads, *(p for p in PROFILE_PADS_S if p > max(pads)))
+    for i, pad in enumerate(tries):
         with _profiled(pad) as prof:
             for _ in range(reps):
                 call()
         by_name = _device_busy(prof)[1]
         n_all = sum(c for c, _ in by_name.values())
-        if n_all >= reps:
+        hits = [v for k, v in by_name.items() if part in k]
+        n = sum(c for c, _ in hits)
+        if n_all >= reps or (n and i >= len(pads) - 1):
             break
         print(f"(profiler: {n_all} device events of {reps} calls of {part} in a {pad} s "
               f"window; again in a wider one)")
-    hits = [v for k, v in by_name.items() if part in k]
-    n = sum(c for c, _ in hits)
-    _require(n > 0, f"no device event of {part} in {reps} calls: {sorted(by_name)}")
+    if not n:
+        print(f"(profiler: no device event of {part} in any window; CUDA events over {reps} "
+              f"calls instead)")
+        return _cuda_time(call, reps), None
     return sum(us for _, us in hits) / n / 1e3, n_all / reps
 
 
@@ -1362,13 +1370,10 @@ def _probe_check(name, step):
 
 
 def _probe_ms(step, pads=PROFILE_PADS_S):
-    """(device ms a launch, how): torch.profiler over 20 launches (windows
-    padded by ``pads`` in turn, as ``_kernel_ms``), or CUDA events over 20
-    back-to-back calls where it saw no event of the kernel."""
-    try:
-        return _kernel_ms(step.call, step.part, pads=pads)[0], "profiler"
-    except AssertionError:
-        return _cuda_time(step.call, 20), "CUDA events"
+    """(device ms a launch, how): ``_kernel_ms`` over 20 launches, by
+    torch.profiler or, where it saw no event of the kernel, CUDA events."""
+    ms, events = _kernel_ms(step.call, step.part, pads=pads)
+    return ms, "profiler" if events is not None else "CUDA events"
 
 
 def _probe_rate(n_bytes, ms):

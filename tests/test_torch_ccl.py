@@ -274,6 +274,44 @@ def test_block_plan_spills_frames_larger_than_the_card():
     assert ccl.body(2160, 3840) == "block"
 
 
+def _threshold_chunk_rows(plan, w, stride, radius):
+    """The fewest cell rows a threshold chunk of the plan's tiles holds
+    (csrc ``thr_chunk_rows``): the words past a tile's labels and raw mask
+    over a cell row's vertical window sums and window means."""
+    rows, width = plan.tile_rows, plan.tile_width
+    room = (ccl.block_tile_words(rows, width, shared=not plan.spilled)
+            - rows * width - (rows + 4) * (width // 32 + 2))
+    r = ccl._window_radius(radius, stride) if stride > 1 else radius
+    ws, most = w // stride, None
+    for x0 in range(0, w, width):
+        cx0, cx1 = x0 // stride, (min(x0 + width, w) - 1) // stride
+        vw = min(cx1 + r, ws - 1) - max(cx0 - r, 0) + 1
+        m = room // (vw + cx1 - cx0 + 1)
+        most = m if most is None else min(most, m)
+    return most
+
+
+@pytest.mark.parametrize("h,w,tiles_x,width,spilled", [
+    (720, 1284, 1, 1312, False),  # a multiple of 4 but not of 16 wide
+    (720, 1280, 1, 1280, False),
+    (1080, 1920, 1, 1920, False),
+    (2160, 3840, 2, 1920, True),
+    (2160, 3844, 2, 1952, True),  # the second tile 1,892 pixels wide
+])
+@pytest.mark.parametrize("n", [1, 20])
+def test_block_plan_of_the_threshold_card_tests(h, w, tiles_x, width, spilled, n):
+    """The plans that tests/test_torch_cuda.py's threshold tests run on an
+    H100: tiles across, their width, where their workspaces live, and room
+    in every tile for at least one cell row of the threshold's window sums
+    and means at strides 1, 2 and 4 and radii 5 and 7 (the launch refuses
+    a plan without it)."""
+    plan = ccl.block_plan(h, w, n)
+    assert (plan.tiles_x, plan.tile_width, plan.spilled) == (tiles_x, width, spilled)
+    for stride in (1, 2, 4):
+        for radius in (5, 7):
+            assert _threshold_chunk_rows(plan, w, stride, radius) >= 1
+
+
 @pytest.mark.parametrize("sms", [ccl.H100_SMS, 114])
 @pytest.mark.parametrize("h,w", [(1080, 1920), (2160, 3840), (2160, 4096), (3000, 4000),
                                  (4320, 7680)])

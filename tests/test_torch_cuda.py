@@ -245,6 +245,103 @@ def test_ccl_block_body_at_hd(dev, h, w, frames, dtype):
         k: int(k.endswith("block")) for k in before}
 
 
+def _threshold_input(dev, h, w, n, pixels):
+    """n rendered h x w frames: uint8; float32; float32 with a fractional
+    part (default_rng(9), in [-0.5, 0.5)); or float32 one pixel past a
+    16-byte aligned address (the kernels' alignment branches)."""
+    img = _hd_frames(dev, h, w, n)
+    if pixels == "uint8":
+        return img
+    img = img.float()
+    if pixels == "fractional":
+        frac = np.random.default_rng(9).uniform(-0.5, 0.5, tuple(img.shape)).astype(np.float32)
+        return (img + torch.as_tensor(frac, device=dev)).contiguous()
+    if pixels == "offset":
+        buf = torch.empty(img.numel() + 1, dtype=torch.float32, device=dev)
+        out = buf[1:].view(img.shape)
+        out.copy_(img)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+    return img.contiguous()
+
+
+def _threshold_family(img, radius, stride, kind):
+    """P1a, K4 and K3 on img, each once, bit for bit against the plain
+    versions; each launch counted in the body ``kind``."""
+    before = dict(ccl.LAUNCHES)
+    thr = ccl.threshold_only(img, radius, 7.0, stride)
+    fg4, lab4 = ccl.threshold_label(img, radius, 7.0, stride, 2)
+    out = ccl.threshold_label_union(img, radius, 7.0, stride, 2, 2)
+    ref = ccl.threshold_label_union_reference(img, radius, 7.0, stride, 2, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(thr, ccl.threshold_only_reference(img, radius, 7.0, stride))
+    assert torch.equal(thr, ref[0].to(torch.int32))
+    assert torch.equal(fg4, ref[0])
+    assert torch.equal(lab4, ccl.label_components_reference(ref[0], 2))
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert bool(ref[0].any()) and not bool(ref[0].all())
+    used = {k: v - before[k] for k, v in ccl.LAUNCHES.items() if v != before[k]}
+    assert used == {f"{name}.{kind}": 1 for name in
+                    ("threshold_only", "threshold_label", "threshold_label_union")}
+
+
+@pytest.mark.parametrize("frames", [1, 16, 20])
+@pytest.mark.parametrize("pixels", ["uint8", "float32", "fractional", "offset"])
+@pytest.mark.parametrize("plan", ["cluster", "resident", "spilled"])
+def test_threshold_stage_in_every_body_and_plan(dev, frames, pixels, plan):
+    """The threshold stage alone (P1a) and as K3's and K4's first stage,
+    bit for bit against the plain versions: in the cluster body (480x640),
+    in the block body's resident plan at 720x1284 (a multiple of the
+    stride but not of 16: a uint8 row starts off a 16-byte boundary, and
+    the frame's one tile is 1312 wide with 1284 pixels in the frame) and in
+    its spilled plan at 2160x3844 (two tiles across, the second 1892
+    pixels wide); on uint8 frames, integer-valued float32, float32 with
+    fractional parts and float32 off a 16-byte boundary; at 1, 16 and 20
+    frames."""
+    h, w = {"cluster": (480, 640), "resident": (720, 1284), "spilled": (2160, 3844)}[plan]
+    kind = "cluster" if plan == "cluster" else "block"
+    img = _threshold_input(dev, h, w, frames, pixels)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ccl.body(h, w, 4) == kind
+    if kind == "block":
+        assert ccl.block_plan(h, w, frames, sms).spilled == (plan == "spilled")
+    _threshold_family(img, 7, 4, kind)
+
+
+@pytest.mark.parametrize("h,w", [(720, 1280), (1080, 1920), (2160, 3840)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("radius", [5, 7])
+@pytest.mark.parametrize("pixels", ["uint8", "fractional"])
+def test_threshold_stage_at_strides_1_and_2(dev, h, w, stride, radius, pixels):
+    """The block body's threshold at block-mean strides 1 and 2 (window
+    radii of 5 and 7 cells at stride 1, 2 and 4 at stride 2: more grid
+    columns a tile's window sums reach than at the detector's stride 4, so
+    fewer cell rows a chunk), P1a, K4 and K3 bit for bit on two frames in
+    the resident plan (720p, 1080p) and the spilled one (3840x2160)."""
+    img = _threshold_input(dev, h, w, 2, pixels)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ccl.body(h, w, stride) == "block"
+    assert ccl.block_plan(h, w, 2, sms).spilled == (h == 2160)
+    _threshold_family(img, radius, stride, "block")
+
+
+def test_threshold_refuses_a_window_its_tiles_cannot_hold(dev):
+    """A window whose one cell row of sums and means does not fit a tile's
+    free words (radius 600 at stride 1 on a 64x8192 frame, 2-row tiles
+    2048 wide) is refused by the launch: RuntimeError, no launch counted."""
+    img = torch.zeros(1, 64, 8192, dtype=torch.uint8, device=dev)
+    before = dict(ccl.LAUNCHES)
+    for call in (lambda: ccl.threshold_only(img, 600, 7.0, 1),
+                 lambda: ccl.threshold_label(img, 600, 7.0, 1, 2),
+                 lambda: ccl.threshold_label_union(img, 600, 7.0, 1, 2, 2)):
+        with pytest.raises(RuntimeError, match="block body"):
+            call()
+    assert ccl.LAUNCHES == before
+    ccl.threshold_only(img, 300, 7.0, 1)  # a radius that fits
+    assert ccl.LAUNCHES["threshold_only.block"] == before["threshold_only.block"] + 1
+
+
 @pytest.mark.parametrize("frames", [1, 16])
 def test_ccl_block_body_on_tile_crossing_mask(dev, frames):
     """K5 and K5s at 1920x1080 on a serpentine through every tile of the

@@ -190,6 +190,12 @@ def _cpu_calls():
             lambda: ccl.threshold_label(wide, RADIUS, C, STRIDE, 3,
                                         plan=ccl.spilled_plan(64, 1280)),
             lambda: ccl.threshold_label_reference(wide, RADIUS, C, STRIDE, 3)),
+        "threshold_only(wide)": (
+            lambda: ccl.threshold_only(wide, RADIUS, C, STRIDE),
+            lambda: ccl.threshold_only_reference(wide, RADIUS, C, STRIDE)),
+        "threshold_label_union(wide)": (
+            lambda: ccl.threshold_label_union(wide, RADIUS, C, STRIDE, 3, 2),
+            lambda: ccl.threshold_label_union_reference(wide, RADIUS, C, STRIDE, 3, 2)),
     }
 
 

@@ -11,19 +11,28 @@ raw mask) through the port's wrappers on rendered 1920x1080 frames, and
 prints for each segment between two marks the median and the largest time
 over the team's CTAs, and which tile took the largest. A ``wait`` segment
 is a barrier's: the time from a CTA's arrival to its release, that is how
-long the slowest tile kept it waiting. With ``--p3`` it runs instead K4
-(3 rounds, the probes' threshold) on P3's 1920x1080 frame of random bytes
-in the planner's resident plan and in ``ccl.spilled_plan``, and reads the
-team's CTAs that hold a tile; ``TREE`` (default: this checkout) is the
-root of the checkout whose port, kernel source and ``chip_smoke.py`` run,
-so that two trees' spilled plans compare on one card. The labels are
-checked against the plain version, so the marks change no result. Its
-marks anchor on lines of ``csrc/ccl.cu`` and ``csrc/grid_barrier.cuh``:
-edit them together. The last line is a JSON object of every segment.
-Needs one CUDA card and nvcc.
+long the slowest tile kept it waiting. The threshold's segments: the
+staged read (the tile's pixels copied into shared memory), the block means
+(the ``run`` up to the team barrier), the barrier's ``wait``, the window
+sums, the window means and the comparison (fg and mask words written).
+With ``--p3`` it runs instead K4 (3 rounds, the probes' threshold) on P3's
+1920x1080 frame of random bytes in the planner's resident plan and in
+``ccl.spilled_plan``, and reads the team's CTAs that hold a tile; with
+``--p1a`` P1a (``threshold_only``, the probes' threshold) on
+chip_smoke.py's 16 1920x1080 float32 probe frames, every frame of the first
+team (two teams of eight frames on an H100). ``TREE`` (default: this
+checkout) is the root of the checkout whose port, kernel source and
+``chip_smoke.py`` run, so that two trees compare on one card; the marks
+whose anchor lines another tree's source lacks are left out and named
+(this tree's source must hold every anchor; the barrier's marks are in
+both). Every output is checked against the plain version, so the marks
+change no result. Its marks anchor on lines of ``csrc/ccl.cu`` and
+``csrc/grid_barrier.cuh``: edit them together. The last line is a JSON
+object of every segment. Needs one CUDA card and nvcc.
 
-    python3 tools/ccl_block_stages.py [FRAMES]   (default 1)
+    python3 tools/ccl_block_stages.py [FRAMES [TREE]]   (default 1)
     python3 tools/ccl_block_stages.py --p3 [TREE]
+    python3 tools/ccl_block_stages.py --p1a [TREE]
 """
 
 import ctypes
@@ -58,23 +67,30 @@ extern "C" int ccl_marks(unsigned long long* out, int* count) {
 }
 """ % MAX_CTAS
 TAGS = {0: "start", 1: "run", 2: "wait", 3: "halo", 4: "jacobi", 5: "row scans",
-        6: "cell means", 7: "mask ring", 8: "dilate", 9: "erode", 10: "column scans"}
+        6: "window means", 7: "mask ring", 8: "dilate", 9: "erode", 10: "column scans",
+        11: "staged read", 12: "window sums", 13: "comparison"}
 # (anchor in ccl.cu, tag of the mark after it); tag 4 goes before its anchor
 MARKS = [
     ("  for (int f = team; f < g.n; f += g.teams) {\n", 0),
     ("  __syncthreads();\n  // ---- the Jacobi 8-neighbour min", 3),
     ("  // ---- row scans, forward then backward (each horizontal", 4),
     ("  __syncthreads();\n  if (T.TX > 1) {  // each row's left-", 5),
-    ("    mean[c] = acc / area;\n  }\n  __syncthreads();\n", 6),
+    ("      thr_stage<P>(a, T.px, T.y0, T.x0, T.rows, T.cols, st, T.TW);\n      __syncthreads();\n",
+     11),
+    ("V[(j0 + j) * c.vw + p.x] = acc[j];\n    }\n    __syncthreads();\n", 12),
+    ("    __syncthreads();\n    thr_compare<P, kStaged, kFg32>(", 6),
+    ("    __syncthreads();  // the chunk's sums and means are read before the next overwrites them\n",
+     13),
     ("      fill_ring(a.fg, T, T.mask(L.fgb, 2), 2);\n      __syncthreads();\n", 7),
     ("    d[yy * MW + kk] = acc;\n  }\n  __syncthreads();\n", 8),
     ("    c[yy * MW + kk] = acc & in_frame_bits(T, kk);\n  }\n  __syncthreads();\n", 9),
     ("    top[x] = t_run | f;\n    bot[x] = b_run | f;\n  }\n  __syncthreads();\n", 10),
 ]
 
-
-def marked_source(csrc: Path) -> str:
-    """ccl.cu with the barrier header inlined and the marks in place."""
+def marked_source(csrc: Path, strict: bool = True) -> str:
+    """ccl.cu with the barrier header inlined and the marks in place.
+    ``strict``: every anchor must be found once; else a mark whose anchor
+    is missing is left out."""
     src = (csrc / "ccl.cu").read_text()
     hdr = (csrc / "grid_barrier.cuh").read_text().replace("#pragma once", "")
     enter = "  __syncthreads();\n  if (threadIdx.x == 0) {\n"
@@ -85,14 +101,18 @@ def marked_source(csrc: Path) -> str:
     hdr = hdr.replace(enter, "  __syncthreads();\n  mark(1);\n  if (threadIdx.x == 0) {\n")
     hdr = hdr.replace(leave, "    __threadfence();\n  }\n  mark(2);\n  __syncthreads();\n}")
     include = '#include "grid_barrier.cuh"\n'
-    for anchor, _ in [(include, None)] + MARKS:
-        if src.count(anchor) != 1:
-            raise SystemExit(f"anchor not found once in ccl.cu: {anchor!r}")
+    if src.count(include) != 1:
+        raise SystemExit(f"anchor not found once in ccl.cu: {include!r}")
     src = src.replace(include, PRELUDE + hdr)
     for anchor, tag in MARKS:
+        if src.count(anchor) != 1:
+            if strict or src.count(anchor) > 1:
+                raise SystemExit(f"anchor not found once in ccl.cu: {anchor!r}")
+            print(f"(no mark '{TAGS[tag]}' in {csrc}: its anchor is not in that source)")
+            continue
         if tag == 4:
             src = src.replace(anchor, f"  mark({tag});\n" + anchor)
-        elif tag in (3, 5):  # after the anchor's first line
+        elif tag in (3, 5, 6):  # after the anchor's first line
             first, rest = anchor.split("\n", 1)
             src = src.replace(anchor, first + f"\n  mark({tag});\n" + rest)
         else:
@@ -115,7 +135,7 @@ def _segments(name, plan, marks, count, what):
     print(f"{name} on {what}: tiles of {plan.tile_rows}x{plan.tile_width}, "
           f"{plan.tiles_x * plan.tiles_y} a frame, {plan.ctas} CTAs a team "
           f"({'spilled' if plan.spilled else 'resident'}), {plan.teams} team(s); the first "
-          f"team's first frame, {total:.1f} us in all")
+          f"team's frames in turn, {total:.1f} us in all")
     rows = []
     for i in range(seg.shape[1]):
         rows.append({"tag": TAGS[tags[0, i + 1]], "median_us": float(np.median(seg[:, i])),
@@ -133,11 +153,13 @@ def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    p3 = args[:1] == ["--p3"]
-    if p3:
-        args = args[1:]
-        if args:
-            sys.path.insert(0, str(Path(args[0]).resolve()))
+    mode, tree = None, ROOT
+    if args[:1] in (["--p3"], ["--p1a"]):
+        mode, args = args[0], args[1:]
+    trees = args[1:] if mode is None else args  # [FRAMES [TREE]] or [TREE]
+    if trees:
+        tree = Path(trees[0]).resolve()
+        sys.path.insert(0, str(tree))
     import chip_smoke as cs
     from aruco_slam_tpu_torch.ops.detector import DetectorConfig
     from aruco_slam_tpu_torch.ops.kernels import _build, ccl
@@ -151,7 +173,7 @@ def main() -> int:
     print(f"kernel source: {_build.CSRC}")
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "ccl.cu"
-        src.write_text(marked_source(_build.CSRC))
+        src.write_text(marked_source(_build.CSRC, strict=tree == ROOT))
         _build._compile(src, Path(tmp) / "ccl.so")
         lib = ctypes.CDLL(str(Path(tmp) / "ccl.so"))
     lib.ccl_marks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -160,7 +182,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     marks = np.zeros(MAX_CTAS * MAX_MARKS, np.uint64)
     count = np.zeros(MAX_CTAS, np.int32)
-    if p3:
+    if mode == "--p3":
         r, C, s, n = cs.PROBE_RADIUS, cs.PROBE_C, cs.PROBE_STRIDE, cs.P3_ROUNDS
         img = cs._probe_frames(dev)["p3"]
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -170,6 +192,14 @@ def main() -> int:
         calls = {f"K4 {kind}": (lambda p=p: ccl.threshold_label(img, r, C, s, n, plan=p), ref, p)
                  for kind, p in plans.items()}
         what = "P3's 1920x1080 frame of random bytes, 3 rounds"
+    elif mode == "--p1a":
+        r, C, s = cs.PROBE_RADIUS, cs.PROBE_C, cs.PROBE_STRIDE
+        img = cs._probe_frames(dev)["hd"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = ccl.block_plan(*img.shape[1:], img.shape[0], sms)
+        calls = {"P1a": (lambda: (ccl.threshold_only(img, r, C, s),),
+                         (ccl.threshold_only_reference(img, r, C, s),), plan)}
+        what = f"{img.shape[0]} 1920x1080 float32 probe frames"
     else:
         frames = int(args[0]) if args else 1
         cfg = DetectorConfig()

@@ -52,8 +52,12 @@ renderer, from this tree; DetectorConfig()'s threshold and rounds):
     same through the wrapper (CUDA events over 10 calls);
   - ``det_1080p_ms_per_frame``: ``runner.detect_frames`` over the 16
     1920x1080 frames in one call, ms a frame (CUDA events, median of 3);
-  - ``k3_vga128_ms`` / ``k3_vga16_ms``: K3 alone in the cluster body at
-    128 and 16 rendered 640x480 frames;
+  - ``k3_vga128_ms`` ... ``k5s_vga16_ms``: K3, K4, K5 and K5s alone in
+    the cluster body at 128 and 16 rendered 640x480 frames (K5 and K5s on
+    the plain version's masks, as above);
+  - ``k3_1080p16_s2_ms`` / ``k3_1080p16_s1_ms``: K3 alone on the 16
+    1920x1080 frames at block-mean stride 2 and 1 (the window radius 4
+    and 7 cells);
   - ``k3_2160p4_ms`` ... ``k5s_2160p4_ms`` (and ``_call_ms``): K3, K4, K5
     and K5s as above on 4 rendered 3840x2160 frames, and ``k5_4320p1_ms``
     K5 on a 7680x4320 random mask (``default_rng(8)``, foreground 0.6):
@@ -63,7 +67,14 @@ renderer, from this tree; DetectorConfig()'s threshold and rounds):
   - ``p3_resident_ms`` / ``p3_spilled_ms``: P3, K4 at 3 rounds on a
     1920x1080 frame of random bytes (``default_rng(0)``) in the planner's
     plan and in the tree's own ``ccl.spilled_plan``; ``p3_spilled_ctas`` /
-    ``p3_spilled_tiles`` that plan's team and tiles.
+    ``p3_spilled_tiles`` that plan's team and tiles;
+  - ``p1a_vga20_ms`` / ``p1a_vga16_ms`` / ``p1a_1080p16_ms`` (and
+    ``_call_ms``): P1a, the threshold alone (``ccl.threshold_only``, the
+    probes' radius 7, C 7.0, stride 4) on chip_smoke.py's probe frames:
+    P1's 20 640x480 float32 frames (the cluster body, more clusters than
+    the card holds at once), their first 16, and 16 1920x1080 float32
+    frames (the block body); ``k4_vga20_r1_ms``: the P1 sweep's K4 at one
+    round on P1's 20 frames.
 
 With ``--k6`` it measures the single-stream path (chip_smoke.py phase 7,
 and phase 6's K6 states, 10 encoder ticks a frame, every observation
@@ -365,8 +376,16 @@ def measure_ccl(root):
                                 device=dev).repeat(4, 1, 1).contiguous()
     for n in (128, 16):
         img = vga[:n].contiguous()
-        out[f"k3_vga{n}_ms"] = cs._kernel_ms(
-            lambda: ccl.threshold_label_union(img, r, C, s, r1, r2), "ccl_")[0]
+        fg, lab, fg_c, _ = ccl.threshold_label_union_reference(img, r, C, s, r1, r2)
+        seed = lab.reshape(fg.shape)
+        for key, call in (("k3", lambda: ccl.threshold_label_union(img, r, C, s, r1, r2)),
+                          ("k4", lambda: ccl.threshold_label(img, r, C, s, r1)),
+                          ("k5", lambda: ccl.label_components(fg, r1)),
+                          ("k5s", lambda: ccl.label_components(fg_c, r2, init=seed))):
+            out[f"{key}_vga{n}_ms"] = cs._kernel_ms(call, "ccl_")[0]
+    for stride in (2, 1):
+        out[f"k3_1080p16_s{stride}_ms"] = cs._kernel_ms(
+            lambda: ccl.threshold_label_union(hd, r, C, stride, r1, r2), "ccl_")[0]
     del hd, vga, fg, lab, fg_c, seed, calls
     uhd = cs._render_hd(4, dev, 2160, 3840)
     fg, lab, fg_c, _ = ccl.threshold_label_union_reference(uhd, r, C, s, r1, r2)
@@ -391,6 +410,17 @@ def measure_ccl(root):
             lambda: ccl.threshold_label(p3, 7, 7.0, 4, 3, plan=plan), "ccl_")[0]
     out["p3_spilled_ctas"] = spilled.ctas
     out["p3_spilled_tiles"] = spilled.tiles_x * spilled.tiles_y
+    del uhd, fg, lab, fg_c, seed, mask8, p3
+    probe = cs._probe_frames(dev)
+    p1, hd = probe["p1"], probe["hd"]
+    p1_16 = p1[:16].contiguous()
+    pr, pc, ps = cs.PROBE_RADIUS, cs.PROBE_C, cs.PROBE_STRIDE
+    for tag, call in (("p1a_vga20", lambda: ccl.threshold_only(p1, pr, pc, ps)),
+                      ("p1a_vga16", lambda: ccl.threshold_only(p1_16, pr, pc, ps)),
+                      ("p1a_1080p16", lambda: ccl.threshold_only(hd, pr, pc, ps)),
+                      ("k4_vga20_r1", lambda: ccl.threshold_label(p1, pr, pc, ps, 1))):
+        out[f"{tag}_ms"] = cs._kernel_ms(call, "ccl_")[0]
+        out[f"{tag}_call_ms"] = cs._cuda_time(call, 10)
     return out
 
 
