@@ -36,20 +36,40 @@ import numpy as np
 import torch
 
 from aruco_slam_tpu_torch.ops import dictionary, geometry, linalg
+from aruco_slam_tpu_torch.utils import logging as _log
 
 Tensor = torch.Tensor
 
-# Stage boundaries of detect_markers_batch, for timing one call on the card:
-# a caller sets STAGE_MARKS to a list, and each boundary then appends
-# (the stage that just ended, a recorded CUDA event). None costs nothing.
+# Stage boundaries of detect_markers_batch as (the stage that just ended, a
+# recorded CUDA event) pairs, for a caller that sets STAGE_MARKS to a list:
+# the benchmark's traced run (portbench/run.py) reads its stage split here.
+# Everything else reads the recorder's ``detect.<stage>`` spans.
 STAGE_MARKS = None
 
 
-def _mark(stage: str) -> None:
-    if STAGE_MARKS is not None:
+def _mark(stage: str, frames: int = 0) -> None:
+    """A stage boundary of :func:`detect_markers_batch`. With the recorder
+    on, ``start`` opens the call's ``detect.chunk`` span (``frames``
+    frames), every later boundary closes the span ``detect.<stage>`` of
+    the time since the previous one, and ``dedup`` also the chunk. A CUDA
+    event is recorded at each boundary where the process has a card."""
+    rec, marks = _log.RECORDER, STAGE_MARKS
+    if rec is None and marks is None:
+        return
+    event = None
+    if marks is not None or rec.cuda_events:
         event = torch.cuda.Event(enable_timing=True)
         event.record()
-        STAGE_MARKS.append((stage, event))
+    if marks is not None:
+        marks.append((stage, event))
+    if rec is None:
+        return
+    if stage == "start":
+        rec.open("detect.chunk", frames, start_event=event)
+        return
+    rec.lap("detect." + stage, event)
+    if stage == "dedup":
+        rec.close(rec.current, event)
 
 
 @dataclass(frozen=True)
@@ -707,7 +727,7 @@ def detect_markers_batch(images: Tensor, cfg: DetectorConfig = DetectorConfig(),
     if img.dim() == 4 and img.shape[-1] == 3:
         img = to_grayscale(img)
     radii = cfg.adaptive_radii or (cfg.adaptive_radius,)
-    _mark("start")
+    _mark("start", img.shape[0])
     raw_q, raw_v, clo_q, clo_v = [], [], [], []
     for r in radii:
         q, v, q2, v2 = _candidates_at_radius(img, r, cfg, reference)

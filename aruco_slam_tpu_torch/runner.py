@@ -50,6 +50,7 @@ from aruco_slam_tpu_torch.ops.detector import DetectorConfig, detect_markers_bat
 from aruco_slam_tpu_torch.ops.frontend import observations_from_corners
 from aruco_slam_tpu_torch.ops.kernels import ekf_update, ekf_update_batched, pnp_frontend
 from aruco_slam_tpu_torch.parallel import mesh
+from aruco_slam_tpu_torch.utils import logging as _log
 from aruco_slam_tpu_torch.utils import metrics
 from aruco_slam_tpu_torch.utils.config import SlamConfig
 from aruco_slam_tpu_torch.utils.device import resolve
@@ -200,6 +201,9 @@ def detect_frames(images: Tensor, det_cfg: DetectorConfig = DetectorConfig(),
     bh, bw = _bucket_shape(h, w, det_cfg.shape_buckets)
     flat = images.reshape(-1, h, w)
     n = flat.shape[0]
+    rec = _log.recorder()
+    if rec is not None:
+        span = rec.open("detect", frames=n)
     rank, world = mesh.rank_world(group) if group is not None else (0, 1)
     per = -(-n // world)
     if world > 1:
@@ -211,6 +215,8 @@ def detect_frames(images: Tensor, det_cfg: DetectorConfig = DetectorConfig(),
     ids, corners, valid = _merge_detection_chunks(outs, per, h, w, bh, bw)
     if world > 1:
         ids, corners, valid = (mesh.all_gather(x, group=group)[:n] for x in (ids, corners, valid))
+    if rec is not None:
+        rec.close(span)
     K = ids.shape[-1]
     return ids.reshape(*lead, K), corners.reshape(*lead, K, 4, 2), valid.reshape(*lead, K)
 
@@ -273,19 +279,32 @@ def replay_batch(
     Under ``EkfConfig.fused_update`` each lane replays on its own with the
     step that :func:`frame_step_for` selects (the predict, then
     ``ekf.update_fused``), as the JAX package's vmap of its single-stream
-    scan does; every other configuration runs K1 and K2."""
+    scan does; every other configuration runs K1 and K2.
+
+    With the span recorder on (``utils.logging``) the call is one root
+    span ``replay`` (``frames``, ``lanes``) over the detection's ``detect``
+    span, the replay's ``replay.setup`` and a ``replay.frame`` span a
+    frame step."""
+    rec = _log.recorder()
+    if rec is not None:
+        B, F = (data.images if level == "images" else data.obs_ids).shape[:2]
+        root = rec.root("replay", frames=F, lanes=B)
     if level == "images":
         data = _corner_data_from_detections(
             data, *detect_frames(data.images, det_cfg, det_chunk)
         )
         level = "corners"
     if config.ekf.fused_update:
-        return _replay_lanes(data, config, camera, level, frame_step_for(config))
-    return _replay_batch(
-        data, config, camera, level,
-        pnp_frontend.pnp_frontend_batch, ekf_update_batched.frame_step_batched,
-        ekf_update_batched.frame_step_prechecked,
-    )
+        out = _replay_lanes(data, config, camera, level, frame_step_for(config), rec)
+    else:
+        out = _replay_batch(
+            data, config, camera, level,
+            pnp_frontend.pnp_frontend_batch, ekf_update_batched.frame_step_batched,
+            ekf_update_batched.frame_step_prechecked, rec,
+        )
+    if rec is not None:
+        rec.close(root)
+    return out
 
 
 def replay_batch_reference(
@@ -314,12 +333,15 @@ def replay_batch_reference(
 
 
 def _replay_batch(data, config, camera, level, pnp_fn, step_fn,
-                  later_step_fn=None) -> ReplayResult:
+                  later_step_fn=None, rec=None) -> ReplayResult:
     """The frame loop; ``later_step_fn``, where given, steps the frames
-    after the first, whose inputs and buffers ``step_fn`` has checked."""
+    after the first, whose inputs and buffers ``step_fn`` has checked.
+    ``rec``: the recorder of the call's spans, or None."""
     _check_level(level)
     if level == "corners" and camera is None:
         raise ValueError("corner-level replay needs the camera")
+    if rec is not None:
+        setup = rec.open("replay.setup")
     B, F, _ = data.obs_ids.shape
     dtype = torch.float32
     device = data.obs_ids.device
@@ -344,7 +366,11 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn,
     )
     state = ekf.init_state(config, B, device, dtype)
     spare = ekf.init_state(config, B, device, dtype)
+    if rec is not None:
+        rec.close(setup)
     for f in range(F):
+        if rec is not None:
+            span = rec.open("replay.frame", frames=1)
         if level == "corners":
             z, R, valid = pnp_fn(corners_f[f], valid_f[f], camera, config)
         else:
@@ -354,15 +380,17 @@ def _replay_batch(data, config, camera, level, pnp_fn, step_fn,
         step = step_fn if f == 0 or later_step_fn is None else later_step_fn
         state, spare = step(state, frame, controls, config, spare,
                             ekf_update_batched.Rows(**rows, f=f)), state
+        if rec is not None:
+            rec.close(span)
     return ReplayResult(**rows, final_state=state)
 
 
-def _replay_lanes(data, config, camera, level, step) -> ReplayResult:
+def _replay_lanes(data, config, camera, level, step, rec=None) -> ReplayResult:
     """A batch replayed lane by lane through the single-stream loop with
     the frame step ``step``; the rows and final states stacked along the
     batch."""
     lanes = [_replay_single(ReplayData(*(None if x is None else x[b] for x in data)),
-                            config, camera, level, step)
+                            config, camera, level, step, rec)
              for b in range(data.obs_ids.shape[0])]
     return ReplayResult(
         *(torch.stack(rows) for rows in zip(*(r[:3] for r in lanes))),
@@ -477,13 +505,22 @@ def replay(
     level the front-end is ``ops.frontend.observations_from_corners``, as
     in the JAX single-stream replay; at image level the frames are detected
     first (:func:`detect_frames`). Trajectory [F, 3], pose_cov [F, 3, 3],
-    n_landmarks [F]; the final state keeps its batch axis of one."""
+    n_landmarks [F]; the final state keeps its batch axis of one. With the
+    span recorder on, the call is one root span ``replay`` as in
+    :func:`replay_batch`."""
+    rec = _log.recorder()
+    if rec is not None:
+        F = (data.images if level == "images" else data.obs_ids).shape[0]
+        root = rec.root("replay", frames=F, lanes=1)
     if level == "images":
         data = _corner_data_from_detections(
             data, *detect_frames(data.images, det_cfg, det_chunk)
         )
         level = "corners"
-    return _replay_single(data, config, camera, level, frame_step_for(config))
+    out = _replay_single(data, config, camera, level, frame_step_for(config), rec)
+    if rec is not None:
+        rec.close(root)
+    return out
 
 
 def replay_reference(
@@ -507,17 +544,20 @@ def replay_reference(
     return _replay_single(data, config, camera, level, ekf_update.frame_step_reference)
 
 
-def _replay_single(data, config, camera, level, step) -> ReplayResult:
+def _replay_single(data, config, camera, level, step, rec=None) -> ReplayResult:
     """The single-stream frame loop: per frame ``step(state, frame,
     controls, config, None, rows)`` (:func:`frame_step_for`'s protocol) with
     ``rows.f`` the frame. At corner level ``frame`` is the frame's PnP
     output [1, M]; at obs level it is frame ``rows.f`` of the replay's
     time-major arrays, and K6's step (``ekf_update.frame_step``) runs as
     ``ekf_update.replay_step``: checked once, then one launch a frame at
-    that index, with no per-frame tensor."""
+    that index, with no per-frame tensor. ``rec``: the recorder of the
+    call's spans, or None."""
     _check_level(level)
     if level == "corners" and camera is None:
         raise ValueError("corner-level replay needs the camera")
+    if rec is not None:
+        setup = rec.open("replay.setup")
     F = data.obs_ids.shape[0]
     state = ekf.init_state(config, 1, data.obs_ids.device)
     # The outputs, written frame by frame by the step: a view of a frame's
@@ -529,18 +569,25 @@ def _replay_single(data, config, camera, level, step) -> ReplayResult:
     rep = None
     if level == "obs" and step is ekf_update.frame_step and F:  # no frame: no step to make
         rep = ekf_update.replay_step(state, frames, controls, config, rows)
+    if rec is not None:
+        rec.close(setup)
     for f in range(F):
+        if rec is not None:
+            span = rec.open("replay.frame", frames=1)
         if rep is not None:
             state = rep(f)
-            continue
-        rows.f = f
-        if level == "corners":
-            ids, valid = data.obs_ids[f][None], data.obs_valid[f][None]
-            frame = observations_from_corners(ids, data.corners_px[f][None], valid, camera, config)
-            ticks = ekf.Control(*(x[f][None] for x in controls))
         else:
-            frame, ticks = frames, controls
-        state = step(state, frame, ticks, config, None, rows)
+            rows.f = f
+            if level == "corners":
+                ids, valid = data.obs_ids[f][None], data.obs_valid[f][None]
+                frame = observations_from_corners(ids, data.corners_px[f][None], valid, camera,
+                                                  config)
+                ticks = ekf.Control(*(x[f][None] for x in controls))
+            else:
+                frame, ticks = frames, controls
+            state = step(state, frame, ticks, config, None, rows)
+        if rec is not None:
+            rec.close(span)
     return ReplayResult(rows.trajectory, rows.pose_cov, rows.n_landmarks, state)
 
 

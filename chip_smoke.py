@@ -1641,6 +1641,7 @@ def phase5_image_path(dev):
     from aruco_slam_tpu_torch.ops.kernels import ccl
     from aruco_slam_tpu_torch.ops.kernels import ekf_update_batched as kb
     from aruco_slam_tpu_torch.ops.kernels import pnp_frontend as pk
+    from aruco_slam_tpu_torch.utils import logging as slog
     from aruco_slam_tpu_torch.utils import metrics
     from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
 
@@ -1707,14 +1708,12 @@ def phase5_image_path(dev):
 
     chunk = data.images.reshape(-1, 480, 640)[:IMG_CHUNK].contiguous()
     detector.detect_markers_batch(chunk, det_cfg)  # warm
-    detector.STAGE_MARKS = []
+    slog.RECORDER = rec = slog.Recorder()
     torch.cuda.synchronize()
     detector.detect_markers_batch(chunk, det_cfg)
     torch.cuda.synchronize()
-    marks, detector.STAGE_MARKS = detector.STAGE_MARKS, None
-    split = {}
-    for (_, a), (stage, b) in zip(marks, marks[1:]):
-        split[stage] = split.get(stage, 0.0) + a.elapsed_time(b)
+    slog.RECORDER = None
+    split = slog.stage_ms(rec.closed())
     print(f"phase 5: one {IMG_CHUNK}-frame chunk's detection by stage (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + f"; total {sum(split.values()):.3f}")

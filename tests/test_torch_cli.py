@@ -191,3 +191,14 @@ def test_profiler_trace_capture(tmp_path, runs):
                                        if v is not None}), CFG)
     found = [f for _, _, files in os.walk(logdir) for f in files]
     assert any(f.endswith(".pt.trace.json") for f in found), found
+    # the program's spans on a host track of the same clock: each frame
+    # step holds the host's operations that it ran (the CPU's trace here)
+    (name,) = [f for f in found if f.endswith(".pt.trace.json")]
+    with open(os.path.join(logdir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    frames = [e for e in events if e.get("cat") == "program_span" and e["name"] == "replay.frame"]
+    assert len(frames) == 5 and all(e["args"]["frames"] == 1 for e in frames)
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    for fr in frames:
+        end = fr["ts"] + fr["dur"]
+        assert any(fr["ts"] <= e["ts"] and e["ts"] + e["dur"] <= end for e in ops), fr

@@ -944,3 +944,60 @@ def test_detect_frames_asq_on_the_card(dev, tmp_path):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert bool(got[2].any())
+
+
+SKEW_US = 50.0  # the clocks' residual skew allowed in a short window (PERF.md §6)
+
+
+def test_a_span_holds_its_kernel_on_the_device_trace_clock(dev, tmp_path):
+    """``utils.logging.trace`` writes the program's spans and the card's
+    kernels on one clock: a span around one launch and its synchronize
+    holds that kernel's device interval, within ``SKEW_US``."""
+    import json
+
+    from aruco_slam_tpu_torch.utils import logging as slog
+
+    x = torch.zeros(1 << 20, device=dev)
+    x.add_(1)
+    torch.cuda.synchronize()
+    with slog.trace(str(tmp_path)) as rec:
+        for _ in range(10):
+            torch.cuda.synchronize()
+            span = rec.open("probe")
+            x.add_(1)
+            torch.cuda.synchronize()
+            rec.close(span)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    probes = sorted((e for e in events if e.get("cat") == "program_span"),
+                    key=lambda e: e["ts"])
+    assert len(kernels) == len(probes) == 10
+    for k, p in zip(kernels, probes):
+        assert p["ts"] - SKEW_US <= k["ts"], (k, p)
+        assert k["ts"] + k["dur"] <= p["ts"] + p["dur"] + SKEW_US, (k, p)
+
+
+def test_the_stage_spans_time_what_the_stage_marks_time(dev):
+    """The detector's ``detect.<stage>`` spans hold the CUDA events of its
+    stage marks (``STAGE_MARKS``, which the benchmark's traced run reads),
+    so both give one split by stage."""
+    from aruco_slam_tpu_torch.utils import logging as slog
+
+    cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
+    seq = synthetic.generate_sequence(synthetic.SimParams(duration=1.0, seed=3), level="images",
+                                      camera=cam, device=dev)
+    frames = torch.as_tensor(seq.images, device=dev)
+    detector.detect_markers_batch(frames)
+    slog.RECORDER = rec = slog.Recorder()
+    detector.STAGE_MARKS = marks = []
+    try:
+        detector.detect_markers_batch(frames)
+        torch.cuda.synchronize()
+    finally:
+        slog.RECORDER, detector.STAGE_MARKS = None, None
+    split = {}
+    for (_, a), (stage, b) in zip(marks, marks[1:]):
+        split[stage] = split.get(stage, 0.0) + a.elapsed_time(b)
+    assert slog.stage_ms(rec.closed()) == split
+    assert set(split) == {"ccl", "stats", "chain", "union", "subpix", "decode", "dedup"}

@@ -12,8 +12,8 @@
 - P2: the scaled copy (``probes.scale_copy``) on P2's 32 rendered 640x480
   frames and ``img * 1.0000001`` beside it, then one detector call
   (``detect_markers_batch``, ``DetectorConfig()``) on the same frames split
-  by stage (``detector.STAGE_MARKS``, CUDA events), each stage beside the
-  copy's floor.
+  by stage (the recorder's ``detect.<stage>`` spans, CUDA events), each
+  stage beside the copy's floor.
 - P3: K4 (3 rounds) on a 1920x1080 frame of random bytes in the plan the
   planner picks (resident: the tiles' workspaces in shared memory) and in
   the spilled plan (``ccl.spilled_plan``: in device memory, one team on
@@ -49,6 +49,7 @@ def main() -> int:
     import chip_smoke as cs
     from aruco_slam_tpu_torch.ops import detector
     from aruco_slam_tpu_torch.ops.kernels import ccl, probes
+    from aruco_slam_tpu_torch.utils import logging as slog
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -93,14 +94,12 @@ def main() -> int:
     floor = ms["probe_scale"]
     cfg = detector.DetectorConfig()
     detector.detect_markers_batch(p2, cfg)  # warm
-    detector.STAGE_MARKS = []
+    slog.RECORDER = rec = slog.Recorder()
     torch.cuda.synchronize()
     detector.detect_markers_batch(p2, cfg)
     torch.cuda.synchronize()
-    marks, detector.STAGE_MARKS = detector.STAGE_MARKS, None
-    stages = {}
-    for (_, a), (stage, b) in zip(marks, marks[1:]):
-        stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
+    slog.RECORDER = None
+    stages = slog.stage_ms(rec.closed())
     out["p2.detector_stages_ms"] = stages
     print(f"p2: one detector call on the {p2.shape[0]} frames by stage (ms, x the scaled "
           f"copy's {floor:.4f}): " + ", ".join(f"{k} {v:.3f} ({v / floor:.0f}x)"
