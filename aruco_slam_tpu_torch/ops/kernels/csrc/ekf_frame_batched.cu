@@ -31,18 +31,30 @@
 // observation as the data needs, and spreads the B lanes over the card:
 //
 // "smem" (one CTA per lane, N <= 234): the lane's sigma lives in the CTA's
-//   shared memory for the frame; warp 0 composes the ticks while the other
-//   warps load the state. A known observation costs two barriers: phase A
-//   writes B = Gx sigma and each warp's part of the Gram matrix B B^T into
-//   a double buffer; after the barrier every thread forms S, S^-1 and
-//   ||K||^2 = tr(S^-1 B B^T S^-T) from the buffer in one fixed order (so
-//   every thread takes the same gate / reject branch), and the rank-3
+//   shared memory for the frame. Thread 0 issues sigma's load as one
+//   asynchronous copy (cp.async.bulk on an mbarrier, the unaligned head and
+//   tail of the lane's rows as 4-byte cp.async on the same barrier) of the
+//   rows 0 .. 3 + 3 n_landmarks - 1 only (the rows past them are zero);
+//   warp 0 composes the ticks (staged in shared memory first, so that no
+//   tick's load waits on the chain) while the other warps load the rest of
+//   the state and run the lookup and sort; only after the prologue's
+//   barrier does a thread wait for sigma. A known observation costs two
+//   barriers: phase A writes B = Gx sigma and each warp's part of the Gram
+//   matrix B B^T into a double buffer; after the barrier every thread forms
+//   S, S^-1 and ||K||^2 = tr(S^-1 B B^T S^-T) from the buffer in one fixed
+//   order (so every thread takes the same gate / reject branch), and the rank-3
 //   update runs with rows by warp and columns by lane, each lane's columns
 //   of B held in registers (no integer division); the second barrier only
 //   follows an observation that changed sigma. A new landmark is one pass
 //   and one barrier. Rows and columns past the active landmarks are exactly
-//   zero and stay so, so every pass stops at 3 + 3 n_landmarks. Two or more
-//   lanes share an SM where shared memory allows.
+//   zero and stay so, so every pass stops at 3 + 3 n_landmarks. The rank-3
+//   update's lanes hold ceil(N / 32) chunks of 32 columns (a template
+//   parameter, at most 8), so no pass runs chunks wholly past N; the
+//   write-back reads a row's columns before it stores any. Two plans, one
+//   program: 256 threads a lane (two lanes an SM) or 128 (five at N 99,
+//   whose shared memory they fill: the launch bounds hold the build to 102
+//   registers); the wrapper takes the plan with the fewest waves of B lanes
+//   over the card, 256 threads on a tie (ekf_update_batched.smem_threads).
 // "cluster" (234 < N <= 927) and "device" (any larger N): one program, the
 //   cluster body of ekf_frame_common.cuh (cluster_frame, shared with K6) on
 //   a grid of B clusters of G CTAs, with K2's compose and predict around
@@ -63,9 +75,13 @@ namespace {
 
 using namespace ekf;
 
-constexpr int kSThreads = 256;  // the smem variant
+constexpr int kSThreads = 256;       // the smem variant's plans: 256 or 128 threads a lane
+constexpr int kSThreadsNarrow = 128;
 constexpr int kMaxWarps = 32;
-constexpr int kColChunks = 8;   // columns of B a lane holds in registers: 8 x 32 per pass
+constexpr int kMaxColChunks = 8;     // columns of B a lane holds in registers: at most 8 x 32
+
+// The smem variant's column chunks at an N-dim state: ceil(N / 32), at most 8.
+inline int col_chunks(int N) { return std::min(kMaxColChunks, (N + 31) / 32); }
 
 // The batch's arrays; every [B, ...] array is batch-major and contiguous,
 // the encoder ticks [B, T] at the given element strides.
@@ -104,13 +120,16 @@ struct BatchIo {
   int T, F, f;
 };
 
-// The smem variant's shared memory in 4-byte words: sigma N*N | mu N | mu0 N |
-// B double buffer 2 x 3N | Gram partials 2 x 6 x kMaxWarps | pose, A, Q 21 |
-// frozen last_obs 3L | slots M | order M (shared_slot_words) | frozen seen L
-// bytes.
+// The smem variant's shared memory in 4-byte words: the load's mbarrier 4 (8
+// bytes, padded to 16) | sigma N*N at a shift of 0-3 words, so that its
+// address is the input lane's modulo 16 (the bulk copy's alignment), in N*N
+// + 3 | mu N | mu0 N | B double buffer 2 x 3N | Gram partials 2 x 6 x
+// kMaxWarps | pose, A, Q 21 | frozen last_obs 3L | slots M | order M
+// (shared_slot_words) | frozen seen L bytes.
+constexpr int kBarWords = 4;
 __host__ __device__ inline long long lane_words(int N, int L, int M) {
-  return (long long)N * N + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L + shared_slot_words(M) +
-         (L + 3) / 4;
+  return kBarWords + (long long)N * N + 3 + 8LL * N + 12LL * kMaxWarps + 21 + 3LL * L +
+         shared_slot_words(M) + (L + 3) / 4;
 }
 
 // The cluster and device variants' stripe width on G CTAs: ceil(N / G), at
@@ -132,26 +151,97 @@ __device__ __forceinline__ void compose_batch_lane(const BatchIo& io, const Odom
                io.wr + b * io.s_wr[0], io.s_wr[1], io.dt + b * io.s_dt[0], io.s_dt[1], io.T, pq);
 }
 
+// compose_batch_lane by one warp with the lane's pose and ticks first
+// staged in `stage` (room for cap floats) by the warp's threads, a load a
+// tick and array each, all in flight at once, so that no tick's load waits
+// on the chain of the ticks before it; from device memory where 3T + 3 >
+// cap.
+__device__ __forceinline__ void compose_staged(const BatchIo& io, const Odom& od, int b, int N,
+                                               float* pq, float* stage, int cap) {
+  const int T = io.T;
+  if (3 * T + 3 > cap) {
+    compose_batch_lane(io, od, b, N, pq);
+    return;
+  }
+  const bool init = io.init[b] != 0;
+  const float* src[3] = {io.wl + b * io.s_wl[0], io.wr + b * io.s_wr[0], io.dt + b * io.s_dt[0]};
+  const long long step[3] = {io.s_wl[1], io.s_wr[1], io.s_dt[1]};
+  const int lane = threadIdx.x & 31;
+  for (int k = lane; k < T; k += 32) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) stage[a * T + k] = src[a][k * step[a]];
+  }
+  if (lane < 3) stage[3 * T + lane] = io.mu[(long long)b * N + lane];
+  __syncwarp();
+  compose_lane(od, stage + 3 * T, init, stage, 1, stage + T, 1, stage + 2 * T, 1, T, pq);
+}
+
 __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_addr(s)), "l"(g)
+               : "memory");
+}
+
+// Floats from g (4-byte aligned) to s in shared memory, whose address is
+// g's modulo 16: n floats in all, issued by one thread, all completing on
+// the mbarrier bar (initialized to one arrival): the unaligned head and the
+// tail as 4-byte cp.async, which the barrier tracks through
+// cp.async.mbarrier.arrive, and the aligned middle as one bulk copy of
+// whole 16-byte units, which it counts in bytes.
+__device__ __forceinline__ void load_async(float* s, const float* g, int n,
+                                           unsigned long long* bar) {
+  const unsigned b = shared_addr(bar);
+  const int head = min(n, static_cast<int>(((16 - (reinterpret_cast<size_t>(g) & 15)) & 15) / 4));
+  const int mid = (n - head) & ~3;
+  for (int e = 0; e < head; ++e) cp_async4(s + e, g + e);
+  for (int e = head + mid; e < n; ++e) cp_async4(s + e, g + e);
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(b) : "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(4 * mid) : "memory");
+  if (mid > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(shared_addr(s + head)), "l"(g + head), "r"(4 * mid), "r"(b) : "memory");
+}
+
+// Waits for the first phase of the mbarrier bar (load_async's copies).
+__device__ __forceinline__ void wait_loaded(unsigned long long* bar) {
+  const unsigned b = shared_addr(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(b), "r"(0u) : "memory");
 }
 
 // ===========================================================================
 // The smem variant: one CTA per lane, its sigma in shared memory
 // ===========================================================================
 
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads, 2)
+// kThreads 256 (two CTAs an SM at up to 128 registers a thread) or 128
+// (five, which holds the build to 102 registers: five lanes of N 99 fill an
+// SM's shared memory), kChunks = col_chunks(N).
+template <int kThreads, int kChunks>
+__global__ void __launch_bounds__(kThreads, kThreads == kSThreadsNarrow ? 5 : 2)
 ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int N = cfg.N, L = cfg.L, M = cfg.M;
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kWarps = kThreads / 32;
   const long long NN = (long long)N * N;
+  const float* sig_in = io.sigma + b * NN;
 
-  float* s = smem;
-  float* mu = smem + NN;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  float* s = smem + kBarWords + ((reinterpret_cast<size_t>(sig_in) >> 2) & 3);
+  float* mu = smem + kBarWords + NN + 3;
   float* mu0 = mu + N;
   float* Bb = mu0 + N;                 // [2][3N]
   float* Gw = Bb + 6 * N;              // [2][kMaxWarps][6]
@@ -162,7 +252,6 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
 
   int* s_slot = prologue_slots(s_sh, io.slots, b, M);  // [M]
   int* s_order = s_slot + M;                             // [M]
-  const float* sig_in = io.sigma + b * NN;
   const int* ids = io.ids + (long long)b * M;
   const float* z = io.z + (long long)b * 3 * M;
   const float* R9 = io.R9 + (long long)b * 9 * M;
@@ -172,28 +261,24 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
   int* slot_out = io.slot_ids_out + (long long)b * L;
   int n_lm = io.n_lm[b];
 
-  // ---- prologue: warp 0 composes, the others load; then lookup and sort
+  // ---- prologue: thread 0 issues sigma's asynchronous load (the frame-start
+  // active rows), warp 0 composes (its ticks staged in B's buffer, which
+  // the predict takes only after the barrier below) while the other warps
+  // load the rest and run the lookup and sort (at a barrier of their own);
+  // then one barrier, and only then the wait for sigma
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(shared_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    load_async(s, sig_in, (3 + 3 * n_lm) * N, bar);
+  }
   if (warp == 0) {
-    compose_batch_lane(io, od, b, N, pq);
+    compose_staged(io, od, b, N, pq, Bb, 6 * N);
   } else {
     const int t0 = tid - 32, nt = kThreads - 32;
     // the observations into L1 for the chain (lines of 128 bytes)
     for (int e = t0; 128 * e < 36 * M; e += nt) prefetch_l1(reinterpret_cast<const char*>(R9) + 128 * e);
     for (int e = t0; 128 * e < 12 * M; e += nt) prefetch_l1(reinterpret_cast<const char*>(z) + 128 * e);
-    // sigma into shared memory
-    for (long long e0 = t0; e0 < NN; e0 += (long long)nt * kBatch) {
-      float v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const long long e = e0 + (long long)u * nt;
-        if (e < NN) v[u] = sig_in[e];
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const long long e = e0 + (long long)u * nt;
-        if (e < NN) s[e] = v[u];
-      }
-    }
     for (int j = t0; j < N; j += nt) mu[j] = mu0[j] = io.mu[(long long)b * N + j];
     for (int e = t0; e < 3 * L; e += nt) f_last[e] = last_out[e] = io.last_obs[(long long)b * 3 * L + e];
     for (int l = t0; l < L; l += nt) {
@@ -201,8 +286,11 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
       seen_out[l] = 0;
       slot_out[l] = io.slot_ids[(long long)b * L + l];
     }
+    lookup_and_sort(io.slot_ids + (long long)b * L, ids, valid, L, M, s_slot, s_order, 32,
+                    kThreads - 32);
   }
-  lookup_and_sort(io.slot_ids + (long long)b * L, ids, valid, L, M, s_slot, s_order);
+  __syncthreads();
+  wait_loaded(bar);
 
   // ---- the covariance predict with the frame's (A, Q); mu[0:3] <- pose
   {
@@ -329,10 +417,10 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
             dm += ze[a] * (invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2);
           mu[j] = mu[j] + dm;
         }
-        for (int cb = 0; cb < na; cb += 32 * kColChunks) {
-          float bc[kColChunks][3];
+        for (int cb = 0; cb < na; cb += 32 * kChunks) {
+          float bc[kChunks][3];
 #pragma unroll
-          for (int q = 0; q < kColChunks; ++q) {
+          for (int q = 0; q < kChunks; ++q) {
             const int c = cb + lane + 32 * q;
 #pragma unroll
             for (int a = 0; a < 3; ++a) bc[q][a] = c < na ? Bm[a * N + c] : 0.0f;
@@ -345,7 +433,7 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
               kt[a] = invS[3 * a] * b0 + invS[3 * a + 1] * b1 + invS[3 * a + 2] * b2;
             float* row = s + (long long)r * N;
 #pragma unroll
-            for (int q = 0; q < kColChunks; ++q) {
+            for (int q = 0; q < kChunks; ++q) {
               const int c = cb + lane + 32 * q;
               if (c < na) row[c] = row[c] - (kt[0] * bc[q][0] + kt[1] * bc[q][1] + kt[2] * bc[q][2]);
             }
@@ -396,15 +484,24 @@ ekf_frame_batched_lane_kernel(BatchIo io, Cfg cfg, Odom od) {
   }
   __syncthreads();
 
-  // ---- write back; symmetrize on the way out ----
+  // ---- write back; symmetrize on the way out: a row's columns all read
+  // before any is written, so that their loads are in flight together
+  // (kChunks x 32 columns cover N) ----
   const int na = 3 + 3 * n_lm;
   {
     float* sig_o = io.sigma_out + b * NN;
     for (int r = warp; r < N; r += kWarps) {
-      for (int c = lane; c < N; c += 32) {
-        float v = 0.0f;  // past the active block sigma is zero
-        if (r < na && c < na) v = cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r]) : s[r * N + c];
-        sig_o[(long long)r * N + c] = v;
+      float v[kChunks];
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        const int c = lane + 32 * q;
+        v[q] = 0.0f;  // past the active block sigma is zero
+        if (r < na && c < na) v[q] = cfg.symmetrize ? 0.5f * (s[r * N + c] + s[c * N + r]) : s[r * N + c];
+      }
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        const int c = lane + 32 * q;
+        if (c < N) sig_o[(long long)r * N + c] = v[q];
       }
     }
   }
@@ -455,12 +552,30 @@ ekf_frame_batched_cluster_kernel(BatchIo bio, Cfg cfg, Odom od) {
   cluster_frame(io, cfg, ln);
 }
 
-// The kernel of a variant (0 smem, 1 cluster, 2 device) and its threads.
-const void* kernel_of(int variant, int* threads) {
+// The smem kernel of a plan at an N-dim state.
+template <int kThreads>
+const void* lane_kernel(int N) {
+  switch (col_chunks(N)) {
+    case 1: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 1>);
+    case 2: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 2>);
+    case 3: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 3>);
+    case 4: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 4>);
+    case 5: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 5>);
+    case 6: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 6>);
+    case 7: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 7>);
+    default: return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kThreads, 8>);
+  }
+}
+
+// The kernel of a variant (0 smem, 1 cluster, 2 device) at an N-dim state;
+// *threads: in, the smem plan's threads a lane (256 or 128); out, the
+// kernel's threads.
+const void* kernel_of(int variant, int N, int* threads) {
   switch (variant) {
     case 0:
-      *threads = kSThreads;
-      return reinterpret_cast<const void*>(ekf_frame_batched_lane_kernel<kSThreads>);
+      if (*threads == kSThreads) return lane_kernel<kSThreads>(N);
+      if (*threads == kSThreadsNarrow) return lane_kernel<kSThreadsNarrow>(N);
+      return nullptr;
     case 1:
     case 2:
       *threads = kCThreads;
@@ -482,13 +597,13 @@ extern "C" long long ekf_frame_batched_smem_bytes(int variant, int N, int L, int
 }
 
 // A variant's plan: shared bytes per CTA and how many CTAs (clusters of G
-// for the cluster and device variants) the current card holds at once, 0
+// for the cluster and device variants; lanes an SM for the smem variant on
+// `threads` threads a lane, 256 or 128) the current card holds at once, 0
 // if none; sets the kernel's attributes, so that a launch needs no other
 // call.
-extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, int* smem_bytes,
-                                      int* resident) {
-  int threads = 0;
-  const void* fn = kernel_of(variant, &threads);
+extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, int threads,
+                                      int* smem_bytes, int* resident) {
+  const void* fn = kernel_of(variant, N, &threads);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long bytes = ekf_frame_batched_smem_bytes(variant, N, L, M, G);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
@@ -533,7 +648,8 @@ extern "C" int ekf_frame_batched_plan(int variant, int N, int L, int M, int G, i
 // kMaxSharedObs, else null). strides: wl, wr, dt (batch, tick).
 // fcfg: gate_eps2, div_ze2, div_k2, kl, kr, two_b, inv_b, kl_over_b,
 // kr_over_b, half_kl, q_k. icfg: B, N, L, M, G, T, F, f, stationary_gate,
-// reject_divergent, symmetrize, kl_both.
+// reject_divergent, symmetrize, kl_both, threads (the smem plan's, 256 or
+// 128; the other variants' are their own).
 extern "C" int ekf_frame_batched_launch(int variant, void* const* ptrs, const long long* strides,
                                         const float* fcfg, const int* icfg, int smem_bytes,
                                         void* stream) {
@@ -586,7 +702,12 @@ extern "C" int ekf_frame_batched_launch(int variant, void* const* ptrs, const lo
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (variant == 0) {
-    ekf_frame_batched_lane_kernel<kSThreads><<<B, kSThreads, smem_bytes, st>>>(io, cfg, od);
+    int threads = icfg[12];
+    const void* fn = kernel_of(0, N, &threads);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    void* args[] = {&io, const_cast<Cfg*>(&cfg), const_cast<Odom*>(&od)};
+    err = cudaLaunchKernel(fn, dim3(B), dim3(threads), args, static_cast<size_t>(smem_bytes), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else if (variant == 1 || variant == 2) {
     cudaLaunchConfig_t lc = {};
     cudaLaunchAttribute attr[1];

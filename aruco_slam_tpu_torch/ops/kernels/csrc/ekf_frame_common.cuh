@@ -219,23 +219,33 @@ __device__ __forceinline__ float block_sum(float v, float* red, int& set) {
 // observation i's slot (the first slot whose id equals ids[i], else -1),
 // s_order[p] the observation processed p-th: stable by key slot * M +
 // arrival, an invalid observation's key after every valid one. Every
-// thread of the CTA takes part; it ends in a barrier. The two arrays are the
-// CTA's own, in shared or in device memory (prologue_slots): the barriers
-// order their reads and writes in either.
+// thread of the CTA takes part, or with nt > 0 its threads t0 .. t0 + nt - 1
+// (whole warps, nt < blockDim.x), which meet at named barrier 1; it ends in
+// a barrier of those threads. The two arrays are the CTA's own, in shared
+// or in device memory (prologue_slots): the barriers order their reads and
+// writes in either.
 __device__ void lookup_and_sort(const int* slot_ids, const int* ids, const unsigned char* valid,
-                                int L, int M, int* s_slot, int* s_order) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < M; i += blockDim.x) s_slot[i] = INT_MAX;
-  __syncthreads();
-  for (int e = tid; e < M * L; e += blockDim.x) {
+                                int L, int M, int* s_slot, int* s_order, int t0 = 0, int nt = 0) {
+  const int tid = threadIdx.x - t0;
+  const int parts = nt > 0 ? nt : static_cast<int>(blockDim.x);
+  const auto sync = [nt] {
+    if (nt > 0) {
+      asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+    } else {
+      __syncthreads();
+    }
+  };
+  for (int i = tid; i < M; i += parts) s_slot[i] = INT_MAX;
+  sync();
+  for (int e = tid; e < M * L; e += parts) {
     const int i = e / L, l = e - i * L;
     if (slot_ids[l] == ids[i]) atomicMin(s_slot + i, l);
   }
-  __syncthreads();
-  for (int i = tid; i < M; i += blockDim.x)
+  sync();
+  for (int i = tid; i < M; i += parts)
     if (s_slot[i] == INT_MAX) s_slot[i] = -1;
-  __syncthreads();
-  for (int i = tid; i < M; i += blockDim.x) {
+  sync();
+  for (int i = tid; i < M; i += parts) {
     const int ki = valid[i] ? s_slot[i] * M + i : kBigKey;
     int rank = 0;
     for (int j = 0; j < M; ++j) {
@@ -244,7 +254,7 @@ __device__ void lookup_and_sort(const int* slot_ids, const int* ids, const unsig
     }
     s_order[rank] = i;
   }
-  __syncthreads();
+  sync();
 }
 
 // The bookkeeping arrays' copy into the outputs (by one CTA).

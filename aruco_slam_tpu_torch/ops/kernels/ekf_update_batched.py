@@ -12,7 +12,8 @@ size alone and whose CTAs a lane by the size and the batch
 (:func:`variant`), so that no ``max_landmarks`` is refused:
 
 - ``"smem"``: one CTA per lane, its sigma in shared memory (max_landmarks
-  up to :data:`MAX_SMEM_LANDMARKS`);
+  up to :data:`MAX_SMEM_LANDMARKS`), on 256 or 128 threads a lane, the plan
+  with the fewest waves of the batch over the card (:func:`smem_threads`);
 - ``"cluster"``: K6's cluster body on a cluster of G CTAs per lane, each
   CTA holding a stripe of the frame's active block in shared memory (up to
   :data:`MAX_CLUSTER_LANDMARKS`);
@@ -54,6 +55,10 @@ Tensor = torch.Tensor
 VARIANTS = ("smem", "cluster", "device")
 # Kernel launches by variant since import (or since a caller reset them).
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
+# The smem variant's plans, threads a lane (the first wins a tie), and its
+# launches by plan since import (or since a caller reset them).
+SMEM_THREADS = (256, 128)
+SMEM_LAUNCHES = dict.fromkeys(SMEM_THREADS, 0)
 
 # A block's shared memory on Hopper: 227 KB (232,448 bytes); the warps
 # whose Gram partials the smem and device variants keep.
@@ -69,8 +74,9 @@ MAX_SHARED_OBS = ekf_update.MAX_SHARED_OBS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_plans: dict = {}  # (device index, variant, N, M, CTAs) -> (shared bytes, resident)
-_choices: dict = {}  # (device index, N, M, B) -> (variant, CTAs, shared bytes)
+_plans: dict = {}  # (device index, variant, N, M, CTAs, threads) -> (shared bytes, resident)
+_choices: dict = {}  # (device index, N, M, B) -> (variant, CTAs, shared bytes, threads)
+_sms: dict = {}  # device index -> SMs
 _workspaces: dict = {}  # (device index, stream, B, CTAs, M) -> slots and order [B, G, 2, M]
 _stream = ekf_update._stream
 
@@ -101,10 +107,12 @@ def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_SHARED_OBS
                  ctas: int = 1) -> int:
     """Shared bytes per CTA of a variant for frames of ``n_obs``
     observations (csrc: ``lane_words``, ``batched_cluster_words``). The
-    smem variant: sigma, mu and mu0, the double-buffered B, the Gram
-    partials, pose / A / Q, the frozen last_obs and seen, the slots and the
-    order (in shared memory up to :data:`MAX_SHARED_OBS` observations, in
-    device memory past it). The cluster variant on ``ctas`` CTAs a lane:
+    smem variant: the load's mbarrier (4 words), sigma with 3 words of
+    room for its shift to the input's 16-byte alignment, mu and mu0, the
+    double-buffered B, the Gram partials, pose / A / Q, the frozen
+    last_obs and seen, the slots and the order (in shared memory up to
+    :data:`MAX_SHARED_OBS` observations, in device memory past it). The
+    cluster variant on ``ctas`` CTAs a lane:
     K6's layout with a stripe of N x W (W = :func:`stripe_width`), then
     pose / A / Q. The device variant: all of a CTA's shared memory."""
     if kind == "device":
@@ -112,7 +120,7 @@ def shared_bytes(kind: str, n_dim: int, max_lm: int, n_obs: int = MAX_SHARED_OBS
     if kind == "cluster":
         w = stripe_width(n_dim, ctas)
         return 4 * (n_dim * w + 7 * w + 3 * n_dim + 73 + _slot_words(n_obs) + 21)
-    return 4 * (n_dim * n_dim + 8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm
+    return 4 * (4 + n_dim * n_dim + 3 + 8 * n_dim + 12 * _MAX_WARPS + 21 + 3 * max_lm
                 + _slot_words(n_obs) + (max_lm + 3) // 4)
 
 
@@ -175,6 +183,43 @@ def variant(n_dim: int, lanes: int = 1, clusters=_h100_clusters) -> tuple[str, i
     return kind, max(fits, default=lo)
 
 
+# An NVIDIA H100's SMs, and the most lanes of each smem plan an SM holds by
+# registers (their launch bounds: 2 CTAs of 256 threads at up to 128
+# registers a thread, 5 of 128 at up to 102; chip_smoke.py phase 2 prints
+# the card's); shared memory may allow fewer (:func:`h100_smem_resident`).
+H100_SMS = 132
+H100_SMEM_LANES = {256: 2, 128: 5}
+# An SM's shared memory on Hopper, and what the card reserves a CTA.
+_SM_SHARED_BYTES, _CTA_RESERVED_BYTES = 233_472, 1024
+
+
+def h100_smem_resident(threads: int, n_dim: int, max_lm: int,
+                       n_obs: int = MAX_SHARED_OBS) -> int:
+    """Lanes of the smem plan on ``threads`` threads a lane that an H100's
+    SM holds at once: :data:`H100_SMEM_LANES`, or fewer where their shared
+    memory does not fit. The rule's answer on a host without a card; on the
+    card the wrapper asks the card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    per_lane = shared_bytes("smem", n_dim, max_lm, n_obs) + _CTA_RESERVED_BYTES
+    return min(H100_SMEM_LANES[threads], _SM_SHARED_BYTES // per_lane)
+
+
+def smem_threads(lanes: int, resident, sms: int = H100_SMS) -> int:
+    """The smem variant's threads a lane for ``lanes`` lanes: the plan of
+    :data:`SMEM_THREADS` with the fewest waves,
+
+        waves(t) = ceil(B / (resident(t) x SMs)),
+
+    with resident(t) the lanes of plan t an SM holds at once; on a tie the
+    first (256 threads). So a batch that one wave of 256-thread lanes holds
+    keeps them, and where shared memory holds one lane an SM either way
+    (N near 234) so does every batch."""
+    def waves(t):
+        r = resident(t)
+        return -(-lanes // (r * sms)) if r > 0 else float("inf")
+
+    return min(SMEM_THREADS, key=waves)
+
+
 # The largest maps of the two shared-memory variants (N = 3 + 3 * max_landmarks).
 MAX_SMEM_LANDMARKS = max(lm for lm in range(1, 1024) if variant(3 + 3 * lm)[0] == "smem")
 MAX_CLUSTER_LANDMARKS = max(lm for lm in range(1, 1024) if variant(3 + 3 * lm)[0] != "device")
@@ -184,7 +229,7 @@ def _lib():
     lib = _build.load("ekf_frame_batched")
     if lib.ekf_frame_batched_launch.argtypes is None:
         lib.ekf_frame_batched_launch.argtypes = [_I, _P, _P, _P, _P, _I, _P]
-        lib.ekf_frame_batched_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 2
+        lib.ekf_frame_batched_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 2
         lib.ekf_frame_batched_smem_bytes.argtypes = [_I] * 5
         lib.ekf_frame_batched_smem_bytes.restype = ctypes.c_longlong
         lib.ekf_frame_batched_launch.restype = _I
@@ -347,17 +392,21 @@ def _raise_on(err: int, lib, what: str) -> None:
                            f"{lib.ekf_frame_batched_error_string(err).decode()}")
 
 
-def _plan(lib, dev_index: int, kind: str, N: int, L: int, M: int, ctas: int):
-    """(shared bytes a CTA, CTAs or clusters the card holds at once) of a
-    variant on ``ctas`` CTAs a lane, cached per (device, variant, N, M,
-    CTAs)."""
-    key = (dev_index, kind, N, M, ctas)
+def _plan(lib, dev_index: int, kind: str, N: int, L: int, M: int, ctas: int,
+          threads: Optional[int] = None):
+    """(shared bytes a CTA, CTAs or clusters the card holds at once; lanes
+    an SM for the smem variant) of a variant on ``ctas`` CTAs a lane (and
+    the smem variant on ``threads`` threads a lane, by default
+    :data:`SMEM_THREADS`' first), cached per (device, variant, N, M, CTAs,
+    threads)."""
+    threads = threads or SMEM_THREADS[0]
+    key = (dev_index, kind, N, M, ctas, threads)
     plan = _plans.get(key)
     if plan is None:
         smem, resident = ctypes.c_int(), ctypes.c_int()
-        err = lib.ekf_frame_batched_plan(VARIANTS.index(kind), N, L, M, ctas,
+        err = lib.ekf_frame_batched_plan(VARIANTS.index(kind), N, L, M, ctas, threads,
                                          ctypes.byref(smem), ctypes.byref(resident))
-        _raise_on(err, lib, f"{kind} plan (N={N}, M={M}, {ctas} CTAs)")
+        _raise_on(err, lib, f"{kind} plan (N={N}, M={M}, {ctas} CTAs, {threads} threads)")
         if smem.value != shared_bytes(kind, N, L, M, ctas):
             raise RuntimeError("shared_bytes() disagrees with the kernel's layout")
         plan = _plans[key] = (smem.value, resident.value)
@@ -366,13 +415,19 @@ def _plan(lib, dev_index: int, kind: str, N: int, L: int, M: int, ctas: int):
 
 def _choose(lib, dev_index: int, N: int, L: int, M: int, B: int):
     """:func:`variant`'s answer for B lanes with the card's own cluster
-    occupancy, and its shared bytes, cached per (device, N, M, B)."""
+    occupancy, for the smem variant :func:`smem_threads`' with the card's
+    own lanes an SM, and its shared bytes, cached per (device, N, M, B)."""
     kind, ctas = variant(N, B, lambda k, g: _plan(lib, dev_index, k, N, L, M, g)[1])
-    smem, resident = _plan(lib, dev_index, kind, N, L, M, ctas)
+    threads = None
+    if kind == "smem":
+        sms = _sms.get(dev_index) or _sms.setdefault(
+            dev_index, torch.cuda.get_device_properties(dev_index).multi_processor_count)
+        threads = smem_threads(B, lambda t: _plan(lib, dev_index, kind, N, L, M, 1, t)[1], sms)
+    smem, resident = _plan(lib, dev_index, kind, N, L, M, ctas, threads)
     if resident < 1:
         raise RuntimeError(f"ekf_frame_batched: the {kind} variant with {smem} shared bytes a "
                            f"CTA on {ctas} CTAs a lane cannot be resident")
-    choice = _choices[(dev_index, N, M, B)] = (kind, ctas, smem)
+    choice = _choices[(dev_index, N, M, B)] = (kind, ctas, smem, threads)
     return choice
 
 
@@ -429,8 +484,9 @@ def _outputs(state: ekf.EkfState) -> ekf.EkfState:
 
 
 def _launch(state, frame, controls, config, out, rows, choice=None):
-    """One launch of the variant ``choice`` = (kind, CTAs a lane), by
-    default :func:`variant`'s answer for this batch on this card."""
+    """One launch of the variant ``choice`` = (kind, CTAs a lane; the smem
+    kind on its first plan), by default :func:`variant`'s and
+    :func:`smem_threads`' answer for this batch on this card."""
     B, N = state.mu.shape
     L = config.ekf.max_landmarks
     M = frame.ids.shape[1]
@@ -440,11 +496,13 @@ def _launch(state, frame, controls, config, out, rows, choice=None):
     with torch.cuda.device(dev):
         dev_index = torch.cuda.current_device()
         if choice is None:
-            kind, ctas, smem = (_choices.get((dev_index, N, M, B))
-                                or _choose(lib, dev_index, N, L, M, B))
+            kind, ctas, smem, threads = (_choices.get((dev_index, N, M, B))
+                                         or _choose(lib, dev_index, N, L, M, B))
         else:
             kind, ctas = choice
+            threads = None
             smem = _plan(lib, dev_index, kind, N, L, M, ctas)[0]
+        threads = threads or SMEM_THREADS[0]
         stream = _stream(dev)
         ws = _slot_workspace(dev, dev_index, stream, B, ctas, M)
         if out is None:
@@ -468,12 +526,15 @@ def _launch(state, frame, controls, config, out, rows, choice=None):
             config.covariance.Q_k,
         )
         F, f = (rows.trajectory.shape[1], rows.f) if rows is not None else (0, 0)
-        icfg = (ctypes.c_int * 12)(
+        icfg = (ctypes.c_int * 13)(
             B, N, L, M, ctas, T, F, f, int(cc.stationary_gate), int(cc.reject_divergent),
             int(config.ekf.symmetrize_sigma), int(cc.process_noise_uses_kl_for_both_wheels),
+            threads,
         )
         err = lib.ekf_frame_batched_launch(VARIANTS.index(kind), ptrs, strides, fcfg, icfg,
                                            smem, stream)
     _raise_on(err, lib, f"{kind} launch (N={N}, M={M})")
     LAUNCHES[kind] += 1
+    if kind == "smem":
+        SMEM_LAUNCHES[threads] += 1
     return out

@@ -549,6 +549,10 @@ SWEEP_LANES, SWEEP_CTAS = (1, 4, 32, 128), (2, 3, 4, 6, 8, 16)
 # among them (_wide_frame). K2: (variant, lanes, max_landmarks, landmarks a
 # lane); K6: (max_landmarks, landmarks).
 WIDE_M, WIDE_FRAMES = 300, 3
+# K2-smem's plan at phase 3's lanes and the Monte-Carlo cell's
+# (arena20_corners_b4096), and the frames that hold the larger to the plain
+# version.
+SMEM_PLAN_LANES, SMEM_PLAN_FRAMES = (B, 4096), 3
 K2_WIDE = (("smem", B, 32, 20), ("cluster", 32, 128, 100), ("device", DEVICE_LANES, 512, 100))
 K6_WIDE = ((128, 100), (512, 100))
 
@@ -665,10 +669,60 @@ def phase2_k2(dev):
     _require(dropped > 0, "the small-capacity run never dropped a landmark")
     out_stats["device"][0] = max(out_stats["device"][0], _k2_device_memory(dev, kb))
     _k2_sweep(dev, kb)
+    out_stats["smem"][0] = max(out_stats["smem"][0], _k2_smem_plans(dev, kb, *sources["short"]))
     for kind, (err, ms) in _k2_wide(dev, kb).items():
         out_stats[kind][0] = max(out_stats[kind][0], err)
         out_stats[kind].append(ms)
     return {k: tuple(v) for k, v in out_stats.items()}
+
+
+def _k2_smem_plans(dev, kb, seqs, cam):
+    """K2-smem's plan (threads a lane, resident lanes an SM, waves) at each
+    of SMEM_PLAN_LANES on 32 distinct 5 s sequences (N 99, M 16), the
+    kernel alone timed at frames 20 and on, and the larger batch held to
+    its plain version over SMEM_PLAN_FRAMES frames; returns the max
+    error."""
+    from aruco_slam_tpu_torch import runner
+    from aruco_slam_tpu_torch.utils.config import EkfConfig, SlamConfig
+
+    L, start = 32, 20
+    c = SlamConfig(ekf=EkfConfig(max_landmarks=L, max_observations_per_frame=M))
+    n_dim, d, lib = 3 + 3 * L, torch.cuda.current_device(), kb._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err, times = 0.0, {}
+    for lanes in SMEM_PLAN_LANES:
+        data = runner.build_batch_data(seqs, lanes, "corners", dev)
+        state = runner.replay_batch(data._replace(**{
+            k: v[:, :start] for k, v in data._asdict().items() if v is not None
+        }), c, cam, "corners").final_state
+        checked = lanes == max(SMEM_PLAN_LANES)
+        for f in range(start, start + (SMEM_PLAN_FRAMES if checked else 1)):
+            frame, controls = _k2_frame(f, data, c, cam)
+            out = kb.frame_step_batched(state, frame, controls, c)
+            if checked:
+                ref = kb.frame_step_reference(state, frame, controls, c)
+                torch.cuda.synchronize()
+                err = max(err, _k2_check(out, ref, f"(smem, B={lanes}) frame {f}"))
+            state = out
+        kind, _, _, threads = kb._choices[(d, n_dim, M, lanes)]
+        _require(kind == "smem", f"K2 at B={lanes}, N={n_dim}: {kind}")
+        plans = {t: kb._plan(lib, d, kind, n_dim, L, M, 1, t)[1] for t in kb.SMEM_THREADS}
+        waves = {t: -(-lanes // (r * sms)) for t, r in plans.items()}
+        call = lambda: kb.frame_step_batched(state, frame, controls, c)  # noqa: E731
+        before = dict(kb.SMEM_LAUNCHES)
+        times[lanes], events = _kernel_ms(call, "ekf_frame_batched", pads=PROFILE_PADS_S[:1])
+        _require(kb.SMEM_LAUNCHES[threads] > before[threads], f"K2-smem at B={lanes} did not "
+                 f"launch its {threads}-thread plan")
+        print(f"phase 2: K2 (smem) B={lanes} N={n_dim} M={M}: the {threads}-thread plan, "
+              f"{plans[threads]} resident lanes an SM, {waves[threads]} wave(s) over {sms} SMs "
+              f"(plans by threads: resident {plans}, waves {waves}); {times[lanes]:.4f} ms/launch "
+              f"on the device ({events} device events a call)"
+              + (f"; {SMEM_PLAN_FRAMES} frames equal to the plain version, max |err| {err:.3e}"
+                 if checked else ""))
+    print(f"phase 2: K2-smem, B {max(times)} against B {min(times)}: "
+          f"{times[max(times)] / times[min(times)]:.2f}x the time for "
+          f"{max(times) / min(times):.0f}x the lanes")
+    return err
 
 
 def _k2_wide(dev, kb):

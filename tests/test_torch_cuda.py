@@ -888,6 +888,49 @@ def test_frame_step_variants_match_plain(dev, max_lm, kind, M, ticks):
                                                                  cfg)) == 1
 
 
+# More lanes than one wave of the smem variant's 256-thread plan holds
+# (132 SMs x 2 or 3 lanes), so that the wrapper takes the 128-thread plan.
+_NARROW_LANES = 1000
+
+
+@pytest.mark.parametrize("M", [16, 24, 257, 0])
+@pytest.mark.parametrize("ticks", [10, 0])
+def test_smem_narrow_plan_matches_plain(dev, M, ticks):
+    """K2-smem on its 128-thread plan (four or more lanes an SM) against
+    its plain version: 1,000 lanes of 1-30 landmarks (N 99, so lanes of
+    different active sizes, some inserts dropped), lane 1 uninitialized,
+    frames of 16, 24, 257 (slots and order in device memory) and 0
+    observation slots, with and without encoder ticks; the replay rows;
+    one device event a call; the launch counted under 128 threads."""
+    B, max_lm = _NARROW_LANES, 32
+    n_lms = tuple(1 + (7 * b) % 30 for b in range(B))
+    cfg, state, frame, controls = _k2_case(dev, max_lm, B=B, T=ticks, n_lms=n_lms, M=M)
+    n, F = 3 + 3 * max_lm, 4
+
+    def rows():
+        return kb.Rows(torch.zeros(B, F, 3, device=dev), torch.zeros(B, F, 3, 3, device=dev),
+                       torch.zeros(B, F, dtype=torch.int32, device=dev), 2)
+
+    ref_rows, got_rows = rows(), rows()
+    ref = kb.frame_step_reference(state, frame, controls, cfg, rows=ref_rows)
+    before, before_smem = dict(kb.LAUNCHES), dict(kb.SMEM_LAUNCHES)
+    out = kb.frame_step_batched(state, frame, controls, cfg, rows=got_rows)
+    torch.cuda.synchronize()
+    assert kb._choices[(dev.index, n, M, B)][::3] == ("smem", 128)
+    assert kb.LAUNCHES == {**before, "smem": before["smem"] + 1}
+    assert kb.SMEM_LAUNCHES == {**before_smem, 128: before_smem[128] + 1}
+    for name in ("slot_ids", "n_landmarks", "seen_prev", "initialized", "diverged", "dropped"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert (int(out.dropped.sum()) > 0) == (M > 0) and bool(out.initialized.all())
+    for name in ("mu", "sigma", "last_obs"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name), atol=5e-5, rtol=5e-3)
+    assert torch.equal(got_rows.n_landmarks, ref_rows.n_landmarks)
+    for a, b in zip(got_rows[:2], ref_rows[:2]):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-3)
+    assert _device_events_per_call(lambda: kb.frame_step_batched(state, frame, controls,
+                                                                 cfg)) == 1
+
+
 def test_slam_system_on_the_card_matches_the_cpu(dev):
     """The same calls on a card system (K6, K3) and a CPU one (plain)."""
     cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)

@@ -16,6 +16,7 @@
 """
 
 import dataclasses
+import functools
 import weakref
 
 import jax
@@ -184,8 +185,38 @@ def test_variant_covers_every_map_size():
             seen.append(kind)
     assert seen == ["smem", "cluster", "device"]
     assert (kb.MAX_SMEM_LANDMARKS, kb.MAX_CLUSTER_LANDMARKS) == (77, 308)
-    # the smem plan of the main path's lane, and its smallest parts
-    assert kb.shared_bytes("smem", 99, 32, 16) == 4 * (99 * 99 + 8 * 99 + 384 + 21 + 96 + 32 + 8)
+    # the smem plan of the main path's lane, and its smallest parts: the
+    # load's mbarrier 4 words, sigma and 3 words of room for its 16-byte
+    # shift, mu, mu0 and B 8 N, the Gram partials, pose / A / Q, last_obs,
+    # slots and order, seen
+    assert kb.shared_bytes("smem", 99, 32, 16) == 4 * (4 + 99 * 99 + 3 + 8 * 99 + 384 + 21 + 96
+                                                       + 32 + 8)
+
+
+@pytest.mark.parametrize("max_lm,lanes,threads", [
+    (32, 1, 256), (32, 32, 256), (32, 256, 256), (32, 264, 256),  # one wave of 256
+    (32, 265, 128), (32, 600, 128), (32, 4096, 128),
+    (77, 1, 256), (77, 600, 256), (77, 4096, 256),  # N 234: one lane an SM either way
+])
+def test_smem_plan_follows_the_waves(max_lm, lanes, threads):
+    """The smem variant's threads a lane: the plan with the fewest waves of
+    B lanes over the H100's 132 SMs (its lanes an SM from the stand-in
+    table: 2 of 256 threads, 5 of 128, fewer where shared memory holds
+    fewer), 256 threads on a tie. N 99 holds 5 lanes an SM by shared
+    memory, N 234 one."""
+    n = 3 + 3 * max_lm
+    assert kb.variant(n, lanes) == ("smem", 1)  # the kind and its answer stay
+    resident = functools.partial(kb.h100_smem_resident, n_dim=n, max_lm=max_lm, n_obs=16)
+    assert {t: resident(t) for t in kb.SMEM_THREADS} == ({256: 2, 128: 5} if max_lm == 32
+                                                         else {256: 1, 128: 1})
+    assert kb.smem_threads(lanes, resident) == threads
+    waves = {t: -(-lanes // (resident(t) * kb.H100_SMS)) for t in kb.SMEM_THREADS}
+    assert waves[threads] == min(waves.values())
+    # a plan that cannot be resident is never taken
+    assert kb.smem_threads(lanes, lambda t: 0 if t == 256 else 1) == 128
+    # on a card of one SM, one lane of N 99 ties (one wave each), two do not
+    assert kb.smem_threads(1, resident, sms=1) == 256
+    assert kb.smem_threads(3, resident, sms=1) == (128 if max_lm == 32 else 256)
 
 
 @pytest.mark.parametrize("lanes", [1, 4, 32, 256])

@@ -487,7 +487,7 @@ class _RefusingK2:
     def __init__(self):
         self.calls = []
 
-    def ekf_frame_batched_plan(self, variant, N, L, M, G, smem, resident):
+    def ekf_frame_batched_plan(self, variant, N, L, M, G, threads, smem, resident):
         kind = ekf_update_batched.VARIANTS[variant]
         smem._obj.value = ekf_update_batched.shared_bytes(kind, N, L, M, G)
         resident._obj.value = 1
@@ -574,6 +574,7 @@ def test_k2_wide_frames_take_a_slot_workspace(monkeypatch, max_lm):
     _as_if_on_the_card(monkeypatch, ekf_update_batched, lib)
     monkeypatch.setattr(ekf_update_batched, "_workspaces", {})
     monkeypatch.setattr(ekf_update_batched, "_choices", {})
+    monkeypatch.setattr(ekf_update_batched, "_sms", {0: ekf_update_batched.H100_SMS})
     cfg = SlamConfig(ekf=EkfConfig(max_landmarks=max_lm, max_observations_per_frame=3))
     N, B = 3 + 3 * max_lm, 2
     kind = ekf_update_batched.variant(N)[0]
@@ -584,7 +585,7 @@ def test_k2_wide_frames_take_a_slot_workspace(monkeypatch, max_lm):
     assert [c[:2] for c in lib.calls] == [(kind, m) for m in (16, 256, 257, 300, 300)]
     for (_, M, ctas, smem, slots) in lib.calls:
         w = ekf_update_batched.stripe_width(N, ctas)
-        fixed = {"smem": N * N + 8 * N + 384 + 21 + 3 * max_lm + (max_lm + 3) // 4,
+        fixed = {"smem": 4 + N * N + 3 + 8 * N + 384 + 21 + 3 * max_lm + (max_lm + 3) // 4,
                  "cluster": N * w + 7 * w + 3 * N + 73 + 21}.get(kind)
         words = 2 * M if M <= 256 else 0
         assert smem == (ekf_update_batched.MAX_SHARED_BYTES if fixed is None
@@ -642,11 +643,12 @@ def test_refused_ccl_launch_raises_and_tries_no_other_body(monkeypatch, shape, k
 
 
 def test_shared_memory_budget():
-    """K2's smem variant holds the main path's lane (N = 99) in 46,456
-    bytes and every map up to 77 landmarks; its cluster variant reaches as
+    """K2's smem variant holds the main path's lane (N = 99) in 46,484
+    bytes (with the load's mbarrier and sigma's room for its 16-byte
+    shift) and every map up to 77 landmarks; its cluster variant reaches as
     far as K6's; beyond that the device variant takes every size, on 16
     CTAs for one lane."""
-    assert ekf_update_batched.shared_bytes("smem", 99, 32) == 46_456  # main path: N = 99
+    assert ekf_update_batched.shared_bytes("smem", 99, 32) == 46_484  # main path: N = 99
     assert ekf_update_batched.MAX_SMEM_LANDMARKS == 77
     assert ekf_update_batched.MAX_CLUSTER_LANDMARKS == ekf_update.MAX_CLUSTER_LANDMARKS == 308
     assert ekf_update_batched.variant(3 + 3 * 309) == ("device", 16)
