@@ -15,6 +15,8 @@ import torch
 
 from portbench.reference import render, sim
 
+ENTRIES = ("replay_batch", "replay")  # the entries Program runs; others: ``entries/``
+
 
 class Cell:
     """Inputs of one cell on ``device``: ``base`` (the distinct sequences,
@@ -80,7 +82,7 @@ class Program:
             max_landmarks=f["max_landmarks"],
             max_observations_per_frame=f["max_observations_per_frame"][cell.level]))
         self.entry = cell.traffic["entry"]
-        if self.entry not in ("replay_batch", "replay"):
+        if self.entry not in ENTRIES:
             raise ValueError(f"unknown entry {self.entry!r}")
         self.data = runner.ReplayData(cell.enc_w, cell.enc_dt, cell.ids, cell.z, cell.R,
                                       cell.valid, cell.corners, cell.images)

@@ -1,7 +1,8 @@
 """The kernels' least times on the card: a frozen copy of ``chip_smoke.py``'s
 byte and operation counts for K1 (PnP front-end), K2 (the batched EKF frame
 step), K3 (threshold, close and label) and K6 (the single-stream frame
-step), computed from a cell's inputs.
+step), computed from a cell's inputs; and the bundle-adjustment solve's
+(:func:`ba_solve`), from its problem's sizes and iteration counts.
 
 A bound is the larger of the bytes over the HBM rate and the operations
 over the float32 rate of an NVIDIA H100 SXM at 700 W (data sheet). Bytes
@@ -105,3 +106,59 @@ def replay_bounds(ids: np.ndarray, valid: np.ndarray, lanes: np.ndarray, L: int,
         out["pnp"] = sum(k1_launch(int(lanes.sum()) * M, int((lanes * valid[:, f].sum(-1)).sum()))
                          for f in range(F))
     return out
+
+
+# The bundle-adjustment solve (``models/ba.py``, float32): counts of the
+# work the algorithm needs, whatever runs it (torch operations, a CUDA
+# graph or one fused kernel). A 3x3 block is 36 B, a 3-vector 12 B, an
+# index 4 B; a 3x3 matrix-vector product 15 operations, a 3x3 product 45.
+# Marker factor: two indices, z and the information (56 B); an odometry
+# factor: z and the information (48 B).
+OBS_BYTES, ODO_BYTES, BLOCK_BYTES, VEC_BYTES = 56, 48, 36, 12
+# ESTIMATE: a factor's linearization: the relative pose, its residual and
+# two 3x3 Jacobians (about 60 with sin and cos), J^T W twice (90), the
+# three blocks J^T W J (135), the two right-hand sides (30) and the keyed
+# sums (24).
+LIN_OPS_PER_FACTOR = 340
+# ESTIMATE: a factor's cost: the relative pose and residual (about 50) and
+# r^T W r (20).
+COST_OPS_PER_FACTOR = 70
+INV3_OPS = 40  # ESTIMATE: a 3x3 inverse by the adjugate
+
+
+def ba_solve(K: int, L: int, N: int, M: int, gn: int, cg: int, adaptive: bool,
+             deflate: bool) -> float:
+    """One solve of K keyframes, L landmarks, N marker and M odometry
+    factors: ``gn`` damped Gauss-Newton steps of ``cg`` PCG iterations each.
+
+    Bytes, each step: the linearization reads the state and every factor
+    and writes the pose-landmark blocks (N), the pose blocks (K), the
+    odometry blocks (M), the inverted landmark blocks (L), the reduced
+    right-hand side (K) and the landmarks' (L); each PCG iteration reads
+    the blocks of S's product (pose, odometry, pose-landmark with its
+    indices, inverted landmark) and the preconditioner's inverted pose
+    blocks once, and reads and writes the iterate, residual and direction
+    (with the gauge mode and its product where deflated); the
+    back-substitution reads the pose-landmark blocks, indices, the step and
+    the landmark blocks and writes the new state; with ``adaptive`` the
+    cost of the new state reads it and every factor again. Operations
+    likewise: every 3x3 product and matrix-vector product, sum and inverse
+    the algorithm takes."""
+    state = (K + L) * VEC_BYTES
+    factors = N * OBS_BYTES + M * ODO_BYTES
+    lin_bytes = state + factors + (N + K + M + L) * BLOCK_BYTES + (K + L) * VEC_BYTES
+    cg_bytes = ((2 * K + M + L + N) * BLOCK_BYTES + N * 8
+                + (6 + (2 if deflate else 0)) * K * VEC_BYTES)
+    back_bytes = N * (BLOCK_BYTES + 8) + (K + L) * VEC_BYTES + L * BLOCK_BYTES + 2 * state
+    cost_bytes = state + factors if adaptive else 0
+    n_bytes = gn * (lin_bytes + cg * cg_bytes + back_bytes + cost_bytes)
+    lin_ops = (N + M) * LIN_OPS_PER_FACTOR + (K + L) * INV3_OPS
+    # S p: the pose blocks (15 K), odometry both ways (30 M), Apl^T, Hll^-1
+    # and Apl (15 N + 15 L + 15 N) with the keyed sums (6 N); the
+    # preconditioner (15 K); two dot products and three updates (30 K);
+    # the deflation's projection (12 K)
+    cg_ops = 36 * N + 15 * L + 30 * M + (60 + (12 if deflate else 0)) * K
+    back_ops = 36 * N + 15 * L + 6 * (K + L)
+    cost_ops = (N + M) * COST_OPS_PER_FACTOR if adaptive else 0
+    n_ops = gn * (lin_ops + cg * cg_ops + back_ops + cost_ops)
+    return bound_s(n_bytes, n_ops)

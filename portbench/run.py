@@ -5,9 +5,9 @@
 runs one cell of ``BENCHMARK.json`` once, from the root of a checkout:
 
 1. set-up: the port imported, the cell's inputs made from ``--seed``
-   (``cell.Cell``), one warm call of its entry (``cell.Program``), which
-   builds the port's kernels into its fixed build directory on a fresh
-   checkout;
+   (``cell.Cell``), one warm call of its entry (``cell.Program`` for the
+   replays, else ``entries/<entry>.py``'s), which builds the port's kernels
+   into its fixed build directory on a fresh checkout;
 2. ``--trace 0``: whole calls back to back, one caller, each ended by a
    synchronize, until ``--seconds`` have passed; the cell's end-to-end
    metrics (``end_to_end/<name>.py``) read that window.
@@ -15,7 +15,8 @@ runs one cell of ``BENCHMARK.json`` once, from the root of a checkout:
    ``torch.profiler`` instead; the cell's per-layer metrics
    (``layers/<name>.py``) read that trace;
 3. the window's last result compared with the plain reference
-   (``check.py``) once the peak memory is read and the rest is freed;
+   (``check.py``, or the entry's own comparison) once the peak memory is
+   read and the rest is freed;
 4. the last line of standard output: one JSON object with ``correct``,
    ``attempted``, ``failed``, ``metrics``, ``device``, (traced)
    ``breakdown``, and last ``checks``, each compared number with its
@@ -128,7 +129,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device="cuda",
 
     device = torch.device(device)
     c = cellmod.Cell(config, traffic, seed & (2**63 - 1), device)
-    program = cellmod.Program(c)
+    entry = None if traffic["entry"] in cellmod.ENTRIES else spec.entry(traffic["entry"])
+    program = cellmod.Program(c) if entry is None else entry.Program(c)
     out = program()  # warm: every shape of the window, every kernel built and loaded
     _sync(device)
     result = {"correct": False, "attempted": 0, "failed": 0, "metrics": {}}
@@ -157,27 +159,36 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device="cuda",
         marks = _stage_ms(detector.STAGE_MARKS or [])
         detector.STAGE_MARKS = None
         tr = trace.Trace(events, span, calls, c.frames, c.lanes, stage_ms=marks,
-                         detected_frames=c.lanes * c.frames)
+                         detected_frames=c.lanes * c.frames, traffic=traffic)
         result["attempted"] = calls
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    lanes = cellmod.sample_lanes(c.lanes, traffic["check_lanes"], c.seed)
-    got = cellmod.result_of(out, traffic["entry"])
-    idx = torch.as_tensor(lanes, device=device)
-    got = {k: v.index_select(0, idx) for k, v in got.items()}
-    detections = program.detections
+    if entry is None:
+        lanes = cellmod.sample_lanes(c.lanes, traffic["check_lanes"], c.seed)
+        got = cellmod.result_of(out, traffic["entry"])
+        idx = torch.as_tensor(lanes, device=device)
+        got = {k: v.index_select(0, idx) for k, v in got.items()}
+        detections = program.detections
+    else:
+        got = entry.result(out)
     program.close()
     del out, program
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = check.reference(c, lanes)
-    values = check.numbers(c, got, detections, ref)
-    print(f"portbench: the reference took {time.perf_counter() - t_ref:.1f} s for "
-          f"{len(lanes)} lanes", file=sys.stderr)
+    if entry is None:
+        ref = check.reference(c, lanes)
+        values = check.numbers(c, got, detections, ref)
+        what = f"{len(lanes)} lanes"
+    else:
+        ref = entry.reference(c)
+        values = entry.numbers(c, got, ref)
+        what = f"entry {traffic['entry']}"
+    print(f"portbench: the reference took {time.perf_counter() - t_ref:.1f} s for {what}",
+          file=sys.stderr)
     ok, table = check.judge(values, traffic["limits"])
     if traced:
-        tr.bounds = _bounds(c, ref)
+        tr.bounds = _bounds(c, ref) if entry is None else entry.bounds(c, ref)
         for m in spec.metrics("per_layer", workload):
             v = spec.reader("layers", m["name"])(tr)
             if v is not None:

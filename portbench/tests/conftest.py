@@ -13,7 +13,7 @@ import torch
 
 from portbench.spec import HERE, ROOT, Spec
 
-DATA = ("configs", "traffic", "end_to_end", "layers")
+DATA = ("configs", "traffic", "end_to_end", "layers", "entries")
 
 
 def tiny_copy(dest: Path, seconds: float = 2.0, lanes: int = 4, distinct: int = 2) -> Spec:

@@ -33,6 +33,7 @@ class Trace:
     bounds: dict = field(default_factory=dict)  # kernel family -> bound seconds a call
     stage_ms: list = field(default_factory=list)  # per detector call: {stage: ms}
     detected_frames: int = 0  # frames a call detects
+    traffic: dict = field(default_factory=dict)  # the cell's traffic file
 
     def busy_us(self) -> float:
         """Device-busy microseconds: the union of the events' intervals."""
